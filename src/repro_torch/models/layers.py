@@ -1,0 +1,270 @@
+"""Decoder layers over a paged KV cache: norms, RoPE, GQA attention (bias,
+qk-norm, softcap, sliding window) and the SwiGLU MLP.
+
+Port of the serving path of ``repro/models/layers.py``.  Layers are plain
+functions on tensors over parameter dicts with the reference's tree
+layout.  Precision contract as in the reference: matmuls run in the dtype
+the inputs carry, while ``rms_norm`` statistics, RoPE angles, attention
+logits and softmax are f32.
+
+Differences from the reference, none of which changes a result:
+  * the ``shard(...)`` calls and the tensor-parallel and ``cp`` branches
+    are gone (no-ops on one device; tensor parallelism is a later slice);
+  * the page pools are updated IN PLACE (``index_put_``) instead of
+    returning a new cache, which halves the pool's peak memory;
+  * single-token decode always goes through ``kernels.ops.paged_attention``
+    (the CUDA kernel for CUDA tensors, its plain version for CPU tensors);
+    chunked prefill and int8 pools take the gather path, as in the
+    reference (``layers.py:457-465``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import FULL_ATTENTION, ModelConfig
+from repro_torch.kernels import ops
+
+NEG_INF = -2.0e38
+INT32_MAX = 2**31 - 1
+
+
+def dense_init(gen, shape, dtype, device, lead=()):
+    """Normal weights scaled by ``shape[0] ** -0.5`` (the fan-in, as the
+    reference's ``dense_init``), drawn in f32 from the ``torch.Generator``
+    ``gen`` (which lives on ``device``).  ``lead`` is a shape prefix such
+    as ``(repeat,)`` for a stacked layer."""
+    fan_in = shape[0]
+    w = torch.randn(tuple(lead) + tuple(shape), generator=gen, device=device,
+                    dtype=torch.float32)
+    return (w * (1.0 / max(1, fan_in) ** 0.5)).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+def rms_norm(x, p, eps):
+    # statistics in f32; cast back to x's dtype BEFORE the scale multiply,
+    # as the reference does (the other order drifts in bf16)
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return out.to(x.dtype) * p["scale"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope(x, positions, theta):
+    """Half-split (not interleaved) rotary embedding.  x: (..., L, H, Dh),
+    positions: (..., L) int, theta: the layer's base."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freq = torch.arange(half, dtype=torch.float32, device=x.device) \
+        * (2.0 / dh)
+    # a Python base keeps theta off the device: a device scalar built here
+    # would be a host-to-device copy, and a synchronisation, per call
+    inv = torch.pow(float(theta), -freq)
+    ang = positions[..., None].float() * inv
+    sin, cos = ang.sin()[..., None, :], ang.cos()[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+def init_attention(gen, cfg: ModelConfig, dtype, device, lead=()):
+    d, h, kv, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.resolved_head_dim)
+    lead = tuple(lead)
+
+    def const(shape, fill):
+        return torch.full(lead + shape, fill, dtype=dtype, device=device)
+
+    p = {
+        "wq": dense_init(gen, (d, h, dh), dtype, device, lead=lead),
+        "wk": dense_init(gen, (d, kv, dh), dtype, device, lead=lead),
+        "wv": dense_init(gen, (d, kv, dh), dtype, device, lead=lead),
+        "wo": dense_init(gen, (h, dh, d), dtype, device, lead=lead),
+    }
+    if cfg.qkv_bias:
+        p["bq"], p["bk"], p["bv"] = (const((h, dh), 0.0), const((kv, dh), 0.0),
+                                     const((kv, dh), 0.0))
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": const((dh,), 1.0)}
+        p["k_norm"] = {"scale": const((dh,), 1.0)}
+    return p
+
+
+def _qkv(p, cfg, x):
+    q = torch.einsum("bld,dhk->blhk", x, p["wq"])
+    k = torch.einsum("bld,dhk->blhk", x, p["wk"])
+    v = torch.einsum("bld,dhk->blhk", x, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _softcap(cfg, logits):
+    if cfg.attn_logit_softcap:
+        c = cfg.attn_logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
+def _einsum(eq, a, b):
+    """``torch.einsum`` with ``jnp.einsum``'s type promotion (a bf16 pool
+    read by f32 activations computes in f32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def _sdpa_decode(cfg: ModelConfig, q, k, v, mask):
+    """Grouped attention of q (B,Lq,H,Dh) against k/v (B,S,KV,Dh) with
+    mask (B,1,Lq,S); logits and softmax in f32, PV in v's dtype."""
+    b, lq, h, dh = q.shape
+    kvh = k.shape[2]
+    q = q.reshape(b, lq, kvh, h // kvh, dh)
+    logits = _einsum("blkgd,bskd->bkgls", q, k).float()
+    logits = logits * dh ** -0.5
+    logits = _softcap(cfg, logits)
+    logits = torch.where(mask[:, :, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgls,bskd->blkgd", probs, v)
+    return out.reshape(b, lq, h, dh)
+
+
+# ---------------------------------------------------------------------------
+# paged attention (serving tier — block KV cache, DESIGN.md §10)
+# ---------------------------------------------------------------------------
+def init_paged_attn_cache(cfg: ModelConfig, num_pages, page_size, dtype,
+                          device, lead=()):
+    """``lead + (num_pages, page_size, KV, Dh)`` k/v page pools; page 0 is
+    the reserved trash page.  int8 pools add per-token-per-head f32
+    scales."""
+    kv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = tuple(lead) + (num_pages, page_size, kv, dh)
+    c = {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+         "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        c["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=device)
+        c["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=device)
+    return c
+
+
+def _quant_kv_int8(x):
+    """Per-token-per-head symmetric int8: x (..., Dh) → (int8, f32 scale)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = amax.clamp_min(1e-8) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _paged_write(cache, block_tables, positions, k, v):
+    """Scatter a chunk's KV (B, C, KV, Dh) into the pages IN PLACE.
+    positions: (B, C) int with -1 ⇒ pad/idle.  Every pad write goes to
+    (trash page 0, offset 0): the duplicate indices are harmless only
+    because no live table references that page."""
+    bs = cache["k_pages"].shape[1]
+    rows = torch.arange(positions.shape[0], device=positions.device)[:, None]
+    valid = positions >= 0
+    pc = positions.clamp_min(0).long()
+    zero = torch.zeros((), dtype=torch.long, device=positions.device)
+    blk = torch.where(valid, block_tables[rows, pc // bs].long(), zero)
+    off = torch.where(valid, pc % bs, zero)
+    if cache["k_pages"].dtype == torch.int8:
+        kq, ksc = _quant_kv_int8(k)
+        vq, vsc = _quant_kv_int8(v)
+        cache["k_pages"].index_put_((blk, off), kq)
+        cache["v_pages"].index_put_((blk, off), vq)
+        cache["k_scale"].index_put_((blk, off), ksc)
+        cache["v_scale"].index_put_((blk, off), vsc)
+    else:
+        dt = cache["k_pages"].dtype
+        cache["k_pages"].index_put_((blk, off), k.to(dt))
+        cache["v_pages"].index_put_((blk, off), v.to(dt))
+
+
+def _paged_gather(cache, block_tables, dtype):
+    """Dense (B, MB·page_size, KV, Dh) view of each sequence's pages;
+    f32/bf16 pages keep their stored dtype, int8 pages dequantize into
+    ``dtype``."""
+    bt = block_tables.long()
+    ks = cache["k_pages"][bt]  # (B, MB, bs, KV, Dh)
+    vs = cache["v_pages"][bt]
+    if cache["k_pages"].dtype == torch.int8:
+        ks = (ks.float() * cache["k_scale"][bt][..., None]).to(dtype)
+        vs = (vs.float() * cache["v_scale"][bt][..., None]).to(dtype)
+    b = bt.shape[0]
+    kv, dh = ks.shape[-2:]
+    return ks.reshape(b, -1, kv, dh), vs.reshape(b, -1, kv, dh)
+
+
+def attention_paged(p, cfg: ModelConfig, x, positions, window, theta,
+                    cache, block_tables):
+    """Attention over a paged KV cache — decode (C=1) and chunked prefill
+    (C>1) through one code path, write-then-attend.
+
+    x: (B, C, D); positions: (B, C) int32 (-1 ⇒ pad/idle: the KV write
+    goes to trash page 0 and the output row is garbage, which callers
+    mask); window: this layer's window (``FULL_ATTENTION`` = -1 is full);
+    block_tables: (B, pages_per_seq) int32.  Updates ``cache`` in place.
+    """
+    q, k, v = _qkv(p, cfg, x)
+    b, c = x.shape[0], x.shape[1]
+    pc = positions.clamp_min(0)
+    q = rope(q, pc, theta)
+    k = rope(k, pc, theta)
+    _paged_write(cache, block_tables, positions, k, v)
+
+    h, dh = q.shape[2], q.shape[3]
+    kvh = cfg.num_kv_heads
+    if c == 1 and cache["k_pages"].dtype != torch.int8:
+        # grouped (kv, g) order: query head i reads kv head i // G
+        qg = q[:, 0].reshape(b, kvh, h // kvh, dh)
+        ctx = (pc[:, 0] + 1).to(torch.int32)
+        out = ops.paged_attention(
+            qg, cache["k_pages"], cache["v_pages"], block_tables, ctx,
+            window=window, softcap=cfg.attn_logit_softcap)
+        out = out.reshape(b, 1, h, dh)
+    else:
+        ks, vs = _paged_gather(cache, block_tables, x.dtype)
+        s = ks.shape[1]
+        i = pc[:, :, None].long()                              # (B, C, 1)
+        j = torch.arange(s, device=x.device)[None, None, :]    # (1, 1, S)
+        w = INT32_MAX if window == FULL_ATTENTION else window
+        mask = (j <= i) & (i - j < w)                          # (B, C, S)
+        out = _sdpa_decode(cfg, q, ks, vs, mask[:, None])
+    return _einsum("blhk,hkd->bld", out, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# dense MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+def init_mlp(gen, cfg: ModelConfig, dtype, device, lead=()):
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "w_gate": dense_init(gen, (d, f), dtype, device, lead=lead),
+        "w_up": dense_init(gen, (d, f), dtype, device, lead=lead),
+        "w_down": dense_init(gen, (f, d), dtype, device, lead=lead),
+    }
+
+
+def _act(name):
+    # jax.nn.gelu defaults to the tanh approximation
+    return {"silu": F.silu,
+            "gelu": lambda t: F.gelu(t, approximate="tanh"),
+            "relu": F.relu}[name]
+
+
+def mlp(p, cfg: ModelConfig, x):
+    return (_act(cfg.act)(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]

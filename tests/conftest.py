@@ -43,6 +43,11 @@ def pytest_configure(config):
         "straggler demotion/promotion, and the seeded chaos controller "
         "runs; CI runs `pytest -m chaos` as its own matrix entry, and "
         "the marks also run in plain tier-1")
+    config.addinivalue_line(
+        "markers",
+        "torch: PyTorch port tier (src/repro_torch, tests/test_torch_*.py) "
+        "— the port held against the JAX package on the CPU; the few "
+        "tests that need a CUDA card skip without one, with a reason")
 
 
 @pytest.fixture(scope="session")

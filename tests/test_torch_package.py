@@ -1,0 +1,121 @@
+"""The port stands alone: it imports torch and numpy, never JAX and nothing
+of the JAX package, and its entry points run on the card unless the caller
+asks for the CPU."""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro_torch.bridge import params_from_numpy
+from repro_torch.configs import get_config, list_configs
+from repro_torch.kernels import _build
+from repro_torch.models import transformer as TT
+from repro_torch.serve.engine import PagedDecodeEngine
+
+pytestmark = pytest.mark.torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print(','.join(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+    assert len(MODULES) >= 12
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_sources_import_no_jax_and_nothing_of_repro(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    _no_cuda()
+    cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(),
+                              num_layers=1, d_model=32, vocab_size=32)
+    params = TT.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
+    with pytest.raises(RuntimeError, match="cuda.is_available"):
+        PagedDecodeEngine(params, cfg, batch_slots=1, max_seq=8)
+    with pytest.raises(RuntimeError, match="cuda.is_available"):
+        TT.init_model(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="cuda.is_available"):
+        TT.init_paged_cache(cfg, num_pages=2, page_size=4)
+    with pytest.raises(RuntimeError, match="cuda.is_available"):
+        params_from_numpy({"w": np.zeros(2, np.float32)})
+
+
+def test_build_raises_without_nvcc(tmp_path, monkeypatch):
+    """No nvcc, no kernel: the build raises rather than falling back."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "nowhere"))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(_build, "_loaded", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("paged_attention")
+    assert not (tmp_path / "build").exists()
+
+
+def test_build_targets_sm90a_and_every_source():
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-shared" in flags and "-fPIC" in flags
+    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) \
+        == ["paged_attention"]
+
+
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "gemma3-1b"])
+def test_configs_copy_the_reference_field_for_field(name):
+    ours, ref = get_config(name), jax_config(name)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(ours.reduced()) \
+        == dataclasses.asdict(ref.reduced())
+    assert ours.param_count() == ref.param_count()
+    assert ours.resolved_head_dim == ref.resolved_head_dim
+    for a, b in zip(ours.layer_windows(), ref.layer_windows()):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_config_registry_and_dtype_check():
+    assert list_configs() == ["gemma3-1b", "qwen2-1.5b"]
+    with pytest.raises(KeyError):
+        get_config("llama-7b")
+    with pytest.raises(ValueError, match="supported precision"):
+        dataclasses.replace(get_config("qwen2-1.5b"), param_dtype="int4")
