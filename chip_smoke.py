@@ -1,14 +1,24 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paged serving path on one CUDA card.
+"""Drive the PyTorch port's paged serving and data-parallel training paths
+on one CUDA card.
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the path from ``src/repro_torch/kernels/csrc``
-(into ``build/kernels/``), holds each kernel against its plain PyTorch
-version, serves qwen2-1.5b at full width and depth and gemma3-1b at full
-width through ``repro_torch.serve.engine.PagedDecodeEngine``, checks the
-card's greedy tokens against the CPU's on a two-layer cut of qwen2-1.5b,
-and times the kernel against its bound, its plain version and one PyTorch
+Builds every CUDA kernel from ``src/repro_torch/kernels/csrc`` (into
+``build/kernels/``), holds each kernel against its plain PyTorch version,
+then drives the two main paths through their entry points:
+
+  * serving: qwen2-1.5b at full width and depth and gemma3-1b at full
+    width through ``repro_torch.serve.engine.PagedDecodeEngine``, and the
+    card's greedy tokens against the CPU's on a two-layer cut;
+  * training: the trainer CLI's body (``repro_torch.launch.train.train``)
+    on qwen2-1.5b at full width, cut to 4 layers, W = 4 replicas, under
+    ``sync`` with ``--compressor onebit`` and ``topk`` and ``--fused-adam``;
+    one step of each under ``torch.profiler``; and the card's losses
+    against the CPU's on a two-layer, W = 2 cut.
+
+Each kernel's launches are counted from zero over the paths that run it,
+and each is timed against its bound, its plain version and one PyTorch
 call.  Each line of output is a JSON object, except the raw
 ``nvidia-smi --query-gpu=name,power.limit`` line just before the last;
 the last line is ``{"ok": true, "device": {...}}``.  Any failed phase
@@ -18,8 +28,11 @@ card and exits non-zero when ``torch.cuda.is_available()`` is false.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -32,6 +45,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
+F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, data sheet
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -390,6 +404,373 @@ def time_kernel(pa, launches_per_step, smi):
 
 
 # ---------------------------------------------------------------------------
+# training kernels against their plain versions
+# ---------------------------------------------------------------------------
+def code_rows(seed, nb, block):
+    """(g, r) CUDA rows with the cases the encode kernels must get right:
+    all-zero rows (a zero-padded tail block), a row with two nonzeros
+    (fewer than k), tied magnitudes, -0.0 targets (taken and untaken)."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((nb, block), dtype=np.float32)
+    r = 0.1 * rng.standard_normal((nb, block), dtype=np.float32)
+    g[0:2], r[0:2] = 0.0, 0.0
+    g[2], r[2] = 0.0, 0.0
+    g[2, 5], g[2, block - 3] = 1.5, -2.5
+    g[3], r[3] = 0.5, 0.0
+    g[3, ::2] = -0.5
+    g[4, ::3], r[4, ::3] = -0.0, -0.0
+    g[5], r[5] = -0.0, -0.0  # every target -0.0: the taken ones too
+    g[5, 1] = 3.0
+    return (torch.from_numpy(g).to("cuda"), torch.from_numpy(r).to("cuda"))
+
+
+def bitwise_equal(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def check_onebit(ob):
+    """Packed bytes equal to the plain version's; scales equal or one bf16
+    ulp apart (the f32 sum runs in another order); r' bitwise equal to
+    t - sign * f32(the kernel's own scale)."""
+    worst_ulp, off_rows, err, cases = 0, 0, 0.0, 0
+    for block, nb in ((256, 20_011), (64, 5_003)):
+        g, r = code_rows(block, nb, block)
+        packed, scale, new_r = ob.onebit_quant_packed(g, r)
+        pp, ps, pr = ob.onebit_quant_packed_plain(g, r)
+        torch.cuda.synchronize()
+        if not bitwise_equal(packed, pp):
+            raise AssertionError(f"onebit block {block}: packed bytes differ")
+        ulps = (scale.view(torch.int16).int()
+                - ps.view(torch.int16).int()).abs()  # scales are >= 0
+        worst_ulp = max(worst_ulp, int(ulps.max().item()))
+        off_rows += int((ulps > 0).sum().item())
+        t = g + r
+        own = t - torch.where(t >= 0, 1.0, -1.0) * scale.float()
+        if not bitwise_equal(new_r, own):
+            raise AssertionError(f"onebit block {block}: r' is not "
+                                 "t - sign * f32(scale)")
+        err = max(err, (scale.float() - ps.float()).abs().max().item(),
+                  (new_r - pr).abs().max().item())
+        cases += 1
+    if worst_ulp > 1:
+        raise AssertionError(f"onebit scale {worst_ulp} bf16 ulps off")
+    return {"phase": "kernel_check_onebit", "cases": cases,
+            "packed": "bitwise", "residual_vs_own_scale": "bitwise",
+            "scale_max_bf16_ulps": worst_ulp, "scale_rows_1ulp": off_rows,
+            "max_abs_err_vs_plain": err,
+            "tol": "packed exact; scale <= 1 bf16 ulp; r' exact vs own scale"}
+
+
+def check_topk(tk):
+    """vals, idx and r' bitwise equal to the plain version's."""
+    cases = 0
+    for block, k, nb in ((1024, 10, 5_003), (64, 5, 7_001)):
+        g, r = code_rows(block + k, nb, block)
+        got = tk.topk_encode_ef(g, r, k)
+        want = tk.topk_encode_ef_plain(g, r, k)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("vals", "idx", "r'"), got, want):
+            if not bitwise_equal(a, b):
+                raise AssertionError(f"topk block {block} k {k}: {name} "
+                                     "differ")
+        cases += 1
+    return {"phase": "kernel_check_topk", "cases": cases,
+            "vals_idx_residual": "bitwise", "max_abs_err_vs_plain": 0.0,
+            "tol": "bitwise"}
+
+
+def check_adam(fa):
+    """rtol 1e-5, atol 1e-6: the JAX package's own kernel tolerance."""
+    err, cases = 0.0, 0
+    for n, dt in ((1_000_003, torch.float32), (65_537, torch.bfloat16)):
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        p = torch.randn(n, device="cuda", generator=gen).to(dt)
+        g = torch.randn(n, device="cuda", generator=gen)
+        m = 0.1 * torch.randn(n, device="cuda", generator=gen)
+        v = torch.rand(n, device="cuda", generator=gen)
+        for t in (1, 7):
+            tt = torch.tensor(float(t), device="cuda")
+            consts = torch.stack([torch.tensor(1e-3, device="cuda"),
+                                  1.0 - 0.9 ** tt, 1.0 - 0.999 ** tt])
+            a = [x.clone() for x in (p, g, m, v)]
+            b = [x.clone() for x in (p, g, m, v)]
+            fa.fused_adam(a[0], a[1], a[2], a[3], consts)
+            fa.fused_adam_plain(b[0], b[1], b[2], b[3], consts)
+            torch.cuda.synchronize()
+            for x, y in zip((a[0], a[2], a[3]), (b[0], b[2], b[3])):
+                torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+                err = max(err, (x.float() - y.float()).abs().max().item())
+            cases += 1
+    return {"phase": "kernel_check_adam", "cases": cases,
+            "max_abs_err_vs_plain": err, "tol": "rtol 1e-5, atol 1e-6"}
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+TRAIN_W, TRAIN_B, TRAIN_L, TRAIN_LAYERS, TRAIN_STEPS = 4, 4, 64, 4, 10
+
+
+def train_path(kernels, get_config, compressor, smi):
+    """The trainer CLI's body at full width, depth cut, on the card: each
+    kernel's launch count set to 0 just before and read just after."""
+    from repro_torch.core.comm import LocalComm
+    from repro_torch.core.compression import get_compressor
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.launch import train as CLI
+
+    argv = ["--arch", "qwen2-1.5b", "--strategy", "sync", "--compressor",
+            compressor, "--fused-adam", "--workers", str(TRAIN_W),
+            "--batch-per-worker", str(TRAIN_B), "--seq-len", str(TRAIN_L),
+            "--steps", str(TRAIN_STEPS), "--log-every", "1",
+            "--device", "cuda"]
+    args = CLI.build_argparser().parse_args(argv)
+    CLI.check_ported(args)
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                              num_layers=TRAIN_LAYERS)
+    comp = (get_compressor("topk", ratio=0.01) if compressor == "topk"
+            else get_compressor(compressor))
+    rec = {"t": [], "loss": [], "div": [], "wire": []}
+    prof = {}
+
+    def on_step(t, state, m):
+        torch.cuda.synchronize()
+        rec["t"].append(time.perf_counter())
+        rec["loss"].append(float(m["loss"]))
+        rec["div"].append(float(m["replica_divergence"]))
+        rec["wire"].append(m["wire_bytes"].item())
+        if t == 0:
+            lay = Fabric(LocalComm(TRAIN_W)).layout(state["params"])
+            rec["lay"] = (lay.n_buckets, lay.n_leaves,
+                          Fabric(LocalComm(TRAIN_W)).wire_bytes(lay, comp))
+        if t == TRAIN_STEPS - 2:  # the last step runs under the profiler
+            prof["p"] = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+            rec["t"][-1] = time.perf_counter()
+        if t == TRAIN_STEPS - 1:
+            prof["p"].__exit__(None, None, None)
+
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        CLI.train(args, cfg, on_step=on_step)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+
+    n_buckets, n_leaves, wire_closed = rec["lay"]
+    expect = {"fused_adam": n_leaves * TRAIN_STEPS,
+              ("onebit_quant_packed" if compressor == "onebit"
+               else "topk_encode_ef"): n_buckets * TRAIN_STEPS}
+    for name, n in launches.items():
+        if n != expect.get(name, 0):
+            raise AssertionError(f"train {compressor}: {name} launched {n} "
+                                 f"times, expected {expect.get(name, 0)}")
+    if not all(math.isfinite(x) for x in rec["loss"]):
+        raise AssertionError(f"train {compressor}: loss {rec['loss']}")
+    if any(d != 0.0 for d in rec["div"]):
+        raise AssertionError(f"train {compressor}: replica divergence "
+                             f"{rec['div']} (sync must keep it 0)")
+    if any(w != float(np.float32(wire_closed)) for w in rec["wire"]):
+        raise AssertionError(f"train {compressor}: wire_bytes {rec['wire']} "
+                             f"!= closed form {wire_closed}")
+    steps_s = np.diff(np.asarray(rec["t"]))  # steps 1 .. STEPS-1
+    timed = steps_s[:-1]  # the last one ran under the profiler
+    step_ms = 1e3 * statistics.median(timed.tolist())
+    result = {
+        "phase": f"train_{compressor}", "arch": cfg.name,
+        "layers": TRAIN_LAYERS, "d_model": cfg.d_model, "dtype": "float32",
+        "workers": TRAIN_W, "batch_per_worker": TRAIN_B, "seq_len": TRAIN_L,
+        "steps": TRAIN_STEPS, "fused_adam": True,
+        "params_per_replica": cfg.param_count(),
+        "n_buckets": n_buckets, "n_leaves": n_leaves,
+        "launches": launches,
+        "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+        "step_ms_median": step_ms,
+        "step_ms_all": (1e3 * steps_s).tolist(),
+        "tokens_per_s": TRAIN_W * TRAIN_B * TRAIN_L / (step_ms / 1e3),
+        "loss": rec["loss"], "wire_bytes": rec["wire"][0],
+        "wire_bytes_closed_form": wire_closed,
+        "replica_divergence_max": max(rec["div"]),
+        "peak_mem_gb": peak / 1e9, "wall_s": wall,
+        "cli_lines": out.getvalue().splitlines()[:3], "card": smi,
+    }
+    return result, profile_summary(prof["p"], 1e3 * steps_s[-1], compressor)
+
+
+def profile_summary(prof, step_ms, compressor):
+    """Device-busy share, kernels per step, the top device ops and the time
+    of the port's kernels, from one profiled train step."""
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    ours = {name: sum(e.self_device_time_total for e in events
+                      if name in e.key) / 1e3
+            for name in ("onebit_quant_packed_kernel",
+                         "topk_encode_ef_kernel", "fused_adam_kernel")}
+    return {"phase": "profile_train", "compressor": compressor,
+            "step_ms_under_profiler": step_ms,
+            "device_ms_per_step": dev_ms,
+            "device_busy_share": dev_ms / step_ms if step_ms else None,
+            "device_kernels_per_step": sum(e.count for e in events),
+            "port_kernels_ms": ours,
+            "top_device_ms": {e.key[:70]: e.self_device_time_total / 1e3
+                              for e in top}}
+
+
+def train_card_vs_cpu(get_config):
+    """The same initial state and batches through the train step on the
+    card and on the CPU: qwen2-1.5b at full width cut to 2 layers, W = 2,
+    3 steps, onebit and fused Adam, f32 with TF32 off."""
+    from repro_torch.core import tree as TT
+    from repro_torch.core.comm import LocalComm
+    from repro_torch.core.compression import get_compressor
+    from repro_torch.core.strategies import sync
+    from repro_torch.data.pipeline import DataConfig, worker_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam, warmup_cosine
+    from repro_torch.train.loop import (init_train_state, make_loss_fn,
+                                        make_replica_train_step)
+
+    w, steps = 2, 3
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=2)
+    comm = LocalComm(w)
+    strategy = sync(compressor=get_compressor("onebit"))
+    opt = adam(warmup_cosine(1e-3, 1, steps), fused=True)
+    loss_fn = make_loss_fn(cfg)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                      batch_per_worker=2, seed=3)
+    params = comm.replicate(T.init_model(torch.Generator().manual_seed(3),
+                                         cfg, device="cpu"))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        state = init_train_state(TT.tree_map(lambda x, d=dev: x.to(d),
+                                             params), opt, strategy, comm)
+        step = make_replica_train_step(
+            lambda p, x: loss_fn(p, {"tokens": x, "labels": x}), opt,
+            strategy, comm)
+        losses, wires = [], []
+        t0 = time.perf_counter()
+        for t in range(steps):
+            state, m = step(state, worker_batches(dcfg, w, t, device=dev))
+            losses.append(float(m["loss"]))
+            wires.append(m["wire_bytes"].item())
+        runs[dev] = (losses, wires, time.perf_counter() - t0)
+        del state
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"][0],
+                                                  runs["cpu"][0]))
+    if runs["cuda"][1] != runs["cpu"][1]:
+        raise AssertionError(f"card vs CPU wire_bytes {runs['cuda'][1]} vs "
+                             f"{runs['cpu'][1]}")
+    if not rel <= 1e-4:
+        raise AssertionError(f"card vs CPU losses {runs['cuda'][0]} vs "
+                             f"{runs['cpu'][0]}: rel {rel} > 1e-4")
+    return {"phase": "train_card_vs_cpu", "arch": cfg.name, "layers": 2,
+            "workers": w, "steps": steps, "compressor": "onebit",
+            "fused_adam": True, "dtype": "float32",
+            "loss_cuda": runs["cuda"][0], "loss_cpu": runs["cpu"][0],
+            "loss_max_rel_diff": rel, "tol_rel": 1e-4,
+            "wire_bytes": runs["cuda"][1][0],
+            "cpu_s": runs["cpu"][2], "cuda_s": runs["cuda"][2]}
+
+
+def time_train_kernels(ob, tk, fa, launches, get_config, smi):
+    """Each training kernel on the largest bucket of the path, the tied
+    embedding of W replicas (W x 151936 x 1536 elements for qwen2-1.5b),
+    against its bound, its plain version and one PyTorch call where one
+    exists."""
+    cfg = get_config("qwen2-1.5b")
+    n = TRAIN_W * cfg.vocab_size * cfg.d_model
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        flush_buf.zero_()  # 256 MB > the 50 MB L2
+
+    def bound(nbytes, ops):
+        b, o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        return 1e3 * max(b, o), "bytes" if b >= o else "operations"
+
+    out = {}
+    saved = {k: fn.launches for k, fn in
+             (("ob", ob.onebit_quant_packed), ("tk", tk.topk_encode_ef),
+              ("fa", fa.fused_adam))}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    g = torch.randn(n, device="cuda", generator=gen)
+    r = 0.1 * torch.randn(n, device="cuda", generator=gen)
+
+    # onebit: rows of 256; per element read g, r, write r' (12 B) + 1/8 B
+    # of signs, + 2 B of scale per row; ~6 f32 ops per element
+    gb, rb = g.view(-1, 256), r.view(-1, 256)
+    rows = gb.shape[0]
+    ms = cuda_ms(lambda: ob.onebit_quant_packed(gb, rb), 10, flush)
+    plain = cuda_ms(lambda: ob.onebit_quant_packed_plain(gb, rb), 3, flush)
+    bms, by = bound(12 * n + n // 8 + 2 * rows, 6 * n)
+    out["onebit_quant_packed"] = {
+        "shape": [rows, 256], "ms": ms, "plain_ms": plain, "bound_ms": bms,
+        "bound_by": by, "library_ms": None,
+        "library_note": "no single PyTorch call packs signs with a scale"}
+
+    # topk: rows of 1024, k 10; per element 12 B, per row 8k B; k rounds
+    # of a compare and a select per element
+    k = 10
+    gb, rb = g.view(-1, 1024), r.view(-1, 1024)
+    rows = gb.shape[0]
+    ms = cuda_ms(lambda: tk.topk_encode_ef(gb, rb, k), 10, flush)
+    plain = cuda_ms(lambda: tk.topk_encode_ef_plain(gb, rb, k), 2, flush)
+    tb = gb + rb
+    lib = cuda_ms(lambda: torch.topk(tb.abs(), k, dim=-1), 5, flush)
+    del tb
+    bms, by = bound(12 * n + 8 * k * rows, 2 * k * n + 2 * n)
+    out["topk_encode_ef"] = {
+        "shape": [rows, 1024], "k": k, "ms": ms, "plain_ms": plain,
+        "bound_ms": bms, "bound_by": by, "library_ms": lib,
+        "library_note": "torch.topk(t.abs(), k): selection only, no error "
+                        "feedback"}
+    del gb, rb
+
+    # adam: read p, g, m, v, write p, m, v (28 B with f32 p); ~15 ops
+    p = torch.randn(n, device="cuda", generator=gen)
+    m = torch.zeros(n, device="cuda")
+    v = torch.zeros(n, device="cuda")
+    consts = torch.tensor([1e-3, 0.1, 1e-3], device="cuda")
+    ms = cuda_ms(lambda: fa.fused_adam(p, g, m, v, consts), 10, flush)
+    plain = cuda_ms(lambda: fa.fused_adam_plain(p, g, m, v, consts), 3,
+                    flush)
+    del m, v
+    lp = torch.nn.Parameter(p)
+    lp.grad = g
+    lib_opt = torch.optim.Adam([lp], lr=1e-3, fused=True)
+    lib = cuda_ms(lib_opt.step, 5, flush)
+    del lib_opt, lp, p
+    bms, by = bound(28 * n, 15 * n)
+    out["fused_adam"] = {
+        "shape": [n], "ms": ms, "plain_ms": plain, "bound_ms": bms,
+        "bound_by": by, "library_ms": lib,
+        "library_note": "torch.optim.Adam(fused=True).step() on one "
+                        "parameter; never called by the port"}
+    del g, r
+    torch.cuda.empty_cache()
+    ob.onebit_quant_packed.launches = saved["ob"]
+    tk.topk_encode_ef.launches = saved["tk"]
+    fa.fused_adam.launches = saved["fa"]
+    for name, rec in out.items():
+        rec["launches"] = launches[name]
+    return {"phase": "time_train_kernels", "elements": n, "kernels": out,
+            "card": smi}
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -399,7 +780,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_adam as fa
+    from repro_torch.kernels import onebit_quant as ob
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import topk_sparsify as tk
     from repro_torch.models import transformer as T
     from repro_torch.serve.engine import PagedDecodeEngine, Request
 
@@ -412,20 +796,30 @@ def main() -> int:
 
     t = time.perf_counter()
     libs = _build.build_all()
-    # ptxas -v: registers and spills of every compiled kernel
-    regs, spills = [], []
-    for path in libs.values():
+    # ptxas -v: registers and spill bytes (stores + loads) of each library
+    per_lib = {}
+    for name, path in sorted(libs.items()):
         log = path.with_suffix(".log")
         text = log.read_text() if log.exists() else ""
-        regs += [int(r) for r in re.findall(r"Used (\d+) registers", text)]
-        spills += [int(s) for s in re.findall(r"(\d+) bytes spill", text)]
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = [int(s) for s in re.findall(r"(\d+) bytes spill", text)]
+        per_lib[name] = {"kernels": len(regs),
+                         "max_registers": max(regs, default=None),
+                         "spill_bytes": sum(spills)}
     emit({"phase": "build", "libs": sorted(libs),
-          "s": time.perf_counter() - t, "kernels_compiled": len(regs),
-          "max_registers": max(regs, default=None),
-          "spill_bytes": sum(spills)})
+          "s": time.perf_counter() - t,
+          "kernels_compiled": sum(v["kernels"] for v in per_lib.values()),
+          "max_registers": max((v["max_registers"] or 0
+                                for v in per_lib.values()), default=None),
+          "spill_bytes": sum(v["spill_bytes"] for v in per_lib.values()),
+          "per_library": per_lib})
 
     check = check_kernel(pa)
     emit({"phase": "kernel_check", **check})
+    checks = {"onebit_quant_packed": check_onebit(ob),
+              "topk_encode_ef": check_topk(tk), "fused_adam": check_adam(fa)}
+    for c in checks.values():
+        emit(c)
 
     def bf16(name):
         return dataclasses.replace(get_config(name), param_dtype="bfloat16",
@@ -449,9 +843,43 @@ def main() -> int:
 
     emit(card_vs_cpu(T, PagedDecodeEngine, Request, get_config))
 
+    train_kernels = {"onebit_quant_packed": ob.onebit_quant_packed,
+                     "topk_encode_ef": tk.topk_encode_ef,
+                     "fused_adam": fa.fused_adam}
+    train_launches = dict.fromkeys(train_kernels, 0)
+    for comp in ("onebit", "topk"):
+        result, prof = train_path(train_kernels, get_config, comp, smi)
+        emit(result)
+        emit(prof)
+        for k, n in result["launches"].items():
+            train_launches[k] += n
+        torch.cuda.empty_cache()
+    emit(train_card_vs_cpu(get_config))
+
     timing = time_kernel(pa, main_path_launches / serve_qwen["decode_steps"],
                          smi)
     emit(timing)
+    train_timing = time_train_kernels(ob, tk, fa, train_launches, get_config,
+                                      smi)
+    emit(train_timing)
+
+    sources = {"onebit_quant_packed": ("onebit_quant.cu",
+                                       "src/repro/kernels/onebit_quant.py:101"),
+               "topk_encode_ef": ("topk_sparsify.cu",
+                                  "src/repro/kernels/topk_sparsify.py:113"),
+               "fused_adam": ("fused_adam.cu",
+                              "src/repro/kernels/fused_adam.py:35")}
+    rows = []
+    for name, (src, replaces) in sources.items():
+        tim = train_timing["kernels"][name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": train_launches[name],
+            "max_abs_err": checks[name]["max_abs_err_vs_plain"],
+            "tol": checks[name]["tol"], "ms": tim["ms"],
+            "plain_ms": tim["plain_ms"], "bound_ms": tim["bound_ms"],
+            "bound_by": tim["bound_by"], "library_ms": tim["library_ms"]})
 
     emit({"kernels": [{
         "name": "paged_attention", "route": "cuda",
@@ -467,7 +895,7 @@ def main() -> int:
         "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": "bytes",
         "library_ms": timing["library_ms"],
-    }], "total_s": time.perf_counter() - t_start})
+    }] + rows, "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

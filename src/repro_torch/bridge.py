@@ -1,7 +1,9 @@
-"""Parameters between the JAX package's tree and the port's tensors.
+"""Parameters and train states between the JAX package's trees and the
+port's tensors.
 
-Both packages use the same nested-dict layout (``models/transformer.py``),
-so the conversion is a pure copy, leaf by leaf, through numpy.  bfloat16
+Both packages use the same nested-dict layout (``models/transformer.py``,
+``train/loop.py::init_train_state``), so the conversion is a pure copy,
+leaf by leaf, through numpy.  bfloat16
 leaves go through a 16-bit integer view: ``torch.from_numpy`` rejects
 ml_dtypes' ``bfloat16``.
 """
@@ -53,3 +55,22 @@ def params_to_numpy(tree):
 
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
+
+
+def train_state_from_numpy(state, device="cuda"):
+    """A train state of the JAX package after ``np.asarray`` (stacked
+    ``params``, ``opt_state`` m/v, ``comm_state`` residual, ``step``) →
+    the port's, on ``device``; ``step`` becomes an int32 scalar tensor."""
+    out = params_from_numpy({k: v for k, v in state.items() if k != "step"},
+                            device)
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32,
+                               device=resolve_device(device))
+    return out
+
+
+def train_state_to_numpy(state):
+    """Inverse of ``train_state_from_numpy``."""
+    out = params_to_numpy({k: v for k, v in state.items() if k != "step"})
+    out["step"] = np.asarray(int(state["step"]), np.int32)
+    return out

@@ -1,0 +1,291 @@
+"""Bucketed flat-buffer exchange fabric.
+
+Port of ``repro/core/fabric.py`` for the stacked-replica simulator
+(``LocalComm``).  The ``Fabric`` flattens a gradient tree into size-capped
+flat f32 buckets (leaves in ``jax.tree`` order, ``core/tree.py``) and
+drives each ``Comm`` primitive once per bucket.  Compression with error
+feedback runs on the flat buffer: by default through the compressor's
+fused encode (one kernel launch per bucket, all replicas folded into its
+rows), else through the codec's compress → pack → unpack → decode round.
+``wire_bytes`` is the exact size of the packed uint8 buffer a sharded
+exchange would gather per bucket.
+
+Replica safety: the ``comm.lead_axes`` leading replica axes are kept
+through flattening, and every per-replica decode runs replica by replica
+(``_vmap_replicas``), so a compression block never mixes two replicas.
+
+The wire is f32: the partitioned (ZeRO) layout, the narrow bf16 wire of
+the precision policy, DGC, the microbatch accumulator and the
+``ShardComm`` branches are later slices of the port.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core import tree as T
+from repro_torch.core.compression import (Compressor, _narrow_wire, _pack,
+                                          _unpack, packed_nbytes)
+
+DEFAULT_BUCKET_BYTES = 4 << 20  # 4 MiB of f32 per bucket
+
+
+def _prod(shape):
+    n = 1
+    for s in shape:
+        n *= s
+    return n
+
+
+# ---------------------------------------------------------------------------
+# layout
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class BucketLayout:
+    """Static description of the tree ↔ flat-bucket correspondence.
+
+    Leaves are assigned greedily, in tree order, to f32 buckets holding at
+    most ``bucket_bytes`` (a leaf larger than the cap gets its own bucket;
+    leaves are never split).  ``lead_shape`` is the common shape of the
+    leading replica axes; offsets and sizes count trailing elements."""
+
+    treedef: Any
+    lead_shape: tuple
+    shapes: tuple  # per-leaf trailing shape
+    dtypes: tuple  # per-leaf original dtype
+    sizes: tuple  # per-leaf trailing element count
+    bucket_of: tuple  # leaf index -> bucket index
+    offsets: tuple  # leaf offset inside its bucket (elements)
+    bucket_sizes: tuple  # elements per bucket
+    bucket_bytes: int
+
+    @property
+    def n_leaves(self) -> int:
+        return len(self.sizes)
+
+    @property
+    def n_buckets(self) -> int:
+        return len(self.bucket_sizes)
+
+    @property
+    def total_elements(self) -> int:
+        return sum(self.bucket_sizes)
+
+    @staticmethod
+    def build(tree, bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+              lead_axes: int = 0) -> "BucketLayout":
+        leaves, treedef = T.flatten(tree)
+        lead_shape = tuple(leaves[0].shape[:lead_axes]) if leaves else ()
+        for x in leaves:
+            if tuple(x.shape[:lead_axes]) != lead_shape:
+                raise ValueError(
+                    f"inconsistent replica axes: {tuple(x.shape[:lead_axes])}"
+                    f" vs {lead_shape} (lead_axes={lead_axes})")
+        shapes = tuple(tuple(x.shape[lead_axes:]) for x in leaves)
+        dtypes = tuple(x.dtype for x in leaves)
+        sizes = tuple(_prod(s) for s in shapes)
+        cap = max(1, bucket_bytes // 4)  # elements of f32
+        bucket_of, offsets, bucket_sizes = [], [], []
+        cur = -1  # no open bucket
+        for sz in sizes:
+            if cur < 0 or (bucket_sizes[cur] > 0
+                           and bucket_sizes[cur] + sz > cap):
+                bucket_sizes.append(0)
+                cur += 1
+            bucket_of.append(cur)
+            offsets.append(bucket_sizes[cur])
+            bucket_sizes[cur] += sz
+        return BucketLayout(treedef, lead_shape, shapes, dtypes, sizes,
+                            tuple(bucket_of), tuple(offsets),
+                            tuple(bucket_sizes), bucket_bytes)
+
+    # -- tree <-> buckets ---------------------------------------------------
+    def bucketize(self, tree):
+        """Tree → list of f32 buckets of shape lead_shape + (n_b,).  A
+        bucket of one f32 leaf is a view of it, not a copy."""
+        flats = [x.float().reshape(self.lead_shape + (-1,))
+                 for x in T.leaves(tree)]
+        out = []
+        for b in range(self.n_buckets):
+            segs = [flats[i] for i in range(self.n_leaves)
+                    if self.bucket_of[i] == b]
+            out.append(segs[0] if len(segs) == 1
+                       else torch.cat(segs, dim=-1))
+        return out
+
+    def debucketize(self, buckets, cast: bool = True):
+        """Buckets → tree (cast back to the leaf dtypes unless
+        ``cast=False``, which keeps f32, as residual state does).  Leaves
+        are views into the buckets where the shapes allow."""
+        leaves = []
+        for i in range(self.n_leaves):
+            b = buckets[self.bucket_of[i]]
+            seg = b[..., self.offsets[i]:self.offsets[i] + self.sizes[i]]
+            seg = seg.reshape(self.lead_shape + self.shapes[i])
+            leaves.append(seg.to(self.dtypes[i]) if cast else seg)
+        return T.unflatten(self.treedef, leaves)
+
+
+# ---------------------------------------------------------------------------
+# wire accounting (the codec itself lives in core/compression.py)
+# ---------------------------------------------------------------------------
+def wire_nbytes(compressor: Optional[Compressor], n: int) -> int:
+    """Exact packed-wire size (bytes) to ship ``n`` f32 elements once: raw
+    f32 uncompressed, else the compressor's packed format."""
+    return packed_nbytes(compressor, n)
+
+
+# ---------------------------------------------------------------------------
+# fabric
+# ---------------------------------------------------------------------------
+class Fabric:
+    """Bucket-fused tensor moving over a ``LocalComm``: every public op
+    issues at most one collective per bucket.  Residual state stays
+    param-shaped f32 trees."""
+
+    def __init__(self, comm, bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                 fused: bool = True):
+        self.comm = comm
+        self.bucket_bytes = bucket_bytes
+        # compressed exchanges go through the compressor's fused encode
+        # (kernels/ops.py) when it has one; bitwise identical to the codec
+        self.fused = fused
+
+    def layout(self, tree) -> BucketLayout:
+        return BucketLayout.build(tree, self.bucket_bytes,
+                                  self.comm.lead_axes)
+
+    # -- plain (uncompressed) fused collectives -----------------------------
+    def all_mean(self, tree):
+        return self._reduce(tree, mean=True)
+
+    def all_sum(self, tree):
+        return self._reduce(tree, mean=False)
+
+    def _reduce(self, tree, mean: bool):
+        lay = self.layout(tree)
+        if lay.n_leaves == 0:
+            return tree
+        op = self.comm.all_mean if mean else self.comm.all_sum
+        return lay.debucketize(op(lay.bucketize(tree)))
+
+    # -- wire accounting ----------------------------------------------------
+    def flat_bytes(self, tree_or_layout) -> float:
+        """Uncompressed f32 bytes to ship the tree once (all replicas)."""
+        lay = tree_or_layout if isinstance(tree_or_layout, BucketLayout) \
+            else self.layout(tree_or_layout)
+        return float(4 * lay.total_elements * _prod(lay.lead_shape))
+
+    def wire_bytes(self, tree_or_layout, compressor=None) -> float:
+        """Packed bytes to ship the tree once (all replicas)."""
+        lay = tree_or_layout if isinstance(tree_or_layout, BucketLayout) \
+            else self.layout(tree_or_layout)
+        per = sum(wire_nbytes(compressor, n) for n in lay.bucket_sizes)
+        return float(per * _prod(lay.lead_shape))
+
+    def metrics(self, nbytes, events=1.0):
+        """f32 scalars on the host, as the reference's f32 arrays: the byte
+        count is rounded to f32 before the event multiply."""
+        ev = torch.tensor(events, dtype=torch.float32)
+        return {"wire_bytes": torch.tensor(nbytes, dtype=torch.float32) * ev,
+                "comm_events": ev}
+
+    # -- compression plumbing ----------------------------------------------
+    def _vmap_replicas(self, fn):
+        """``fn`` of ONE replica's tensors (a tensor or a list of them),
+        mapped over the ``lead_axes`` leading replica axes.  Replica by
+        replica, written into one output tensor, so at most one replica's
+        temporaries are alive at a time."""
+        k = self.comm.lead_axes
+
+        def run(x):
+            flat, tdef = T.flatten(x)
+            lead = tuple(flat[0].shape[:k])
+            count = _prod(lead)
+            rows = [t.reshape((count,) + tuple(t.shape[k:])) for t in flat]
+            out = None
+            for i in range(count):
+                y = fn(T.unflatten(tdef, [t[i] for t in rows]))
+                if out is None:
+                    out = torch.empty((count,) + tuple(y.shape),
+                                      dtype=y.dtype, device=y.device)
+                out[i] = y
+            return out.reshape(lead + tuple(out.shape[1:]))
+
+        return run
+
+    def _self_decode(self, target, compressor):
+        """Per-replica compress → pack → unpack → decode of a flat bucket.
+        The pack/unpack round trip is kept on purpose: the simulator then
+        sees exactly the wire numerics (bf16 scales etc.) a sharded
+        exchange ships."""
+
+        def one(t):
+            wire, meta = compressor.compress(t)
+            arrs, widen = _narrow_wire(compressor.name, wire)
+            buf, specs = _pack(arrs)
+            return compressor.decompress(widen(_unpack(buf, specs)), meta,
+                                         tuple(t.shape), torch.float32)
+
+        return self._vmap_replicas(one)(target)
+
+    def _bucket_mean_compressed(self, target, compressor):
+        """(mean of per-replica decodes, own decode) for one flat bucket:
+        decode per replica, then one axis-mean."""
+        dec_self = self._self_decode(target, compressor)
+        (mean,) = self.comm.all_mean([dec_self])
+        return mean, dec_self
+
+    def _bucket_ef_round(self, g, r, compressor):
+        """One compressed error-feedback round for a flat bucket:
+        (mean of per-replica decodes, own decode, new residual).
+
+        Fused path (the default): ``compressor.fused_encode`` runs the
+        whole encode (t = g + r, narrow wire arrays, residual update) as
+        ONE kernel launch over all replicas' rows; the narrow arrays are
+        byte-identical to the codec path's."""
+        fe = compressor.fused_encode if self.fused else None
+        if fe is None:
+            t = g + r
+            mean, dec_self = self._bucket_mean_compressed(t, compressor)
+            return mean, dec_self, t - dec_self
+        arrs, widen, new_r = fe(g, r)
+        n = g.shape[-1]
+
+        def dec(a):  # one replica's narrow arrays → decoded flat bucket
+            return compressor.decompress(widen(a), None, (n,),
+                                         torch.float32)
+
+        dec_self = self._vmap_replicas(dec)(arrs)
+        (mean,) = self.comm.all_mean([dec_self])
+        return mean, dec_self, new_r
+
+    # -- fused exchanges ----------------------------------------------------
+    def exchange(self, grads, residual=None, compressor=None, events=1.0):
+        """Fused all-mean of ``grads`` with optional compression and error
+        feedback.  Returns (mean_tree, new_residual_tree, metrics)."""
+        lay = self.layout(grads)
+        return self.exchange_accumulated(lay.bucketize(grads), lay,
+                                         residual=residual,
+                                         compressor=compressor, events=events)
+
+    def exchange_accumulated(self, buckets, lay: BucketLayout, residual=None,
+                             compressor=None, events=1.0):
+        """The exchange of ``exchange`` starting from flat f32 buckets
+        instead of a tree; one collective per bucket.  Returns (mean_tree,
+        new_residual_tree, metrics)."""
+        if compressor is None or compressor.name == "none":
+            return (lay.debucketize(self.comm.all_mean(buckets)), residual,
+                    self.metrics(self.flat_bytes(lay), events))
+        rb = lay.bucketize(residual)
+        g_out, r_out = [], []
+        for g, r in zip(buckets, rb):
+            mean, _, new_r = self._bucket_ef_round(g, r, compressor)
+            g_out.append(mean)
+            r_out.append(new_r)
+        return (lay.debucketize(g_out),
+                lay.debucketize(r_out, cast=False),
+                self.metrics(self.wire_bytes(lay, compressor), events))

@@ -1,0 +1,142 @@
+// Block-local top-k with error feedback, for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel repro/kernels/topk_sparsify.py::
+// topk_encode_ef (_topk_ef_kernel, lines 86-109).  Per row of block f32
+// values (a flat bucket folded into rows):
+//   t      = g + r
+//   k rounds: pick the largest |t| not yet taken, the LOWEST column on a
+//             tie (lax.top_k's order), and take it
+//   vals   t at the taken columns, in selection order   (k,) f32
+//   idx    the taken columns                            (k,) int32
+//   new_r  t - (taken ? t : 0), computed literally, so -0.0 and +0.0
+//          come out bit for bit as in the reference
+// A row with fewer than k nonzeros takes its lowest free zero columns, as
+// the zero-padded tail block of every replica does.  vals keep t's sign,
+// -0.0 included (the reference's jnp codec; its Pallas kernel returns a
+// taken -0.0 as +0.0 through a masked sum).  A NaN sorts above every
+// number here; the reference would take none for it (NaN gradients are
+// out of scope on both sides).
+//
+// Bound on the H100: device-memory bytes.  Each element reads g and r and
+// writes new_r (12 B); each row writes 8k B of vals and idx: 12 + 8k/block
+// bytes per element.  The selection costs k passes of compares over the
+// row, which stays in registers, so it adds instructions, not bytes.
+//
+// Design.  The TPU kernel runs k rounds of masked max over an (8, block)
+// VMEM tile.  Here one warp takes one row (block <= 1024, block % 32 == 0)
+// and lane l keeps columns l, l + 32, ... (block / 32 <= 32 of them) in
+// registers; the loads are coalesced 128-byte warp reads.  Each column has
+// a 64-bit key (bits(|t|) + 1) << 32 | ~column: non-negative floats order
+// as their bit patterns, so the largest key is the largest magnitude and,
+// among equals, the lowest column; a taken column's key is 0.  Each lane
+// keeps the best key of its own columns; a round is a 5-step xor-shuffle
+// max of the lanes' keys, after which only the owner lane of the winner
+// marks it taken (a 32-bit mask) and rescans its own columns.  Lane i % 32
+// stores round i's value and column.  No shared memory, no barriers.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kWarps = 8;        // rows per thread block
+constexpr int kMaxPerLane = 32;  // block <= 32 * 32
+
+__device__ __forceinline__ unsigned long long key_of(float t, int col) {
+  const unsigned mag = __float_as_uint(fabsf(t)) + 1u;
+  return (static_cast<unsigned long long>(mag) << 32) |
+         static_cast<unsigned>(~col);
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+    topk_encode_ef_kernel(const float* __restrict__ g,
+                          const float* __restrict__ r,
+                          float* __restrict__ vals, int* __restrict__ idx,
+                          float* __restrict__ new_r, long long rows, int block,
+                          int k) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;  // whole warps leave together
+  const int per = block >> 5;
+  const long long base = row * block;
+
+  float t[kMaxPerLane];
+#pragma unroll
+  for (int j = 0; j < kMaxPerLane; ++j)
+    if (j < per) {
+      const long long e = base + lane + 32 * j;
+      t[j] = __fadd_rn(g[e], r[e]);
+    }
+
+  unsigned taken = 0u;
+  unsigned long long best = 0ull;
+#pragma unroll
+  for (int j = 0; j < kMaxPerLane; ++j)
+    if (j < per) {
+      const unsigned long long key = key_of(t[j], lane + 32 * j);
+      best = key > best ? key : best;
+    }
+
+  for (int i = 0; i < k; ++i) {
+    unsigned long long m = best;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const unsigned long long o = __shfl_xor_sync(0xffffffffu, m, off);
+      m = o > m ? o : m;
+    }
+    const int col = static_cast<int>(~static_cast<unsigned>(m));
+    const int owner = col & 31;
+    const int jsel = col >> 5;
+    float v = 0.f;
+    if (lane == owner) {
+      best = 0ull;
+#pragma unroll
+      for (int j = 0; j < kMaxPerLane; ++j)
+        if (j < per) {
+          if (j == jsel) {
+            v = t[j];
+            taken |= 1u << j;
+          }
+          if (!((taken >> j) & 1u)) {
+            const unsigned long long key = key_of(t[j], lane + 32 * j);
+            best = key > best ? key : best;
+          }
+        }
+    }
+    v = __shfl_sync(0xffffffffu, v, owner);
+    if (lane == (i & 31)) {
+      vals[row * k + i] = v;
+      idx[row * k + i] = col;
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < kMaxPerLane; ++j)
+    if (j < per)
+      new_r[base + lane + 32 * j] =
+          __fsub_rn(t[j], ((taken >> j) & 1u) ? t[j] : 0.f);
+}
+
+}  // namespace
+
+// Launches the kernel on `stream` and returns cudaGetLastError() (0 on
+// success).  g, r and new_r are (rows, block) f32; vals (rows, k) f32 and
+// idx (rows, k) int32.  The caller checks shapes, dtypes, devices and
+// contiguity; the limits are re-checked here.
+extern "C" int topk_encode_ef_fwd(const void* g, const void* r, void* vals,
+                                  void* idx, void* new_r, long long rows,
+                                  int block, int k, void* stream) {
+  if (rows < 1 || block < 32 || block % 32 != 0 ||
+      block > 32 * kMaxPerLane || k < 1 || k > block)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long grid = (rows + kWarps - 1) / kWarps;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  topk_encode_ef_kernel<<<static_cast<unsigned>(grid), kWarps * 32, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<const float*>(r),
+      static_cast<float*>(vals), static_cast<int*>(idx),
+      static_cast<float*>(new_r), rows, block, k);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -9,19 +9,40 @@ equivalent here.
 
 from __future__ import annotations
 
-from repro_torch.kernels.paged_attention import (
-    paged_attention as _paged_kernel,
-)
-from repro_torch.kernels.paged_attention import paged_attention_plain
+from repro_torch.kernels import fused_adam as _adam
+from repro_torch.kernels import onebit_quant as _onebit
+from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import topk_sparsify as _topk
+
+
+def _pick(name, x, kernel, plain):
+    if x.device.type == "cuda":
+        return kernel
+    if x.device.type == "cpu":
+        return plain
+    raise ValueError(f"{name}: no kernel for device {x.device}")
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
                     window=None, softcap=None):
-    if q.device.type == "cuda":
-        fn = _paged_kernel
-    elif q.device.type == "cpu":
-        fn = paged_attention_plain
-    else:
-        raise ValueError(f"paged_attention: no kernel for device {q.device}")
+    fn = _pick("paged_attention", q, _paged.paged_attention,
+               _paged.paged_attention_plain)
     return fn(q, k_pages, v_pages, block_tables, ctx_lens, window=window,
               softcap=softcap)
+
+
+def onebit_quant_packed(g, r):
+    fn = _pick("onebit_quant_packed", g, _onebit.onebit_quant_packed,
+               _onebit.onebit_quant_packed_plain)
+    return fn(g, r)
+
+
+def topk_encode_ef(g, r, k):
+    fn = _pick("topk_encode_ef", g, _topk.topk_encode_ef,
+               _topk.topk_encode_ef_plain)
+    return fn(g, r, k)
+
+
+def fused_adam(p, g, m, v, consts, *, b1=0.9, b2=0.999, eps=1e-8):
+    fn = _pick("fused_adam", p, _adam.fused_adam, _adam.fused_adam_plain)
+    return fn(p, g, m, v, consts, b1=b1, b2=b2, eps=eps)

@@ -1,11 +1,11 @@
-"""Decoder layers over a paged KV cache: norms, RoPE, GQA attention (bias,
-qk-norm, softcap, sliding window) and the SwiGLU MLP.
+"""Decoder layers: norms, RoPE, GQA attention (bias, qk-norm, softcap,
+sliding window) for training and over a paged KV cache, and the SwiGLU MLP.
 
-Port of the serving path of ``repro/models/layers.py``.  Layers are plain
-functions on tensors over parameter dicts with the reference's tree
-layout.  Precision contract as in the reference: matmuls run in the dtype
-the inputs carry, while ``rms_norm`` statistics, RoPE angles, attention
-logits and softmax are f32.
+Port of the training and serving paths of ``repro/models/layers.py``.
+Layers are plain functions on tensors over parameter dicts with the
+reference's tree layout.  Precision contract as in the reference:
+matmuls run in the dtype the inputs carry, while ``rms_norm`` statistics,
+RoPE angles, attention logits and softmax are f32.
 
 Differences from the reference, none of which changes a result:
   * the ``shard(...)`` calls and the tensor-parallel and ``cp`` branches
@@ -123,6 +123,89 @@ def _einsum(eq, a, b):
     read by f32 activations computes in f32)."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def _sdpa(cfg: ModelConfig, q, k, v, mask):
+    """Full-sequence attention.  q: (B,Lq,H,Dh), k/v: (B,Lk,KV,Dh), mask:
+    (B,1,Lq,Lk).  The KV heads are repeated to H first, as the reference's
+    head-sharded ``tp`` path does; logits and softmax in f32, PV in v's
+    dtype."""
+    h, dh = q.shape[2], q.shape[3]
+    kvh = k.shape[2]
+    if kvh != h:
+        k = torch.repeat_interleave(k, h // kvh, dim=2)
+        v = torch.repeat_interleave(v, h // kvh, dim=2)
+    logits = torch.einsum("blhd,bshd->bhls", q, k).float()
+    logits = logits * dh ** -0.5
+    logits = _softcap(cfg, logits)
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhls,bshd->blhd", probs, v)
+
+
+def _sdpa_banded(cfg: ModelConfig, q, k, v, window: int):
+    """Block-banded sliding-window attention (exact for window <= block):
+    q, k, v (B, L, H|KV, Dh) in blocks of ``window``; each q block attends
+    to the (previous, own) k blocks with the in-band mask."""
+    b, l, h, dh = q.shape
+    kvh = k.shape[2]
+    if kvh != h:
+        k = torch.repeat_interleave(k, h // kvh, dim=2)
+        v = torch.repeat_interleave(v, h // kvh, dim=2)
+        kvh = h
+    w = window
+    nb = l // w
+    qb = q.reshape(b, nb, w, h, dh)
+    kb = k.reshape(b, nb, w, kvh, dh)
+    vb = v.reshape(b, nb, w, kvh, dh)
+    kprev = torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1)
+    vprev = torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1)
+    kk = torch.cat([kprev, kb], dim=2)  # (B, nb, 2w, KV, Dh)
+    vv = torch.cat([vprev, vb], dim=2)
+
+    g = h // kvh
+    qg = qb.reshape(b, nb, w, kvh, g, dh)
+    logits = torch.einsum("bnikgd,bnjkd->bnkgij", qg, kk).float()
+    logits = logits * dh ** -0.5
+    logits = _softcap(cfg, logits)
+    # in-band mask: global i = n·w + ii, global j = n·w − w + jj
+    ii = torch.arange(w, device=q.device)[:, None]
+    jj = torch.arange(2 * w, device=q.device)[None, :]
+    rel = ii + w - jj  # = i − j
+    first = torch.arange(nb, device=q.device) == 0  # block 0 has no prev
+    valid = (rel >= 0) & (rel < w)  # causal ∧ window
+    valid = valid[None, :, :] & ~(first[:, None, None] & (jj < w)[None])
+    logits = torch.where(valid[None, :, None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(vv.dtype)
+    out = torch.einsum("bnkgij,bnjkd->bnikgd", probs, vv)
+    return out.reshape(b, l, h, dh)
+
+
+def attention(p, cfg: ModelConfig, x, positions, window: int, theta: float,
+              static_window: bool = False):
+    """Training self-attention over the full sequence: causal, plus the
+    sliding window when ``window > 0``.  x: (B, L, D); positions: (B, L).
+
+    ``static_window`` says whether the reference would see ``window`` as a
+    Python int (``cfg.scan_layers=False``, the unrolled stack) or as a
+    traced array (under ``lax.scan``, the default).  Only a static window
+    takes the block-banded path, and only when L is a multiple of it and
+    spans two blocks or more; everything else is the masked path.  Tensor
+    parallelism is a later slice."""
+    lq = x.shape[1]
+    q, k, v = _qkv(p, cfg, x)
+    q = rope(q, positions, theta)
+    k = rope(k, positions, theta)
+    if (static_window and window > 0 and lq % window == 0
+            and lq // window >= 2):
+        out = _sdpa_banded(cfg, q, k, v, window)
+    else:
+        i = positions[:, :, None].long()  # (B, L, 1)
+        j = positions[:, None, :].long()  # (B, 1, L)
+        w = INT32_MAX if window == FULL_ATTENTION else window
+        mask = (j <= i) & (i - j < w)
+        out = _sdpa(cfg, q, k, v, mask[:, None])
+    return torch.einsum("blhk,hkd->bld", out, p["wo"])
 
 
 def _sdpa_decode(cfg: ModelConfig, q, k, v, mask):

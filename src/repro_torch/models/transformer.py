@@ -1,6 +1,8 @@
-"""Decoder-only transformer over a paged KV cache.
+"""Decoder-only transformer: the training forward and the steps over a
+paged KV cache.
 
-Port of the serving path of ``repro/models/transformer.py``.  Parameters
+Port of the training and serving paths of ``repro/models/transformer.py``.
+Parameters
 keep the reference's tree layout: ``embed (V, D)``, ``final_norm``, and
 ``stack`` holding the super-block's layers ``"0"``, ``"1"``, ... with every
 leaf stacked over the ``repeat`` axis, so ``bridge.params_from_numpy`` is a
@@ -13,6 +15,7 @@ port casts once when the engine is built.  The numerics are the same.
 
 Public API:
     init_model(gen, cfg, device)                          → params
+    forward(params, cfg, tokens, positions=None)          → (logits, aux)
     init_paged_cache(cfg, num_pages, page_size, dtype, device) → cache
     decode_step_paged(params, cfg, token, pos, cache, block_tables) → logits
     prefill_chunk_paged(params, cfg, tokens, positions, cache, block_tables,
@@ -98,15 +101,24 @@ def cast_compute(params, cfg: ModelConfig):
 # stack traversal
 # ---------------------------------------------------------------------------
 def _apply_layer(p, cfg, h, positions, window, theta, cache, block_tables):
-    """One (attention → MLP) pre-norm residual layer."""
+    """One (attention → MLP) pre-norm residual layer; training attention
+    over the full sequence when ``cache`` is None."""
     x = L.rms_norm(h, p["pre_norm"], cfg.norm_eps)
-    h = h + L.attention_paged(p["attn"], cfg, x, positions, window, theta,
-                              cache, block_tables)
+    if cache is None:
+        h = h + L.attention(p["attn"], cfg, x, positions, window, theta,
+                            static_window=not cfg.scan_layers)
+    else:
+        h = h + L.attention_paged(p["attn"], cfg, x, positions, window,
+                                  theta, cache, block_tables)
     x = L.rms_norm(h, p["ffn_norm"], cfg.norm_eps)
     return h + L.mlp(p["mlp"], cfg, x)
 
 
-def _run_stack(params, cfg: ModelConfig, h, positions, cache, block_tables):
+def _run_stack(params, cfg: ModelConfig, h, positions, cache=None,
+               block_tables=None):
+    """The layer stack; training (no cache) or over the paged cache.  The
+    reference's ``lax.scan`` over the repeat axis is a loop here; there is
+    no rematerialisation (the trainer CLI runs with ``remat=False``)."""
     specs, repeat = cfg.superblock()
     windows, thetas = cfg.layer_windows()  # (repeat, S) numpy arrays
     for r in range(repeat):
@@ -115,7 +127,8 @@ def _run_stack(params, cfg: ModelConfig, h, positions, cache, block_tables):
             h = _apply_layer(_index(params["stack"][key], r), cfg, h,
                              positions, int(windows[r, i]),
                              float(thetas[r, i]),
-                             _index(cache[key], r), block_tables)
+                             None if cache is None else _index(cache[key], r),
+                             block_tables)
     return h
 
 
@@ -135,6 +148,21 @@ def _embed(params, cfg, tokens):
         # a 0-dim CPU tensor multiplies a CUDA tensor without a copy
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype)
     return h
+
+
+def forward(params, cfg: ModelConfig, tokens, positions=None):
+    """Training forward pass over (B, L) tokens.  Returns (logits (B, L, V)
+    f32, aux loss); aux is 0 for the dense stacks ported so far."""
+    _check_stack(cfg)
+    params = cast_compute(params, cfg)
+    h = _embed(params, cfg, tokens)
+    b, l = h.shape[:2]
+    if positions is None:
+        positions = torch.arange(l, dtype=torch.int32,
+                                 device=h.device).expand(b, l)
+    h = _run_stack(params, cfg, h, positions)
+    return _logits(params, cfg, h), torch.zeros((), dtype=torch.float32,
+                                                device=h.device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,4 @@
+from repro_torch.optim.optimizers import (  # noqa: F401
+    Optimizer, adam, constant_schedule, cosine_schedule, momentum, sgd,
+    state_template, warmup_cosine,
+)

@@ -143,3 +143,77 @@ def test_cuda_kernel_matches_plain(dtype):
         torch.cuda.synchronize()
         assert out.dtype == tdt
         assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+# ---------------------------------------------------------------------------
+# the training path's kernels: onebit_quant_packed, topk_encode_ef,
+# fused_adam (their plain versions are held against the JAX kernels in
+# tests/test_torch_compression.py)
+# ---------------------------------------------------------------------------
+def _c_argtypes(source, fn):
+    """ctypes types of the C prototype ``extern "C" int fn(...)``."""
+    src = (Path(pa.__file__).parent / "csrc" / source).read_text()
+    proto = re.search(r'extern "C" int ' + fn + r'\((.*?)\)', src,
+                      re.S).group(1)
+    kinds = []
+    for arg in proto.split(","):
+        arg = arg.strip()
+        kinds.append(ctypes.c_void_p if "*" in arg else
+                     ctypes.c_float if arg.startswith("float") else
+                     ctypes.c_longlong if arg.startswith("long long") else
+                     ctypes.c_int)
+    return kinds
+
+
+@pytest.mark.parametrize("module,source,fn", [
+    ("onebit_quant", "onebit_quant.cu", "onebit_quant_packed_fwd"),
+    ("topk_sparsify", "topk_sparsify.cu", "topk_encode_ef_fwd"),
+    ("fused_adam", "fused_adam.cu", "fused_adam_fwd"),
+])
+def test_training_kernel_argtypes_match_c_prototype(module, source, fn):
+    """A count, width or pointer/int mismatch would only show on the
+    card: a 64-bit row count passed as a 32-bit int is cut."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    assert _c_argtypes(source, fn) == mod._ARGTYPES
+
+
+def test_training_kernels_match_plain_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the H100; chip_smoke.py also "
+                    "covers this)")
+    from repro_torch.kernels import fused_adam as fa
+    from repro_torch.kernels import onebit_quant as ob
+    from repro_torch.kernels import topk_sparsify as tk
+
+    rng = np.random.default_rng(0)
+    g = torch.from_numpy(rng.standard_normal((37, 256), dtype=np.float32))
+    r = 0.1 * torch.from_numpy(rng.standard_normal((37, 256),
+                                                   dtype=np.float32))
+    g, r = g.cuda(), r.cuda()
+    g[0], r[0] = 0.0, 0.0
+    packed, scale, new_r = ob.onebit_quant_packed(g, r)
+    want = ob.onebit_quant_packed_plain(g, r)
+    assert torch.equal(packed, want[0])
+    ulps = (scale.view(torch.int16).int() - want[1].view(torch.int16).int())
+    assert ulps.abs().max().item() <= 1
+    t = g + r
+    own = t - torch.where(t >= 0, 1.0, -1.0) * scale.float()
+    assert torch.equal(new_r.view(torch.int32), own.view(torch.int32))
+    gk, rk = g.reshape(-1, 1024).contiguous(), r.reshape(-1, 1024) \
+        .contiguous()
+    got, want = tk.topk_encode_ef(gk[:9], rk[:9], 10), \
+        tk.topk_encode_ef_plain(gk[:9], rk[:9], 10)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    n = 1000
+    p, gg, m = (torch.randn(n, device="cuda") for _ in range(3))
+    v = torch.rand(n, device="cuda")
+    consts = torch.tensor([1e-3, 0.1, 1e-3], device="cuda")
+    a = [x.clone() for x in (p, gg, m, v)]
+    fa.fused_adam(a[0], a[1], a[2], a[3], consts)
+    fa.fused_adam_plain(p, gg, m, v, consts)
+    torch.cuda.synchronize()
+    for x, y in zip((a[0], a[2], a[3]), (p, m, v)):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)

@@ -98,7 +98,7 @@ def test_build_targets_sm90a_and_every_source():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-shared" in flags and "-fPIC" in flags
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) \
-        == ["paged_attention"]
+        == ["fused_adam", "onebit_quant", "paged_attention", "topk_sparsify"]
 
 
 @pytest.mark.parametrize("name", ["qwen2-1.5b", "gemma3-1b"])
