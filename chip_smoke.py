@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paged serving and data-parallel training paths
-on one CUDA card.
+"""Drive the PyTorch port's paged serving, dense serving and data-parallel
+training paths on one CUDA card.
 
     python3 chip_smoke.py
 
 Builds every CUDA kernel from ``src/repro_torch/kernels/csrc`` (into
 ``build/kernels/``), holds each kernel against its plain PyTorch version,
-then drives the two main paths through their entry points:
+then drives the main paths through their entry points:
 
-  * serving: qwen2-1.5b at full width and depth and gemma3-1b at full
-    width through ``repro_torch.serve.engine.PagedDecodeEngine``, and the
-    card's greedy tokens against the CPU's on a two-layer cut;
+  * paged serving: qwen2-1.5b at full width and depth and gemma3-1b at
+    full width through ``repro_torch.serve.engine.PagedDecodeEngine``, and
+    the card's greedy tokens against the CPU's on a two-layer cut;
+  * dense serving: ``greedy_generate`` (one prefill whose attention is the
+    flash kernel, one launch per layer, then dense-cache decode) on
+    qwen2-1.5b, gemma3-1b and qwen2.5-14b at full width and depth in bf16;
+    ``DecodeEngine`` on qwen2-1.5b; and on two-layer cuts in f32 the
+    card's prefill logits and tokens against the CPU's, and
+    ``greedy_generate``'s tokens against ``DecodeEngine``'s;
   * training: the trainer CLI's body (``repro_torch.launch.train.train``)
     on qwen2-1.5b at full width, cut to 4 layers, W = 4 replicas, under
     ``sync`` with ``--compressor onebit`` and ``topk`` and ``--fused-adam``;
@@ -404,6 +410,375 @@ def time_kernel(pa, launches_per_step, smi):
 
 
 # ---------------------------------------------------------------------------
+# dense serving: the flash kernel, greedy_generate and DecodeEngine
+# ---------------------------------------------------------------------------
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 dense tensor-core peak, data sheet
+
+
+def flash_inputs(rng, b, h, kv, l, d, dtype, model_layout):
+    """q (B, H, L, D) and k, v (B, KV, L, D) on the card, seeded numpy.
+    With ``model_layout`` they are (B, L, H, D) tensors transposed, the
+    strided views the prefill passes; else contiguous."""
+    def dev(heads):
+        a = rng.standard_normal((b, l, heads, d), dtype=np.float32)
+        t = torch.from_numpy(a).to("cuda").to(dtype).transpose(1, 2)
+        return t if model_layout else t.contiguous()
+    return dev(h), dev(kv), dev(kv)
+
+
+FLASH_VARIANTS = [  # (causal, window, H / KV)
+    (True, -1, 1), (True, 32, 4), (False, -1, 5), (True, 100, 6),
+    (True, 512, 4), (False, 100, 1)]
+
+
+def check_flash(fl):
+    """The flash kernel against its plain version on the card: f32 and
+    bf16; L 1, 37, 128, 300, 2048; Dh 64, 128, 256; causal and not; windows
+    -1, 32, 100, 512; GQA groups 1, 4, 5, 6; model-layout views and
+    contiguous tensors in turn."""
+    worst, cases = {}, 0
+    for dt in (torch.float32, torch.bfloat16):
+        for l in (1, 37, 128, 300, 2048):
+            for d in (64, 128, 256):
+                b, kv = (1, 1) if l == 2048 else (2, 2)
+                err = 0.0
+                for vi, (causal, window, g) in enumerate(FLASH_VARIANTS):
+                    rng = np.random.default_rng(1000 * l + d + vi)
+                    q, k, v = flash_inputs(rng, b, kv * g, kv, l, d, dt,
+                                           model_layout=vi % 2 == 0)
+                    out = fl.flash_attention(q, k, v, causal=causal,
+                                             window=window)
+                    ref = fl.flash_attention_plain(q, k, v, causal=causal,
+                                                   window=window)
+                    torch.cuda.synchronize()
+                    if out.dtype != dt or out.shape != ref.shape:
+                        raise AssertionError(
+                            f"flash output {out.dtype}{tuple(out.shape)} "
+                            f"vs {dt}{tuple(ref.shape)}")
+                    e = (out.float() - ref.float()).abs().max().item()
+                    if not e <= TOL[dt]:
+                        raise AssertionError(
+                            f"flash_attention {dt} L={l} D={d} causal="
+                            f"{causal} window={window} G={g}: max abs err "
+                            f"{e} > {TOL[dt]}")
+                    err = max(err, e)
+                    cases += 1
+                worst[f"{str(dt)[6:]} L={l} D={d}"] = err
+    f32 = max(e for k, e in worst.items() if k.startswith("float32"))
+    bf16 = max(e for k, e in worst.items() if k.startswith("bfloat16"))
+    return {"phase": "kernel_check_flash", "cases": cases,
+            "variants": [list(v) for v in FLASH_VARIANTS],
+            "max_abs_err_f32": f32, "tol_f32": TOL[torch.float32],
+            "max_abs_err_bf16": bf16, "tol_bf16": TOL[torch.bfloat16],
+            "max_abs_err_per_dtype_L_D": worst}
+
+
+def timed_calls(module, names):
+    """Replace ``module.<name>`` by a wrapper that times each call with
+    the card synchronised; returns the records and an undo function."""
+    rec = {n: [] for n in names}
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec[name].append((time.perf_counter() - t, out))
+            return out
+        return run
+
+    for n in names:
+        setattr(module, n, wrap(n, saved[n]))
+
+    def undo():
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+    return rec, undo
+
+
+def profile_dense(T, params, cfg, prompt, steps=5):
+    """Where the time goes in one prefill of ``prompt`` and in ``steps``
+    dense-cache decode steps after it (batch 1): each timed plain, then
+    under torch.profiler (device kernels by name)."""
+    tokens = torch.from_numpy(prompt)[None].to("cuda")
+    lp = len(prompt)
+    state = {}
+
+    def prefill():
+        with torch.no_grad():
+            logits, cache = T.prefill(params, cfg, tokens, last_only=True)
+        state["cache"] = T.pad_prefill_cache(cfg, cache, lp + steps)
+        state["tok"] = logits[:, -1].argmax(-1)
+
+    def decode():
+        with torch.no_grad():
+            for i in range(steps):
+                T.decode_step(params, cfg, state["tok"], lp + i,
+                              state["cache"])
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for name, fn, n in (("prefill", prefill, 1), ("decode", decode, steps)):
+        plain_s = timed(fn)
+        with torch.profiler.profile(activities=acts) as prof:
+            prof_s = timed(fn)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+        flash_ms = sum(e.self_device_time_total for e in events
+                       if "flash_attention_kernel" in e.key) / 1e3 / n
+        top = sorted(events, key=lambda e: e.self_device_time_total,
+                     reverse=True)[:6]
+        ms = 1e3 * plain_s / n
+        out[f"profile_{name}"] = {
+            "calls": n, "ms_per_call": ms,
+            "ms_per_call_under_profiler": 1e3 * prof_s / n,
+            "device_ms_per_call": dev_ms,
+            "device_busy_share": dev_ms / ms if dev_ms else None,
+            "device_kernels_per_call": sum(e.count for e in events) / n,
+            "flash_kernel_ms_per_call": flash_ms,
+            "top_device_ms_per_call": {
+                e.key[:60]: e.self_device_time_total / 1e3 / n
+                for e in top}}
+    del state
+    return out
+
+
+def greedy(fl, T, E, cfg, smi, *, phase, prompt_len, new, seed,
+           profile=False):
+    """``greedy_generate`` at full width and depth: one prefill (one flash
+    launch per layer) and ``new - 1`` dense-cache decode steps; with
+    ``profile``, one more prefill and a few decode steps under
+    torch.profiler."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = T.init_model(gen, cfg, device="cuda")
+    prompt = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, prompt_len).astype(np.int32)
+    rec, undo = timed_calls(T, ("prefill", "decode_step"))
+    try:
+        # the first prefill at a shape pays for the allocator's growth and
+        # the GEMM heuristics: timed apart, as the cold time to first token
+        E.greedy_generate(params, cfg, prompt, 2, device="cuda")
+        (cold_s, _), = rec["prefill"]
+        rec["prefill"].clear()
+        rec["decode_step"].clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fl.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        toks = E.greedy_generate(params, cfg, prompt, new, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fl.flash_attention.launches
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated()
+    (pf_s, (logits, cache)), = rec["prefill"]
+    if launches != cfg.num_layers:
+        raise AssertionError(f"greedy {cfg.name}: flash_attention launched "
+                             f"{launches} times, expected {cfg.num_layers}")
+    if tuple(logits.shape) != (1, 1, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"greedy {cfg.name}: prefill logits "
+                             f"{tuple(logits.shape)} not finite")
+    if len(toks) != new or not all(0 <= t < cfg.vocab_size for t in toks):
+        raise AssertionError(f"greedy {cfg.name}: tokens {toks}")
+    dc_s = sum(t for t, _ in rec["decode_step"])
+    del logits, cache, rec
+    extra = {}
+    if profile:
+        saved = fl.flash_attention.launches
+        extra = profile_dense(T, params, cfg, prompt)
+        fl.flash_attention.launches = saved  # not the path's run
+    del params
+    torch.cuda.empty_cache()
+    return {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "heads": cfg.num_heads,
+            "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim,
+            "dtype": cfg.compute_dtype, "prompt_tokens": prompt_len,
+            "new_tokens": new, "flash_launches_per_prefill": launches,
+            "prefill_ms": 1e3 * pf_s, "prefill_tok_per_s": prompt_len / pf_s,
+            "prefill_ms_first_call": 1e3 * cold_s,
+            "decode_steps": new - 1,
+            "decode_tok_per_s": (new - 1) / dc_s if new > 1 else None,
+            "decode_step_ms_mean": 1e3 * dc_s / max(1, new - 1),
+            "wall_s": wall, "peak_mem_gb": peak / 1e9, "tokens": toks[:8],
+            **extra, "card": smi}
+
+
+def dense_serve(T, E, cfg, smi):
+    """``DecodeEngine`` at full width and depth: 8 slots, max_seq 512, 16
+    requests of 32-160 prompt tokens (ingested one per step) and 16-48 new
+    tokens."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = T.init_model(gen, cfg, device="cuda")
+    eng = E.DecodeEngine(params, cfg, batch_slots=8, max_seq=512,
+                         device="cuda")
+    del params
+    reqs = requests(E.Request, np.random.default_rng(3), 16, 32, 160, 16, 48,
+                    cfg.vocab_size)
+    steps = []
+    decode = eng._decode
+
+    def timed(toks, pos):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = decode(toks, pos)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t)
+        return out
+
+    eng._decode = timed
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    done = eng.run()
+    wall = time.perf_counter() - t0
+    if len(done) != len(reqs):
+        raise AssertionError(f"{len(done)} of {len(reqs)} requests finished")
+    for r in done:
+        if not r.done or r.preempted or r.truncated \
+                or len(r.generated) != r.max_new_tokens:
+            raise AssertionError(f"dense request {r.rid} not done: "
+                                 f"{len(r.generated)} of {r.max_new_tokens}")
+        if not all(0 <= t < cfg.vocab_size for t in r.generated):
+            raise AssertionError(f"dense request {r.rid}: token outside "
+                                 "the vocab")
+    gen_toks = sum(len(r.generated) for r in done)
+    prompt_toks = sum(len(r.prompt) for r in done)
+    out = {"phase": "dense_serve", "arch": cfg.name,
+           "layers": cfg.num_layers, "dtype": cfg.compute_dtype,
+           "slots": 8, "max_seq": 512, "requests": len(reqs),
+           "prompt_tokens": prompt_toks, "generated_tokens": gen_toks,
+           "steps": eng.steps, "step_ms_median": 1e3 * statistics.median(steps),
+           "decode_tok_per_s": gen_toks / sum(steps),
+           "tok_per_s_prompt_and_decode": (gen_toks + prompt_toks)
+           / sum(steps),
+           "wall_s": wall, "peak_mem_gb": torch.cuda.max_memory_allocated()
+           / 1e9, "card": smi}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_card_vs_cpu(T, E, get_config):
+    """qwen2-1.5b and gemma3-1b at full width cut to 2 layers, f32: the
+    same weights and prompt on the card and on the CPU (prefill logits,
+    greedy tokens), and on the card greedy_generate's flash prefill against
+    DecodeEngine's token-by-token ingestion of the same prompt."""
+    out = {"phase": "dense_card_vs_cpu", "layers": 2, "dtype": "float32",
+           "tol_logits": 1e-3, "archs": {}}
+    for arch, lp, seed in (("qwen2-1.5b", 200, 21), ("gemma3-1b", 600, 22)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=2)
+        params = T.init_model(torch.Generator().manual_seed(seed), cfg,
+                              device="cpu")
+        prompt = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, lp).astype(np.int32)
+        logits, gens = {}, {}
+        for dev in ("cuda", "cpu"):
+            prm = _tree(params, lambda t, d=dev: t.to(d))
+            with torch.no_grad():
+                lg, _ = T.prefill(prm, cfg, torch.from_numpy(prompt)[None]
+                                  .to(dev), last_only=True)
+            logits[dev] = lg.cpu()
+            gens[dev] = E.greedy_generate(prm, cfg, prompt, 8, device=dev)
+            del prm, lg
+        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        if not err <= 1e-3:
+            raise AssertionError(f"{arch}: card vs CPU prefill logits differ "
+                                 f"by {err} > 1e-3")
+        if gens["cuda"] != gens["cpu"]:
+            raise AssertionError(f"{arch}: card vs CPU greedy tokens "
+                                 f"{gens['cuda']} vs {gens['cpu']}")
+        eng = E.DecodeEngine(params, cfg, batch_slots=2, max_seq=lp + 16,
+                             device="cuda")
+        eng.submit(E.Request(rid=0, prompt=prompt, max_new_tokens=8))
+        eng_gen = eng.run()[0].generated
+        if eng_gen != gens["cuda"]:
+            raise AssertionError(f"{arch}: greedy_generate {gens['cuda']} vs "
+                                 f"DecodeEngine {eng_gen} on the card")
+        windows = sorted({int(w) for w in cfg.layer_windows()[0].ravel()})
+        out["archs"][arch] = {
+            "prompt_tokens": lp, "layer_windows": windows,
+            "prefill_logits_max_abs_err": err,
+            "tokens_card_eq_cpu": True, "tokens_generate_eq_engine": True,
+            "tokens": gens["cuda"]}
+        del eng, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_flash(fl, launches, smi):
+    """The kernel, its plain version and F.scaled_dot_product_attention on
+    the prefill's tensors (model-layout views, bf16, B 1, L 2048): qwen2's
+    layers and gemma3's local layers.  L2 flushed before each launch."""
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        flush_buf.zero_()  # 256 MB > the 50 MB L2
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    saved = fl.flash_attention.launches
+    for name, h, kv, d, w in (("qwen2-1.5b", 12, 2, 128, -1),
+                              ("gemma3-1b local", 4, 1, 256, 512)):
+        l = 2048
+        q, k, v = flash_inputs(np.random.default_rng(h), 1, h, kv, l, d,
+                               torch.bfloat16, model_layout=True)
+        ms = cuda_ms(lambda: fl.flash_attention(q, k, v, window=w), 30, flush)
+        plain = cuda_ms(lambda: fl.flash_attention_plain(q, k, v, window=w),
+                        5, flush)
+        if w > 0:
+            i = torch.arange(l, device="cuda")
+            mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < w)
+            lib = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask,
+                                       enable_gqa=True), 30, flush)
+            lib_out = sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+            note = "SDPA with enable_gqa and an explicit window mask"
+        else:
+            lib = cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                       enable_gqa=True), 30, flush)
+            lib_out = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+            note = "SDPA with enable_gqa, is_causal"
+        lib_err = (lib_out.float() - fl.flash_attention(q, k, v, window=w)
+                   .float()).abs().max().item()
+        # the pairs (i, j) the mask keeps, each 4 * D flops (QK and PV)
+        ww = l if w <= 0 else w
+        pairs = l * ww - ww * (ww - 1) // 2
+        flops = 4 * d * pairs * h
+        nbytes = 2 * (2 * h + 2 * kv) * l * d  # q, out, k, v once, bf16
+        b_ms, o_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / \
+            BF16_OPS_PER_S
+        out[name] = {
+            "shape": {"B": 1, "L": l, "H": h, "KV": kv, "Dh": d,
+                      "window": w, "causal": True, "dtype": "bfloat16"},
+            "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "library_note": note + "; never called by the port",
+            "library_max_abs_err_vs_kernel": lib_err,
+            "flops": flops, "bytes": nbytes, "bound_ms": max(b_ms, o_ms),
+            "bound_by": "operations" if o_ms >= b_ms else "bytes",
+            "tflops_achieved": flops / (ms / 1e3) / 1e12}
+        del q, k, v, lib_out
+    fl.flash_attention.launches = saved  # timing launches are not the path's
+    del flush_buf
+    torch.cuda.empty_cache()
+    return {"phase": "time_flash", "kernels": out,
+            "launches_on_main_path": launches, "card": smi}
+
+
+# ---------------------------------------------------------------------------
 # training kernels against their plain versions
 # ---------------------------------------------------------------------------
 def code_rows(seed, nb, block):
@@ -780,11 +1155,13 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import fused_adam as fa
     from repro_torch.kernels import onebit_quant as ob
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import topk_sparsify as tk
     from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as E
     from repro_torch.serve.engine import PagedDecodeEngine, Request
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -820,6 +1197,8 @@ def main() -> int:
               "topk_encode_ef": check_topk(tk), "fused_adam": check_adam(fa)}
     for c in checks.values():
         emit(c)
+    check_fl = check_flash(fl)
+    emit(check_fl)
 
     def bf16(name):
         return dataclasses.replace(get_config(name), param_dtype="bfloat16",
@@ -843,6 +1222,22 @@ def main() -> int:
 
     emit(card_vs_cpu(T, PagedDecodeEngine, Request, get_config))
 
+    # dense serving: greedy_generate (flash prefill) and DecodeEngine
+    flash_launches = 0
+    for phase, name, lp, new in (("greedy_qwen2", "qwen2-1.5b", 2048, 32),
+                                 ("greedy_gemma3", "gemma3-1b", 2048, 32),
+                                 ("greedy_qwen25_14b", "qwen2.5-14b", 1024,
+                                  16)):
+        result = greedy(fl, T, E, bf16(name), smi, phase=phase,
+                        prompt_len=lp, new=new, seed=len(phase),
+                        profile=name != "qwen2.5-14b")
+        if name == "gemma3-1b":
+            result["layer_windows"] = windows
+        emit(result)
+        flash_launches += result["flash_launches_per_prefill"]
+    emit(dense_serve(T, E, qwen, smi))
+    emit(dense_card_vs_cpu(T, E, get_config))
+
     train_kernels = {"onebit_quant_packed": ob.onebit_quant_packed,
                      "topk_encode_ef": tk.topk_encode_ef,
                      "fused_adam": fa.fused_adam}
@@ -862,6 +1257,8 @@ def main() -> int:
     train_timing = time_train_kernels(ob, tk, fa, train_launches, get_config,
                                       smi)
     emit(train_timing)
+    flash_timing = time_flash(fl, flash_launches, smi)
+    emit(flash_timing)
 
     sources = {"onebit_quant_packed": ("onebit_quant.cu",
                                        "src/repro/kernels/onebit_quant.py:101"),
@@ -895,7 +1292,26 @@ def main() -> int:
         "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": "bytes",
         "library_ms": timing["library_ms"],
-    }] + rows, "total_s": time.perf_counter() - t_start})
+    }] + rows + [{
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:85",
+        "launches": flash_launches,
+        "max_abs_err": max(check_fl["max_abs_err_f32"],
+                           check_fl["max_abs_err_bf16"]),
+        "max_abs_err_f32": check_fl["max_abs_err_f32"],
+        "tol_f32": check_fl["tol_f32"],
+        "max_abs_err_bf16": check_fl["max_abs_err_bf16"],
+        "tol_bf16": check_fl["tol_bf16"],
+        "ms": flash_timing["kernels"]["qwen2-1.5b"]["ms"],
+        "plain_ms": flash_timing["kernels"]["qwen2-1.5b"]["plain_ms"],
+        "bound_ms": flash_timing["kernels"]["qwen2-1.5b"]["bound_ms"],
+        "bound_by": flash_timing["kernels"]["qwen2-1.5b"]["bound_by"],
+        "library_ms": flash_timing["kernels"]["qwen2-1.5b"]["library_ms"],
+        "gemma3_local": {k: flash_timing["kernels"]["gemma3-1b local"][k]
+                         for k in ("ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")},
+    }], "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,11 +2,19 @@
 
 Module names mirror ``src/repro/`` so each port file names its reference.
 The port imports torch and numpy only: nothing of JAX and nothing of
-``repro``.  This slice covers the paged serving path
-(``serve.engine.PagedDecodeEngine`` → ``models.transformer`` →
-``models.layers.attention_paged`` → ``kernels.ops.paged_attention``), with
-the paged-attention decode kernel written in CUDA C++ for ``sm_90a``
-(``kernels/csrc/paged_attention.cu``).
+``repro``.  It covers three paths, with their kernels written in CUDA C++
+for ``sm_90a`` (``kernels/csrc/``):
+
+  * paged serving: ``serve.engine.PagedDecodeEngine`` →
+    ``models.transformer`` → ``models.layers.attention_paged`` →
+    ``kernels.ops.paged_attention``;
+  * dense serving: ``serve.engine.greedy_generate`` and ``DecodeEngine`` →
+    ``models.transformer.prefill`` (``models.layers.attention_prefill`` →
+    ``kernels.ops.flash_attention``) and ``decode_step`` over a dense KV
+    cache;
+  * data-parallel training: ``launch.train`` → ``train.loop`` → ``sync`` →
+    ``core.fabric.Fabric.exchange`` (``kernels.ops.onebit_quant_packed``,
+    ``topk_encode_ef``) → ``optim.adam`` (``kernels.ops.fused_adam``).
 
 Every entry point takes an explicit ``device``, defaulting to ``"cuda"``.
 With no card a ``"cuda"`` default raises; nothing moves quietly to the

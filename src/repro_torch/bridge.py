@@ -1,5 +1,5 @@
-"""Parameters and train states between the JAX package's trees and the
-port's tensors.
+"""Parameters, train states and dense decode caches between the JAX
+package's trees and the port's tensors.
 
 Both packages use the same nested-dict layout (``models/transformer.py``,
 ``train/loop.py::init_train_state``), so the conversion is a pure copy,
@@ -55,6 +55,20 @@ def params_to_numpy(tree):
 
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
+
+
+def cache_from_numpy(cache, device="cuda"):
+    """A dense decode cache of the JAX package after ``np.asarray`` (per
+    layer ``{"k", "v"}``, stacked (repeat, B, S, KV, Dh), as
+    ``init_cache``/``prefill`` return it) → the port's, on ``device``, in
+    its stored dtype, so both packages' ``decode_step`` can start from one
+    cache."""
+    return params_from_numpy(cache, device)
+
+
+def cache_to_numpy(cache):
+    """Inverse of ``cache_from_numpy``."""
+    return params_to_numpy(cache)
 
 
 def train_state_from_numpy(state, device="cuda"):

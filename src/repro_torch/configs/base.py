@@ -330,6 +330,7 @@ def _ensure_loaded():
     if _LOADED:
         return
     _LOADED = True
-    # the other eight configs of the JAX package arrive with their model
-    # families (MoE, SSM, encoder-decoder) in later slices of the port
-    from repro_torch.configs import gemma3_1b, qwen2_15b  # noqa: F401
+    # the other configs of the JAX package arrive with their model families
+    # (MoE, SSM, encoder-decoder) and deepseek-67b in later slices
+    from repro_torch.configs import (gemma3_1b, qwen2_15b,  # noqa: F401
+                                     qwen25_14b)

@@ -9,6 +9,7 @@ equivalent here.
 
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fused_adam as _adam
 from repro_torch.kernels import onebit_quant as _onebit
 from repro_torch.kernels import paged_attention as _paged
@@ -29,6 +30,12 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
                _paged.paged_attention_plain)
     return fn(q, k_pages, v_pages, block_tables, ctx_lens, window=window,
               softcap=softcap)
+
+
+def flash_attention(q, k, v, *, causal=True, window=-1):
+    fn = _pick("flash_attention", q, _flash.flash_attention,
+               _flash.flash_attention_plain)
+    return fn(q, k, v, causal=causal, window=window)
 
 
 def onebit_quant_packed(g, r):

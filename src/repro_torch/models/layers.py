@@ -1,5 +1,6 @@
 """Decoder layers: norms, RoPE, GQA attention (bias, qk-norm, softcap,
-sliding window) for training and over a paged KV cache, and the SwiGLU MLP.
+sliding window) for training, for prefill and decode over a dense KV cache
+and over a paged KV cache, and the SwiGLU MLP.
 
 Port of the training and serving paths of ``repro/models/layers.py``.
 Layers are plain functions on tensors over parameter dicts with the
@@ -10,12 +11,22 @@ RoPE angles, attention logits and softmax are f32.
 Differences from the reference, none of which changes a result:
   * the ``shard(...)`` calls and the tensor-parallel and ``cp`` branches
     are gone (no-ops on one device; tensor parallelism is a later slice);
-  * the page pools are updated IN PLACE (``index_put_``) instead of
-    returning a new cache, which halves the pool's peak memory;
-  * single-token decode always goes through ``kernels.ops.paged_attention``
-    (the CUDA kernel for CUDA tensors, its plain version for CPU tensors);
-    chunked prefill and int8 pools take the gather path, as in the
-    reference (``layers.py:457-465``).
+  * the page pools and the dense cache are updated IN PLACE
+    (``index_put_``) instead of returning a new cache, which halves the
+    cache's peak memory;
+  * the reference's ``attention(..., collect_cache=True)`` (prefill) is
+    ``attention_prefill`` here, and its single-token decode branch is
+    ``attention_decode``; the prefill's full-sequence attention goes
+    through ``kernels.ops.flash_attention``, which computes what the
+    reference's ``_sdpa`` does there except that PV stays in f32 (the
+    reference casts the probabilities to v's dtype first): the same in
+    f32, within bf16 rounding in bf16;
+  * paged single-token decode always goes through
+    ``kernels.ops.paged_attention``; chunked prefill and int8 pools take
+    the gather path, as in the reference (``layers.py:457-465``).
+
+``kernels.ops`` sends CUDA tensors to the hand-written kernels and CPU
+tensors to their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -221,6 +232,90 @@ def _sdpa_decode(cfg: ModelConfig, q, k, v, mask):
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgls,bskd->blkgd", probs, v)
     return out.reshape(b, lq, h, dh)
+
+
+# ---------------------------------------------------------------------------
+# dense KV cache: prefill and single-token decode
+# ---------------------------------------------------------------------------
+def init_attn_cache(cfg: ModelConfig, batch, max_seq, dtype, device,
+                    lead=()):
+    """``lead + (batch, max_seq, KV, Dh)`` zero k/v caches."""
+    shape = tuple(lead) + (batch, max_seq, cfg.num_kv_heads,
+                           cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_prefill(p, cfg: ModelConfig, x, window: int, theta: float):
+    """Prefill self-attention over a whole prompt at positions 0..L-1:
+    causal, plus the sliding window when ``window > 0``.  x: (B, L, D).
+    Returns (out (B, L, D), {"k", "v"}): the post-RoPE k and v at KV heads,
+    (B, L, KV, Dh), the populated decode cache, as the reference's
+    ``collect_cache`` branch.
+
+    The attention is ``kernels.ops.flash_attention`` on the (B, H, L, Dh)
+    views of the model's (B, L, H, Dh) tensors: the kernel reads them in
+    place and reads kv head h // G for query head h, so nothing is copied
+    or repeated.  The kernel has no softcap: a config that sets one
+    raises."""
+    if cfg.attn_logit_softcap:
+        raise ValueError(
+            f"prefill attention runs the flash kernel, which has no logit "
+            f"softcap; {cfg.name} sets attn_logit_softcap="
+            f"{cfg.attn_logit_softcap}")
+    b, lq = x.shape[:2]
+    positions = torch.arange(lq, dtype=torch.int32,
+                             device=x.device).expand(b, lq)
+    q, k, v = _qkv(p, cfg, x)
+    q = rope(q, positions, theta)
+    k = rope(k, positions, theta)
+    v = v.contiguous()
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True, window=window)
+    out = torch.einsum("blhk,hkd->bld", out.transpose(1, 2), p["wo"])
+    return out, {"k": k, "v": v}
+
+
+def attention_decode(p, cfg: ModelConfig, x, pos, window: int, theta: float,
+                     cache):
+    """Single-token decode against a dense (B, S, KV, Dh) cache, written
+    IN PLACE at ``pos`` before attending (write-then-attend).  x: (B, 1, D);
+    pos: a Python int, every row at that position (``greedy_generate``),
+    or a (B,) int tensor of ragged positions (``DecodeEngine``).
+
+    An out-of-range write lands on position S - 1: the reference clamps a
+    scalar position the same way (``dynamic_update_slice``) and drops a
+    ragged one.  Only an idle engine slot makes such a write, into its
+    own row, and a request admitted there rewrites every position before
+    it reads it."""
+    q, k, v = _qkv(p, cfg, x)
+    b = x.shape[0]
+    s = cache["k"].shape[1]
+    ragged = isinstance(pos, torch.Tensor)
+    if ragged:
+        pos_b = pos.long()[:, None]
+    else:
+        pos_b = torch.full((b, 1), int(pos), dtype=torch.long,
+                           device=x.device)
+    q = rope(q, pos_b, theta)
+    k = rope(k, pos_b, theta)
+    dt = cache["k"].dtype
+    if ragged:
+        rows = torch.arange(b, device=x.device)
+        at = pos.long().clamp_max(s - 1)
+        cache["k"].index_put_((rows, at), k[:, 0].to(dt))
+        cache["v"].index_put_((rows, at), v[:, 0].to(dt))
+        p_ = pos.long()[:, None, None]                      # (B, 1, 1)
+    else:
+        at = min(int(pos), s - 1)
+        cache["k"][:, at] = k[:, 0].to(dt)
+        cache["v"][:, at] = v[:, 0].to(dt)
+        p_ = int(pos)
+    j = torch.arange(s, device=x.device)[None, None, :]     # (1, 1, S)
+    w = INT32_MAX if window == FULL_ATTENTION else window
+    mask = (j <= p_) & (p_ - j < w)                         # (B|1, 1, S)
+    out = _sdpa_decode(cfg, q, cache["k"], cache["v"], mask[:, None])
+    return _einsum("blhk,hkd->bld", out, p["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,11 @@
-"""Decoder-only transformer: the training forward and the steps over a
-paged KV cache.
+"""Decoder-only transformer: the training forward, prefill and decode over
+a dense KV cache, and the steps over a paged KV cache.
 
 Port of the training and serving paths of ``repro/models/transformer.py``.
-Parameters
-keep the reference's tree layout: ``embed (V, D)``, ``final_norm``, and
-``stack`` holding the super-block's layers ``"0"``, ``"1"``, ... with every
-leaf stacked over the ``repeat`` axis, so ``bridge.params_from_numpy`` is a
-pure copy.  The reference's ``lax.scan`` over that axis is a Python loop
+Parameters keep the reference's tree layout: ``embed (V, D)``,
+``final_norm``, and ``stack`` holding the super-block's layers ``"0"``,
+``"1"``, ... with every leaf stacked over the ``repeat`` axis, so
+``bridge.params_from_numpy`` is a pure copy.  The reference's ``lax.scan`` over that axis is a Python loop
 here, with each layer's window and RoPE theta from ``cfg.layer_windows()``.
 
 The step functions expect parameters already in ``cfg.compute_dtype``
@@ -20,7 +19,12 @@ Public API:
     decode_step_paged(params, cfg, token, pos, cache, block_tables) → logits
     prefill_chunk_paged(params, cfg, tokens, positions, cache, block_tables,
                         last_idx)                           → logits
-The step functions update ``cache`` in place and return f32 logits.
+    init_cache(cfg, batch, max_seq, dtype, device)        → cache
+    prefill(params, cfg, tokens, last_only=False)         → (logits, cache)
+    pad_prefill_cache(cfg, cache, total)                  → cache
+    decode_step(params, cfg, token, pos, cache)           → logits
+The step functions update ``cache`` in place and return f32 logits; the
+reference returns a new cache instead.
 """
 
 from __future__ import annotations
@@ -100,35 +104,26 @@ def cast_compute(params, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # stack traversal
 # ---------------------------------------------------------------------------
-def _apply_layer(p, cfg, h, positions, window, theta, cache, block_tables):
-    """One (attention → MLP) pre-norm residual layer; training attention
-    over the full sequence when ``cache`` is None."""
-    x = L.rms_norm(h, p["pre_norm"], cfg.norm_eps)
-    if cache is None:
-        h = h + L.attention(p["attn"], cfg, x, positions, window, theta,
-                            static_window=not cfg.scan_layers)
-    else:
-        h = h + L.attention_paged(p["attn"], cfg, x, positions, window,
-                                  theta, cache, block_tables)
-    x = L.rms_norm(h, p["ffn_norm"], cfg.norm_eps)
-    return h + L.mlp(p["mlp"], cfg, x)
-
-
-def _run_stack(params, cfg: ModelConfig, h, positions, cache=None,
-               block_tables=None):
-    """The layer stack; training (no cache) or over the paged cache.  The
+def _run_stack(params, cfg: ModelConfig, h, attend):
+    """The layer stack: pre-norm residual (attention → MLP) layers.  The
     reference's ``lax.scan`` over the repeat axis is a loop here; there is
-    no rematerialisation (the trainer CLI runs with ``remat=False``)."""
+    no rematerialisation (the trainer CLI runs with ``remat=False``).
+
+    ``attend(p_attn, x, window, theta, key, r)`` is the attention of layer
+    ``key`` of super-block ``r`` (its window and RoPE theta from
+    ``cfg.layer_windows()``): the caller picks the training, prefill,
+    dense-cache or paged-cache attention and the layer's cache slice."""
     specs, repeat = cfg.superblock()
     windows, thetas = cfg.layer_windows()  # (repeat, S) numpy arrays
     for r in range(repeat):
         for i in range(len(specs)):
             key = str(i)
-            h = _apply_layer(_index(params["stack"][key], r), cfg, h,
-                             positions, int(windows[r, i]),
-                             float(thetas[r, i]),
-                             None if cache is None else _index(cache[key], r),
-                             block_tables)
+            p = _index(params["stack"][key], r)
+            x = L.rms_norm(h, p["pre_norm"], cfg.norm_eps)
+            h = h + attend(p["attn"], x, int(windows[r, i]),
+                           float(thetas[r, i]), key, r)
+            x = L.rms_norm(h, p["ffn_norm"], cfg.norm_eps)
+            h = h + L.mlp(p["mlp"], cfg, x)
     return h
 
 
@@ -160,7 +155,13 @@ def forward(params, cfg: ModelConfig, tokens, positions=None):
     if positions is None:
         positions = torch.arange(l, dtype=torch.int32,
                                  device=h.device).expand(b, l)
-    h = _run_stack(params, cfg, h, positions)
+    static = not cfg.scan_layers
+
+    def attend(p, x, window, theta, key, r):
+        return L.attention(p, cfg, x, positions, window, theta,
+                           static_window=static)
+
+    h = _run_stack(params, cfg, h, attend)
     return _logits(params, cfg, h), torch.zeros((), dtype=torch.float32,
                                                 device=h.device)
 
@@ -181,6 +182,13 @@ def init_paged_cache(cfg: ModelConfig, num_pages, page_size, dtype=None,
             for i in range(len(specs))}
 
 
+def _paged(cfg, positions, cache, block_tables):
+    def attend(p, x, window, theta, key, r):
+        return L.attention_paged(p, cfg, x, positions, window, theta,
+                                 _index(cache[key], r), block_tables)
+    return attend
+
+
 def decode_step_paged(params, cfg: ModelConfig, token, pos, cache,
                       block_tables):
     """One decode token per slot.  token: (B,) int32; pos: (B,) int32 token
@@ -188,8 +196,8 @@ def decode_step_paged(params, cfg: ModelConfig, token, pos, cache,
     logits row is garbage, which the caller masks); block_tables:
     (B, pages_per_seq) int32.  Returns logits (B, V) f32."""
     h = _embed(params, cfg, token.clamp_min(0)[:, None])
-    positions = pos[:, None].to(torch.int32)
-    h = _run_stack(params, cfg, h, positions, cache, block_tables)
+    h = _run_stack(params, cfg, h, _paged(cfg, pos[:, None].to(torch.int32),
+                                          cache, block_tables))
     return _logits(params, cfg, h)[:, 0]
 
 
@@ -200,8 +208,82 @@ def prefill_chunk_paged(params, cfg: ModelConfig, tokens, positions, cache,
     index of each row's last real token in the chunk.  Returns the
     next-token logits at ``last_idx``, (B, V) f32."""
     h = _embed(params, cfg, tokens.clamp_min(0))
-    h = _run_stack(params, cfg, h, positions.to(torch.int32), cache,
-                   block_tables)
+    h = _run_stack(params, cfg, h, _paged(cfg, positions.to(torch.int32),
+                                          cache, block_tables))
     rows = torch.arange(tokens.shape[0], device=h.device)
     hl = h[rows, last_idx.clamp_min(0).long()][:, None]
     return _logits(params, cfg, hl)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# dense cache: prefill and decode
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch, max_seq, dtype=None, device="cuda"):
+    """Dense decode cache: per layer ``{"k", "v"}`` of shape
+    (repeat, batch, max_seq, KV, Dh), the reference's stacked layout.
+    ``dtype`` defaults to ``cfg.compute_dtype``."""
+    dev = resolve_device(device)
+    specs = _check_stack(cfg)
+    _, repeat = cfg.superblock()
+    dt = torch_dtype(dtype if dtype is not None else cfg.compute_dtype)
+    return {str(i): L.init_attn_cache(cfg, batch, max_seq, dt, dev,
+                                      lead=(repeat,))
+            for i in range(len(specs))}
+
+
+def prefill(params, cfg: ModelConfig, tokens, last_only=False):
+    """Full-sequence forward over (B, L) prompt tokens that also returns the
+    populated decode cache (S = L), as the reference's ``prefill``.  Each
+    layer's attention is one ``flash_attention`` launch on a CUDA tensor.
+    Returns (logits f32, (B, 1, V) with ``last_only`` else (B, L, V),
+    cache)."""
+    _check_stack(cfg)
+    params = cast_compute(params, cfg)
+    h = _embed(params, cfg, tokens)
+    collected = {}
+
+    def attend(p, x, window, theta, key, r):
+        out, kv = L.attention_prefill(p, cfg, x, window, theta)
+        collected.setdefault(key, []).append(kv)
+        return out
+
+    h = _run_stack(params, cfg, h, attend)
+    if last_only:
+        h = h[:, -1:]
+    cache = {key: {name: torch.stack([kv[name] for kv in kvs])
+                   for name in ("k", "v")}
+             for key, kvs in collected.items()}
+    return _logits(params, cfg, h), cache
+
+
+def pad_prefill_cache(cfg: ModelConfig, cache, total):
+    """Grow a ``prefill``-collected cache (S = prompt length) to ``total``
+    sequence slots with zeros.  Keyed off the layer specs, as the
+    reference: only attention layers' k/v leaves are padded, along their
+    sequence axis (axis 2 of the stacked (repeat, B, S, KV, Dh))."""
+    specs, _ = cfg.superblock()
+    out = dict(cache)
+    for i, spec in enumerate(specs):
+        if spec.mixer != "attn":
+            continue
+        out[str(i)] = {name: x if x.shape[2] >= total else
+                       torch.nn.functional.pad(
+                           x, (0, 0, 0, 0, 0, total - x.shape[2]))
+                       for name, x in cache[str(i)].items()}
+    return out
+
+
+def decode_step(params, cfg: ModelConfig, token, pos, cache):
+    """One decode token per row against the dense cache, updated in place.
+    token: (B,) int; pos: a Python int write position for every row, or a
+    (B,) int tensor of ragged positions (continuous batching).  Expects
+    parameters in ``cfg.compute_dtype`` (``cast_compute``), as the paged
+    steps.  Returns logits (B, V) f32."""
+    h = _embed(params, cfg, token[:, None])
+
+    def attend(p, x, window, theta, key, r):
+        return L.attention_decode(p, cfg, x, pos, window, theta,
+                                  _index(cache[key], r))
+
+    h = _run_stack(params, cfg, h, attend)
+    return _logits(params, cfg, h)[:, 0]

@@ -1,17 +1,25 @@
-"""Continuous-batching decode engine over a paged KV cache.
+"""Batched decode engines with continuous batching, and greedy generation.
 
-Port of ``repro/serve/engine.py::PagedDecodeEngine`` (and ``Request``):
-the same admission, chunked prefill, eviction and drain, step for step,
-so on the same parameters and requests it emits the same greedy tokens.
+Port of ``repro/serve/engine.py``: ``DecodeEngine`` (a dense (B, max_seq)
+KV cache, ragged per-slot positions, prompts ingested one token per step),
+``PagedDecodeEngine`` (a paged KV cache with chunked prefill) and
+``greedy_generate`` (one full-sequence prefill, then greedy decode).  The
+engines keep the reference's admission, prefill, eviction and drain, step
+for step, so on the same parameters and requests they emit the same
+greedy tokens.
 
 Differences from the reference:
-  * ``device`` replaces ``use_kernel``: on ``"cuda"`` single-token decode
-    attention runs the CUDA paged-attention kernel, on ``"cpu"`` its plain
-    PyTorch version.  int8 pools take the gather path on either device, as
-    in the reference.
+  * ``device`` replaces ``use_kernel``: on ``"cuda"`` the paged engine's
+    single-token decode attention runs the CUDA paged-attention kernel and
+    ``greedy_generate``'s prefill attention the CUDA flash-attention
+    kernel; on ``"cpu"`` their plain PyTorch versions.  int8 pools take the
+    gather path on either device, as in the reference.
+  * ``DecodeEngine`` and ``greedy_generate`` take decoder-only attention
+    stacks; encoder-decoder ``memory`` and the reset of recurrent slots
+    come with those model families (``_check_stack`` raises).
   * parameters are cast to ``cfg.compute_dtype`` once, here, instead of on
     every step;
-  * the page pools are updated in place;
+  * the caches are updated in place;
   * ``prefill_steps`` and ``decode_steps`` count the model calls of each
     kind (``steps`` counts engine steps, as in the reference).
 """
@@ -46,6 +54,133 @@ class Request:
     evictions: int = 0       # times evicted-to-queue under memory pressure
     t_submit: float = 0.0    # perf_counter stamps
     token_times: list = field(default_factory=list)
+
+
+def _submit(eng, req: Request):
+    """Queue ``req`` on engine ``eng``.  Cache positions run 0..max_seq-1:
+    an over-long prompt keeps its tail, leaving room for one generated
+    token (``truncated=True``); an empty prompt completes at once with an
+    empty generation."""
+    limit = max(1, eng.max_seq - 1)
+    req.t_submit = time.perf_counter()
+    if len(req.prompt) == 0:
+        req.done = True
+        eng.finished.append(req)
+        return
+    if len(req.prompt) > limit:
+        req.prompt = np.asarray(req.prompt[-limit:])
+        req.truncated = True
+    eng.queue.append(req)
+
+
+def _tensor(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+class DecodeEngine:
+    """Continuous batching over a dense (B, max_seq) KV cache: every slot
+    carries its own position (ragged (B,) writes), a freed slot is refilled
+    from the queue at once and ingests its prompt one token per step while
+    the other slots generate.  One decode call serves both phases."""
+
+    def __init__(self, params, cfg: ModelConfig, batch_slots: int,
+                 max_seq: int, pad_token: int = 0, cache_dtype=None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = T.cast_compute(_to_device(params, self.device), cfg)
+        self.b = batch_slots
+        self.max_seq = max_seq
+        self.pad = pad_token
+        self.cache_dtype = torch_dtype(cache_dtype if cache_dtype is not None
+                                       else cfg.compute_dtype)
+        self.queue: Deque[Request] = deque()
+        self.finished: List[Request] = []
+        self.steps = 0
+        self.cache = T.init_cache(cfg, batch_slots, max_seq,
+                                  dtype=self.cache_dtype, device=self.device)
+        self.pos = np.zeros(batch_slots, np.int32)  # per-slot write position
+        self.slot: List[Optional[Request]] = [None] * batch_slots
+        self.phase = ["idle"] * batch_slots  # idle | prompt | decode
+        self.prompt_cursor = np.zeros(batch_slots, np.int32)
+        self._next_tok = np.zeros(batch_slots, np.int32)
+
+    @torch.no_grad()
+    def _decode(self, toks, pos):
+        """One decode call; returns the greedy token of every row."""
+        dev = self.device
+        logits = T.decode_step(self.params, self.cfg, _tensor(toks, dev),
+                               _tensor(pos, dev), self.cache)
+        return logits.argmax(-1).to(torch.int32).cpu().numpy()
+
+    def submit(self, req: Request):
+        _submit(self, req)
+
+    def _admit(self):
+        # attention slots need no reset: every j <= pos is rewritten by the
+        # new request before it is read
+        for i in range(self.b):
+            if self.phase[i] == "idle" and self.queue:
+                req = self.queue.popleft()
+                self.slot[i] = req
+                self.phase[i] = "prompt"
+                self.prompt_cursor[i] = 0
+                self.pos[i] = 0
+                self._next_tok[i] = req.prompt[0]
+
+    def step(self):
+        self._admit()
+        if all(p == "idle" for p in self.phase):
+            return
+        toks = np.where(np.array([p != "idle" for p in self.phase]),
+                        self._next_tok, self.pad).astype(np.int32)
+        argmax = self._decode(toks, self.pos)
+        self.steps += 1
+        now = time.perf_counter()
+        for i in range(self.b):
+            req = self.slot[i]
+            if req is None:
+                continue
+            self.pos[i] += 1
+            if self.phase[i] == "prompt":
+                self.prompt_cursor[i] += 1
+                if self.prompt_cursor[i] < len(req.prompt):
+                    self._next_tok[i] = req.prompt[self.prompt_cursor[i]]
+                else:  # prompt consumed: this step gave the first token
+                    req.generated.append(int(argmax[i]))
+                    req.token_times.append(now)
+                    self._next_tok[i] = argmax[i]
+                    self.phase[i] = "decode"
+            else:
+                req.generated.append(int(argmax[i]))
+                req.token_times.append(now)
+                self._next_tok[i] = argmax[i]
+            # decode slots finish at max_new_tokens; any slot finishes when
+            # the cache is full, so pos never passes max_seq
+            if (self.phase[i] == "decode"
+                    and len(req.generated) >= req.max_new_tokens) \
+                    or self.pos[i] >= self.max_seq:
+                req.done = True
+                self.finished.append(req)
+                self.slot[i] = None
+                self.phase[i] = "idle"
+
+    def run(self, max_steps: int = 100_000) -> List[Request]:
+        """Serve until the queue and every slot drain, or ``max_steps``
+        steps have run; then every in-flight request lands in ``finished``
+        with ``preempted=True`` and its partial generation, and its slot is
+        freed."""
+        while (self.queue or any(p != "idle" for p in self.phase)) \
+                and self.steps < max_steps:
+            self.step()
+        for i in range(self.b):
+            req = self.slot[i]
+            if req is not None:
+                req.preempted = True
+                self.finished.append(req)
+                self.slot[i] = None
+                self.phase[i] = "idle"
+        return self.finished
 
 
 class PagedDecodeEngine:
@@ -99,40 +234,28 @@ class PagedDecodeEngine:
         self._admit_seq = np.zeros(batch_slots, np.int64)
         self._admitted = 0
 
-    def _tensor(self, a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
     @torch.no_grad()
     def _decode(self, toks, pos, tables):
         """One decode call; returns the greedy token of every row."""
+        dev = self.device
         logits = T.decode_step_paged(
-            self.params, self.cfg, self._tensor(toks), self._tensor(pos),
-            self.cache, self._tensor(tables))
+            self.params, self.cfg, _tensor(toks, dev), _tensor(pos, dev),
+            self.cache, _tensor(tables, dev))
         return logits.argmax(-1).to(torch.int32).cpu().numpy()
 
     @torch.no_grad()
     def _prefill(self, toks, poss, tables, last):
+        dev = self.device
         logits = T.prefill_chunk_paged(
-            self.params, self.cfg, self._tensor(toks), self._tensor(poss),
-            self.cache, self._tensor(tables), self._tensor(last))
+            self.params, self.cfg, _tensor(toks, dev), _tensor(poss, dev),
+            self.cache, _tensor(tables, dev), _tensor(last, dev))
         return logits.argmax(-1).to(torch.int32).cpu().numpy()
 
     # ------------------------------------------------------------------
     # admission / eviction
     # ------------------------------------------------------------------
     def submit(self, req: Request):
-        """Tail-truncate an over-long prompt to leave room for one generated
-        token; an empty prompt completes immediately."""
-        limit = max(1, self.max_seq - 1)
-        req.t_submit = time.perf_counter()
-        if len(req.prompt) == 0:
-            req.done = True
-            self.finished.append(req)
-            return
-        if len(req.prompt) > limit:
-            req.prompt = np.asarray(req.prompt[-limit:])
-            req.truncated = True
-        self.queue.append(req)
+        _submit(self, req)
 
     def _admit(self):
         """FIFO with head-of-line blocking on free pages: if the queue
@@ -272,6 +395,29 @@ class PagedDecodeEngine:
 
     def utilization(self) -> float:
         return self.kv.utilization()
+
+
+@torch.no_grad()
+def greedy_generate(params, cfg: ModelConfig, prompt, max_new_tokens: int,
+                    device="cuda"):
+    """Single-sequence generation: one prefill over the whole prompt (each
+    layer's attention one flash-attention launch on the card), the cache
+    grown to prompt + ``max_new_tokens``, then greedy decode.  Returns the
+    generated token ids; the first comes from the prefill, so at least one
+    is returned, as in the reference."""
+    dev = resolve_device(device)
+    params = T.cast_compute(_to_device(params, dev), cfg)
+    prompt = torch.as_tensor(np.asarray(prompt, np.int32), device=dev)[None]
+    lp = prompt.shape[1]
+    logits, cache = T.prefill(params, cfg, prompt, last_only=True)
+    cache = T.pad_prefill_cache(cfg, cache, lp + max_new_tokens)
+    tok = logits[:, -1].argmax(-1)
+    out = [int(tok[0])]
+    for i in range(max_new_tokens - 1):
+        logits = T.decode_step(params, cfg, tok, lp + i, cache)
+        tok = logits.argmax(-1)
+        out.append(int(tok[0]))
+    return out
 
 
 def _to_device(tree, device):

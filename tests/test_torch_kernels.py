@@ -179,6 +179,16 @@ def test_training_kernel_argtypes_match_c_prototype(module, source, fn):
     assert _c_argtypes(source, fn) == mod._ARGTYPES
 
 
+def test_flash_attention_argtypes_match_c_prototype():
+    """The flash kernel's 12 strides are 64-bit: passed as 32-bit ints
+    they would be cut."""
+    from repro_torch.kernels import flash_attention as fa
+
+    kinds = _c_argtypes("flash_attention.cu", "flash_attention_fwd")
+    assert kinds == fa._ARGTYPES
+    assert kinds.count(ctypes.c_longlong) == 12
+
+
 def test_training_kernels_match_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the H100; chip_smoke.py also "

@@ -98,10 +98,11 @@ def test_build_targets_sm90a_and_every_source():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-shared" in flags and "-fPIC" in flags
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) \
-        == ["fused_adam", "onebit_quant", "paged_attention", "topk_sparsify"]
+        == ["flash_attention", "fused_adam", "onebit_quant", "paged_attention",
+            "topk_sparsify"]
 
 
-@pytest.mark.parametrize("name", ["qwen2-1.5b", "gemma3-1b"])
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "gemma3-1b", "qwen2.5-14b"])
 def test_configs_copy_the_reference_field_for_field(name):
     ours, ref = get_config(name), jax_config(name)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
@@ -114,8 +115,31 @@ def test_configs_copy_the_reference_field_for_field(name):
 
 
 def test_config_registry_and_dtype_check():
-    assert list_configs() == ["gemma3-1b", "qwen2-1.5b"]
+    assert list_configs() == ["gemma3-1b", "qwen2-1.5b", "qwen2.5-14b"]
     with pytest.raises(KeyError):
         get_config("llama-7b")
     with pytest.raises(ValueError, match="supported precision"):
         dataclasses.replace(get_config("qwen2-1.5b"), param_dtype="int4")
+
+
+def test_qwen25_14b_reduced_tree_round_trips_bitwise():
+    """The reduced qwen2.5-14b (untied lm_head, GQA 4:4 once reduced) in
+    the reference's tree layout, through the bridge and back."""
+    import jax
+
+    from repro.models import transformer as JT
+    from repro_torch.bridge import params_to_numpy
+
+    cfg = get_config("qwen2.5-14b").reduced()
+    ours = TT.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
+    shapes = jax.eval_shape(lambda k: JT.init_model(k, jax_config(
+        "qwen2.5-14b").reduced()), jax.random.PRNGKey(0))
+    tree = params_to_numpy(ours)
+    assert jax.tree.structure(tree) == jax.tree.structure(shapes)
+    for a, s in zip(jax.tree.leaves(tree), jax.tree.leaves(shapes)):
+        assert a.shape == s.shape and a.dtype == s.dtype
+    assert "lm_head" in tree
+    back = params_to_numpy(params_from_numpy(tree, "cpu"))
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
