@@ -430,13 +430,39 @@ FLASH_VARIANTS = [  # (causal, window, H / KV)
     (True, -1, 1), (True, 32, 4), (False, -1, 5), (True, 100, 6),
     (True, 512, 4), (False, 100, 1)]
 
+# the launches of the greedy_* phases' prefills: (name, H, KV, L, Dh,
+# window), B 1, causal, the model's (B, L, H, Dh) tensors transposed
+FLASH_PATH_SHAPES = [
+    ("qwen2-1.5b", 12, 2, 2048, 128, -1),
+    ("gemma3-1b local", 4, 1, 2048, 256, 512),
+    ("gemma3-1b global", 4, 1, 2048, 256, -1),
+    ("qwen2.5-14b", 40, 8, 1024, 128, -1)]
+
+
+def flash_err(fl, q, k, v, causal, window, what):
+    """Max abs error of the kernel against its plain version; raises past
+    the dtype's tolerance or on a wrong dtype or shape."""
+    dt = q.dtype
+    out = fl.flash_attention(q, k, v, causal=causal, window=window)
+    ref = fl.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if out.dtype != dt or out.shape != ref.shape:
+        raise AssertionError(f"flash output {out.dtype}{tuple(out.shape)} "
+                             f"vs {dt}{tuple(ref.shape)} ({what})")
+    e = (out.float() - ref.float()).abs().max().item()
+    if not e <= TOL[dt]:
+        raise AssertionError(f"flash_attention {dt} {what}: max abs err {e} "
+                             f"> {TOL[dt]}")
+    return e
+
 
 def check_flash(fl):
     """The flash kernel against its plain version on the card: f32 and
     bf16; L 1, 37, 128, 300, 2048; Dh 64, 128, 256; causal and not; windows
     -1, 32, 100, 512; GQA groups 1, 4, 5, 6; model-layout views and
-    contiguous tensors in turn."""
-    worst, cases = {}, 0
+    contiguous tensors in turn; then every shape the greedy_* prefills
+    launch (FLASH_PATH_SHAPES) in both dtypes."""
+    worst, path, cases = {}, {}, 0
     for dt in (torch.float32, torch.bfloat16):
         for l in (1, 37, 128, 300, 2048):
             for d in (64, 128, 256):
@@ -446,31 +472,30 @@ def check_flash(fl):
                     rng = np.random.default_rng(1000 * l + d + vi)
                     q, k, v = flash_inputs(rng, b, kv * g, kv, l, d, dt,
                                            model_layout=vi % 2 == 0)
-                    out = fl.flash_attention(q, k, v, causal=causal,
-                                             window=window)
-                    ref = fl.flash_attention_plain(q, k, v, causal=causal,
-                                                   window=window)
-                    torch.cuda.synchronize()
-                    if out.dtype != dt or out.shape != ref.shape:
-                        raise AssertionError(
-                            f"flash output {out.dtype}{tuple(out.shape)} "
-                            f"vs {dt}{tuple(ref.shape)}")
-                    e = (out.float() - ref.float()).abs().max().item()
-                    if not e <= TOL[dt]:
-                        raise AssertionError(
-                            f"flash_attention {dt} L={l} D={d} causal="
-                            f"{causal} window={window} G={g}: max abs err "
-                            f"{e} > {TOL[dt]}")
-                    err = max(err, e)
+                    err = max(err, flash_err(
+                        fl, q, k, v, causal, window,
+                        f"L={l} D={d} causal={causal} window={window} G={g}"))
                     cases += 1
                 worst[f"{str(dt)[6:]} L={l} D={d}"] = err
-    f32 = max(e for k, e in worst.items() if k.startswith("float32"))
-    bf16 = max(e for k, e in worst.items() if k.startswith("bfloat16"))
+        for si, (name, h, kv, l, d, w) in enumerate(FLASH_PATH_SHAPES):
+            q, k, v = flash_inputs(np.random.default_rng(77 + si), 1, h, kv,
+                                   l, d, dt, model_layout=True)
+            path[f"{str(dt)[6:]} {name}"] = flash_err(
+                fl, q, k, v, True, w, f"{name} H={h} KV={kv} L={l} D={d} "
+                f"window={w}")
+            cases += 1
+            del q, k, v
+    torch.cuda.empty_cache()
+    errs = {**worst, **path}
+    f32 = max(e for k, e in errs.items() if k.startswith("float32"))
+    bf16 = max(e for k, e in errs.items() if k.startswith("bfloat16"))
     return {"phase": "kernel_check_flash", "cases": cases,
             "variants": [list(v) for v in FLASH_VARIANTS],
             "max_abs_err_f32": f32, "tol_f32": TOL[torch.float32],
             "max_abs_err_bf16": bf16, "tol_bf16": TOL[torch.bfloat16],
-            "max_abs_err_per_dtype_L_D": worst}
+            "max_abs_err_per_dtype_L_D": worst,
+            "path_shapes": [list(x) for x in FLASH_PATH_SHAPES],
+            "max_abs_err_path_shapes": path}
 
 
 def timed_calls(module, names):
@@ -722,8 +747,9 @@ def dense_card_vs_cpu(T, E, get_config):
 
 def time_flash(fl, launches, smi):
     """The kernel, its plain version and F.scaled_dot_product_attention on
-    the prefill's tensors (model-layout views, bf16, B 1, L 2048): qwen2's
-    layers and gemma3's local layers.  L2 flushed before each launch."""
+    the prefill's tensors (model-layout views, bf16, B 1) at every shape
+    the greedy_* prefills launch; the kernel's output is held against the
+    plain version's on the same tensors.  L2 flushed before each launch."""
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
 
     def flush():
@@ -732,26 +758,23 @@ def time_flash(fl, launches, smi):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
     saved = fl.flash_attention.launches
-    for name, h, kv, d, w in (("qwen2-1.5b", 12, 2, 128, -1),
-                              ("gemma3-1b local", 4, 1, 256, 512)):
-        l = 2048
-        q, k, v = flash_inputs(np.random.default_rng(h), 1, h, kv, l, d,
-                               torch.bfloat16, model_layout=True)
+    for name, h, kv, l, d, w in FLASH_PATH_SHAPES:
+        q, k, v = flash_inputs(np.random.default_rng(h + d + l), 1, h, kv, l,
+                               d, torch.bfloat16, model_layout=True)
         ms = cuda_ms(lambda: fl.flash_attention(q, k, v, window=w), 30, flush)
         plain = cuda_ms(lambda: fl.flash_attention_plain(q, k, v, window=w),
                         5, flush)
+        err = flash_err(fl, q, k, v, True, w, f"{name} (time_flash)")
         if w > 0:
             i = torch.arange(l, device="cuda")
             mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < w)
-            lib = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask,
-                                       enable_gqa=True), 30, flush)
-            lib_out = sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+            kw = {"attn_mask": mask}
             note = "SDPA with enable_gqa and an explicit window mask"
         else:
-            lib = cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                       enable_gqa=True), 30, flush)
-            lib_out = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+            kw = {"is_causal": True}
             note = "SDPA with enable_gqa, is_causal"
+        lib = cuda_ms(lambda: sdpa(q, k, v, enable_gqa=True, **kw), 30, flush)
+        lib_out = sdpa(q, k, v, enable_gqa=True, **kw)
         lib_err = (lib_out.float() - fl.flash_attention(q, k, v, window=w)
                    .float()).abs().max().item()
         # the pairs (i, j) the mask keeps, each 4 * D flops (QK and PV)
@@ -764,7 +787,8 @@ def time_flash(fl, launches, smi):
         out[name] = {
             "shape": {"B": 1, "L": l, "H": h, "KV": kv, "Dh": d,
                       "window": w, "causal": True, "dtype": "bfloat16"},
-            "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "ms": ms, "plain_ms": plain, "max_abs_err_vs_plain": err,
+            "tol": TOL[torch.bfloat16], "library_ms": lib,
             "library_note": note + "; never called by the port",
             "library_max_abs_err_vs_kernel": lib_err,
             "flops": flops, "bytes": nbytes, "bound_ms": max(b_ms, o_ms),
@@ -1308,9 +1332,11 @@ def main() -> int:
         "bound_ms": flash_timing["kernels"]["qwen2-1.5b"]["bound_ms"],
         "bound_by": flash_timing["kernels"]["qwen2-1.5b"]["bound_by"],
         "library_ms": flash_timing["kernels"]["qwen2-1.5b"]["library_ms"],
-        "gemma3_local": {k: flash_timing["kernels"]["gemma3-1b local"][k]
-                         for k in ("ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms")},
+        "other_shapes": {
+            name: {k: flash_timing["kernels"][name][k]
+                   for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")}
+            for name, *_ in FLASH_PATH_SHAPES[1:]},
     }], "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -33,7 +33,6 @@ W, STEPS = 2, 80
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--steps", type=int, default=STEPS)
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
@@ -55,9 +54,9 @@ def main(argv=None):
         lambda p, toks: lf(p, {"tokens": toks, "labels": toks}),
         opt, strategy, comm)
 
-    for t in range(args.steps):
+    for t in range(STEPS):
         state, m = step(state, worker_batches(dcfg, W, t, device=dev))
-        if t % 20 == 0 or t == args.steps - 1:
+        if t % 20 == 0 or t == STEPS - 1:
             print(f"step {t:3d}  loss {float(m['loss']):.4f}  "
                   f"replica divergence "
                   f"{float(m['replica_divergence']):.1e}")

@@ -30,7 +30,9 @@ import ctypes
 import torch
 
 NEG_INF = -2.0e38
-MAX_HEAD_DIM = 256
+# the head dims the kernel is built for: the registered configs use 256 and
+# 128 (64 reduced), the quickstart example 32
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = -1):
@@ -109,9 +111,9 @@ def _check(q, k, v):
     if kvh < 1 or h % kvh:
         raise ValueError(f"flash_attention: {kvh} kv heads do not divide "
                          f"{h} heads")
-    if d % 32 or not 32 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: kernel takes D a multiple of 32 "
-                         f"up to {MAX_HEAD_DIM}; got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: kernel is built for D in "
+                         f"{HEAD_DIMS}; got {d}")
     if min(b, h, lq, lk) < 1 or max(b, h) > 65535:
         raise ValueError(f"flash_attention: shape q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} is empty or too large")
