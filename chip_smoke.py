@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paged serving, dense serving and data-parallel
-training paths on one CUDA card.
+"""Drive the PyTorch port's paged serving, dense serving (attention and
+recurrent models) and data-parallel training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -17,6 +17,13 @@ then drives the main paths through their entry points:
     ``DecodeEngine`` on qwen2-1.5b; and on two-layer cuts in f32 the
     card's prefill logits and tokens against the CPU's, and
     ``greedy_generate``'s tokens against ``DecodeEngine``'s;
+  * the recurrent families on the dense serving path: ``greedy_generate``
+    on jamba-1.5-large without experts at full width, cut to 16 layers (2
+    attention, 14 Mamba: each Mamba layer's prefill scan one launch of the
+    ``mamba_scan`` kernel), and on xlstm-125m whole, bf16; ``DecodeEngine``
+    on the jamba cut; and in f32 the card against the CPU on jamba's
+    reduced widths (8 layers) and xlstm-125m, with ``DecodeEngine``
+    reusing a slot (its recurrent state reset);
   * training: the trainer CLI's body (``repro_torch.launch.train.train``)
     on qwen2-1.5b at full width, cut to 4 layers, W = 4 replicas, under
     ``sync`` with ``--compressor onebit`` and ``topk`` and ``--fused-adam``;
@@ -436,7 +443,8 @@ FLASH_PATH_SHAPES = [
     ("qwen2-1.5b", 12, 2, 2048, 128, -1),
     ("gemma3-1b local", 4, 1, 2048, 256, 512),
     ("gemma3-1b global", 4, 1, 2048, 256, -1),
-    ("qwen2.5-14b", 40, 8, 1024, 128, -1)]
+    ("qwen2.5-14b", 40, 8, 1024, 128, -1),
+    ("jamba-1.5-large", 64, 8, 2048, 128, -1)]
 
 
 def flash_err(fl, q, k, v, causal, window, what):
@@ -562,6 +570,8 @@ def profile_dense(T, params, cfg, prompt, steps=5):
         dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
         flash_ms = sum(e.self_device_time_total for e in events
                        if "flash_attention_kernel" in e.key) / 1e3 / n
+        scan_ms = sum(e.self_device_time_total for e in events
+                      if "mamba_scan_kernel" in e.key) / 1e3 / n
         top = sorted(events, key=lambda e: e.self_device_time_total,
                      reverse=True)[:6]
         ms = 1e3 * plain_s / n
@@ -572,6 +582,10 @@ def profile_dense(T, params, cfg, prompt, steps=5):
             "device_busy_share": dev_ms / ms if dev_ms else None,
             "device_kernels_per_call": sum(e.count for e in events) / n,
             "flash_kernel_ms_per_call": flash_ms,
+            "flash_share_of_device": flash_ms / dev_ms if dev_ms else None,
+            "mamba_scan_kernel_ms_per_call": scan_ms,
+            "mamba_scan_share_of_device": scan_ms / dev_ms if dev_ms
+            else None,
             "top_device_ms_per_call": {
                 e.key[:60]: e.self_device_time_total / 1e3 / n
                 for e in top}}
@@ -579,12 +593,22 @@ def profile_dense(T, params, cfg, prompt, steps=5):
     return out
 
 
-def greedy(fl, T, E, cfg, smi, *, phase, prompt_len, new, seed,
+def prefill_launches(cfg):
+    """The kernel launches one prefill makes: one flash_attention per
+    attention layer, one mamba_scan per Mamba layer."""
+    specs, repeat = cfg.superblock()
+    return {"flash_attention": repeat * sum(s.mixer == "attn" for s in specs),
+            "mamba_scan": repeat * sum(s.mixer == "mamba" for s in specs)}
+
+
+def greedy(kernels, T, E, cfg, smi, *, phase, prompt_len, new, seed,
            profile=False):
-    """``greedy_generate`` at full width and depth: one prefill (one flash
-    launch per layer) and ``new - 1`` dense-cache decode steps; with
-    ``profile``, one more prefill and a few decode steps under
-    torch.profiler."""
+    """``greedy_generate``: one prefill (one flash launch per attention
+    layer, one mamba_scan launch per Mamba layer) and ``new - 1``
+    dense-cache decode steps; with ``profile``, one more prefill and a few
+    decode steps under torch.profiler; for a model with Mamba layers, the
+    scan kernel held against its plain version on the path's own tensors.
+    ``kernels`` maps each kernel name to its wrapper."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = T.init_model(gen, cfg, device="cuda")
     prompt = np.random.default_rng(seed).integers(
@@ -599,19 +623,20 @@ def greedy(fl, T, E, cfg, smi, *, phase, prompt_len, new, seed,
         rec["decode_step"].clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fl.flash_attention.launches = 0
+        for fn in kernels.values():
+            fn.launches = 0
         t0 = time.perf_counter()
         toks = E.greedy_generate(params, cfg, prompt, new, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = fl.flash_attention.launches
+        launches = {k: fn.launches for k, fn in kernels.items()}
     finally:
         undo()
     peak = torch.cuda.max_memory_allocated()
     (pf_s, (logits, cache)), = rec["prefill"]
-    if launches != cfg.num_layers:
-        raise AssertionError(f"greedy {cfg.name}: flash_attention launched "
-                             f"{launches} times, expected {cfg.num_layers}")
+    if launches != prefill_launches(cfg):
+        raise AssertionError(f"greedy {cfg.name}: launches {launches}, "
+                             f"expected {prefill_launches(cfg)}")
     if tuple(logits.shape) != (1, 1, cfg.vocab_size) \
             or not torch.isfinite(logits).all():
         raise AssertionError(f"greedy {cfg.name}: prefill logits "
@@ -621,17 +646,22 @@ def greedy(fl, T, E, cfg, smi, *, phase, prompt_len, new, seed,
     dc_s = sum(t for t, _ in rec["decode_step"])
     del logits, cache, rec
     extra = {}
+    saved = {k: fn.launches for k, fn in kernels.items()}
     if profile:
-        saved = fl.flash_attention.launches
         extra = profile_dense(T, params, cfg, prompt)
-        fl.flash_attention.launches = saved  # not the path's run
+    if prefill_launches(cfg)["mamba_scan"]:
+        extra.update(scan_on_path(T, params, cfg, prompt))
+    for k, fn in kernels.items():  # not the path's run
+        fn.launches = saved[k]
     del params
     torch.cuda.empty_cache()
     return {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
             "d_model": cfg.d_model, "heads": cfg.num_heads,
             "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim,
             "dtype": cfg.compute_dtype, "prompt_tokens": prompt_len,
-            "new_tokens": new, "flash_launches_per_prefill": launches,
+            "new_tokens": new,
+            "flash_launches_per_prefill": launches["flash_attention"],
+            "mamba_scan_launches_per_prefill": launches["mamba_scan"],
             "prefill_ms": 1e3 * pf_s, "prefill_tok_per_s": prompt_len / pf_s,
             "prefill_ms_first_call": 1e3 * cold_s,
             "decode_steps": new - 1,
@@ -641,10 +671,9 @@ def greedy(fl, T, E, cfg, smi, *, phase, prompt_len, new, seed,
             **extra, "card": smi}
 
 
-def dense_serve(T, E, cfg, smi):
-    """``DecodeEngine`` at full width and depth: 8 slots, max_seq 512, 16
-    requests of 32-160 prompt tokens (ingested one per step) and 16-48 new
-    tokens."""
+def dense_serve(T, E, cfg, smi, phase="dense_serve"):
+    """``DecodeEngine``: 8 slots, max_seq 512, 16 requests of 32-160 prompt
+    tokens (ingested one per step) and 16-48 new tokens."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     params = T.init_model(gen, cfg, device="cuda")
     eng = E.DecodeEngine(params, cfg, batch_slots=8, max_seq=512,
@@ -683,7 +712,7 @@ def dense_serve(T, E, cfg, smi):
                                  "the vocab")
     gen_toks = sum(len(r.generated) for r in done)
     prompt_toks = sum(len(r.prompt) for r in done)
-    out = {"phase": "dense_serve", "arch": cfg.name,
+    out = {"phase": phase, "arch": cfg.name,
            "layers": cfg.num_layers, "dtype": cfg.compute_dtype,
            "slots": 8, "max_seq": 512, "requests": len(reqs),
            "prompt_tokens": prompt_toks, "generated_tokens": gen_toks,
@@ -799,6 +828,266 @@ def time_flash(fl, launches, smi):
     del flush_buf
     torch.cuda.empty_cache()
     return {"phase": "time_flash", "kernels": out,
+            "launches_on_main_path": launches, "card": smi}
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: the mamba_scan kernel, jamba and xLSTM serving
+# ---------------------------------------------------------------------------
+# exponentials a second: 16 exp2 a clock per SM (CUDA C++ Programming
+# Guide, arithmetic-instruction throughput, compute capability 9.0) on the
+# H100 SXM's 132 SMs at its 1.98 GHz maximum clock (NVIDIA data sheet)
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
+# kernel against plain, atol = rtol: in f32 the JAX package's own Mamba
+# tolerance (tests/test_kernels.py::test_mamba_scan_sweep); in bf16 both
+# sum in f32 and agree to ~1e-6, but y is rounded to bf16 (8 significant
+# bits), so a value on a rounding boundary may land one bf16 ulp (up to
+# 2^-7 of it) away.  h_last is f32 in both dtypes and held at 1e-4.
+MAMBA_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# (B, L, D, N): the reference's sweep (tests/test_kernels.py:166) and a
+# long case whose D no block of 128 channels divides
+MAMBA_SHAPES = [(2, 32, 64, 8), (1, 16, 128, 16), (2, 24, 96, 4),
+                (2, 1000, 200, 16)]
+# jamba-1.5-large's prefill scan: B 1, L 2048, d_inner 16384, N 16; B and
+# C are slices of x_proj's (B, L, dt_rank + 2N) output, dt_rank 512
+JAMBA_SCAN = (1, 2048, 16384, 16)
+JAMBA_DT_RANK = 8192 // 16
+
+
+def mamba_inputs(rng, b, l, d, n, dtype, dt_rank=0):
+    """u, delta = softplus(.), a = -|.|, B, C and D as the reference's
+    sweep draws them (seeded numpy), on the card; B and C are slices of one
+    (B, L, dt_rank + 2N) tensor, as the model passes them."""
+    def dev(shape, scale=1.0, dt=dtype):
+        a = scale * rng.standard_normal(shape, dtype=np.float32)
+        return torch.from_numpy(a).to("cuda").to(dt)
+
+    u = dev((b, l, d), 0.5)
+    delta = torch.nn.functional.softplus(dev((b, l, d), dt=torch.float32))
+    a = -dev((d, n), dt=torch.float32).abs()
+    dbl = dev((b, l, dt_rank + 2 * n), 0.5)
+    return (u, delta.to(dtype), a, dbl[..., dt_rank:dt_rank + n],
+            dbl[..., dt_rank + n:], dev((d,)))
+
+
+def mamba_err(ms, args, what):
+    """Max abs errors of y and h_last, kernel against plain; raises outside
+    MAMBA_TOL or on a wrong dtype or shape."""
+    dt = args[0].dtype
+    y, h = ms.mamba_scan(*args)
+    yp, hp = ms.mamba_scan_plain(*args)
+    torch.cuda.synchronize()
+    if y.dtype != dt or y.shape != yp.shape or h.dtype != torch.float32 \
+            or h.shape != hp.shape:
+        raise AssertionError(f"mamba_scan {what}: y {y.dtype}"
+                             f"{tuple(y.shape)}, h_last {h.dtype}"
+                             f"{tuple(h.shape)}")
+    errs = []
+    for name, out, ref, tol in (("y", y, yp, MAMBA_TOL[dt]),
+                                ("h_last", h, hp, MAMBA_TOL[torch.float32])):
+        diff = (out.float() - ref.float()).abs()
+        if (diff > tol + tol * ref.float().abs()).any():
+            raise AssertionError(f"mamba_scan {dt} {what}: {name} leaves "
+                                 f"atol = rtol = {tol} (max abs err "
+                                 f"{diff.max().item()})")
+        errs.append(diff.max().item())
+    return errs
+
+
+def check_mamba(ms):
+    """The scan kernel against its plain version on the card, f32 and bf16:
+    the reference's sweep shapes, a long case and jamba's prefill tensors
+    (B/C strided slices of the x_proj output)."""
+    err = {}
+    cases = 0
+    for dt in (torch.float32, torch.bfloat16):
+        shapes = [s + (0,) for s in MAMBA_SHAPES] \
+            + [JAMBA_SCAN + (JAMBA_DT_RANK,)]
+        for si, (b, l, d, n, r) in enumerate(shapes):
+            args = mamba_inputs(np.random.default_rng(40 + si), b, l, d, n,
+                                dt, dt_rank=r)
+            what = f"B={b} L={l} D={d} N={n}" + (" model layout" if r else "")
+            ey, eh = mamba_err(ms, args, what)
+            err[f"{str(dt)[6:]} {what}"] = {"y": ey, "h_last": eh}
+            cases += 1
+            del args
+    torch.cuda.empty_cache()
+    worst = {str(dt)[6:]: max(max(e.values()) for k, e in err.items()
+                             if k.startswith(str(dt)[6:]))
+             for dt in MAMBA_TOL}
+    return {"phase": "kernel_check_mamba", "cases": cases,
+            "state_dims": list(ms.STATE_DIMS),
+            "max_abs_err_f32": worst["float32"],
+            "tol_f32": MAMBA_TOL[torch.float32],
+            "max_abs_err_bf16": worst["bfloat16"],
+            "tol_bf16": MAMBA_TOL[torch.bfloat16],
+            "tol_h_last": MAMBA_TOL[torch.float32],
+            "tol_note": "atol = rtol; bf16 y: one bf16 rounding",
+            "max_abs_err_per_case": err}
+
+
+def scan_on_path(T, params, cfg, prompt):
+    """One more prefill that records the first Mamba layer's scan inputs,
+    then the kernel against its plain version on exactly those tensors."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+
+    seen = []
+    kernel = ops.mamba_scan
+
+    def record(*args):
+        if not seen:
+            seen.append(args)
+        return kernel(*args)
+
+    ops.mamba_scan = record
+    try:
+        with torch.no_grad():
+            T.prefill(params, cfg, torch.from_numpy(prompt)[None].to("cuda"),
+                      last_only=True)
+    finally:
+        ops.mamba_scan = kernel
+    args = seen[0]
+    ey, eh = mamba_err(ms, args, f"{cfg.name} prefill, first Mamba layer")
+    return {"scan_on_path": {
+        "u": list(args[0].shape), "dtype": str(args[0].dtype)[6:],
+        "b_strides": list(args[3].stride()),
+        "max_abs_err_y": ey, "max_abs_err_h_last": eh,
+        "tol": MAMBA_TOL[args[0].dtype]}}
+
+
+def contractive_slstm(params, cfg):
+    """Scale every sLSTM's recurrent weights R (H, dh, 4 dh) from the
+    reference's init, drawn with fan-in H (``dense_init``'s first axis),
+    to fan-in dh.  Drawn with fan-in 4 at xlstm-125m's dh of 192, R gives
+    the recurrence a gain of ~7 a step and the model is chaotic: a change
+    of one part in 1e7 in its embedding moves its logits about as far as
+    their own size (``input_sensitivity``), so two devices' roundings
+    cannot agree to 1e-3.  With fan-in dh the same code runs on weights
+    whose outputs rounding does not scramble."""
+    specs, _ = cfg.superblock()
+    h, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
+    for i, spec in enumerate(specs):
+        if spec.mixer == "slstm":
+            params["stack"][str(i)]["slstm"]["R"] *= math.sqrt(h / dh)
+    return params
+
+
+def input_sensitivity(T, params, cfg, prompt):
+    """Max change of the last prefill logits when the embedding is scaled
+    by 1 + 1e-7 (about one f32 rounding), on the card."""
+    tokens = torch.from_numpy(prompt)[None].to("cuda")
+    with torch.no_grad():
+        base, _ = T.prefill(params, cfg, tokens, last_only=True)
+        moved, _ = T.prefill({**params, "embed": params["embed"]
+                              * (1 + 1e-7)}, cfg, tokens, last_only=True)
+    return (base - moved).abs().max().item()
+
+
+def recurrent_card_vs_cpu(T, E, get_config):
+    """f32, TF32 off: jamba at its reduced widths without experts, cut to
+    one super-block (8 layers: one attention, seven Mamba), with a prompt
+    longer than ssm_chunk, and xlstm-125m at full width and depth (its
+    sLSTM weights made contractive, ``contractive_slstm``).  The same
+    weights and prompt on the card and on the CPU (prefill logits, greedy
+    tokens); on the card, ``greedy_generate``'s tokens against
+    ``DecodeEngine``'s when the prompt goes into a slot another request
+    has used (the recurrent state must be reset)."""
+    jamba = dataclasses.replace(
+        get_config("jamba-1.5-large-398b").reduced(), num_experts=0,
+        num_layers=8)
+    out = {"phase": "recurrent_card_vs_cpu", "dtype": "float32",
+           "tol_logits": 1e-3, "archs": {}}
+    for cfg, lp, seed in ((jamba, 300, 31), (get_config("xlstm-125m"), 200,
+                                             32)):
+        params = T.init_model(torch.Generator().manual_seed(seed), cfg,
+                              device="cpu")
+        rng = np.random.default_rng(seed)
+        prompt = rng.integers(0, cfg.vocab_size, lp).astype(np.int32)
+        sens = {"reference_init": input_sensitivity(
+            T, _tree(params, lambda t: t.to("cuda")), cfg, prompt)}
+        params = contractive_slstm(params, cfg)
+        sens["compared"] = input_sensitivity(
+            T, _tree(params, lambda t: t.to("cuda")), cfg, prompt)
+        logits, gens = {}, {}
+        for dev in ("cuda", "cpu"):
+            prm = _tree(params, lambda t, d=dev: t.to(d))
+            with torch.no_grad():
+                lg, _ = T.prefill(prm, cfg, torch.from_numpy(prompt)[None]
+                                  .to(dev), last_only=True)
+            logits[dev] = lg.cpu()
+            gens[dev] = E.greedy_generate(prm, cfg, prompt, 8, device=dev)
+            del prm, lg
+        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        if not err <= 1e-3:
+            raise AssertionError(f"{cfg.name}: card vs CPU prefill logits "
+                                 f"differ by {err} > 1e-3")
+        if gens["cuda"] != gens["cpu"]:
+            raise AssertionError(f"{cfg.name}: card vs CPU greedy tokens "
+                                 f"{gens['cuda']} vs {gens['cpu']}")
+        # one slot: the other request runs first and leaves its state there
+        eng = E.DecodeEngine(params, cfg, batch_slots=1, max_seq=lp + 16,
+                             device="cuda")
+        other = rng.integers(0, cfg.vocab_size, lp // 2).astype(np.int32)
+        eng.submit(E.Request(rid=0, prompt=other, max_new_tokens=8))
+        eng.submit(E.Request(rid=1, prompt=prompt, max_new_tokens=8))
+        eng_gen = {r.rid: r.generated for r in eng.run()}[1]
+        if eng_gen != gens["cuda"]:
+            raise AssertionError(f"{cfg.name}: greedy_generate "
+                                 f"{gens['cuda']} vs DecodeEngine {eng_gen} "
+                                 "in a reused slot on the card")
+        specs, repeat = cfg.superblock()
+        out["archs"][cfg.name] = {
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "mixers": [s.mixer for s in specs] * repeat,
+            "prompt_tokens": lp, "ssm_chunk": cfg.ssm_chunk,
+            "prefill_logits_max_abs_err": err,
+            "logit_change_from_1e-7_embed_change": sens,
+            "tokens_card_eq_cpu": True,
+            "tokens_generate_eq_engine_reused_slot": True,
+            "tokens": gens["cuda"]}
+        del eng, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_mamba(ms, launches, smi):
+    """The kernel, its plain version and its bound at jamba's prefill scan
+    (bf16, B/C slices of the x_proj output), L2 flushed before each
+    launch; the kernel's output is held against the plain version's."""
+    b, l, d, n = JAMBA_SCAN
+    args = mamba_inputs(np.random.default_rng(9), b, l, d, n, torch.bfloat16,
+                        dt_rank=JAMBA_DT_RANK)
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        flush_buf.zero_()  # 256 MB > the 50 MB L2
+
+    saved = ms.mamba_scan.launches
+    kernel_ms = cuda_ms(lambda: ms.mamba_scan(*args), 30, flush)
+    plain_ms = cuda_ms(lambda: ms.mamba_scan_plain(*args), 2, flush)
+    ey, eh = mamba_err(ms, args, "jamba prefill shape (time_mamba)")
+    ms.mamba_scan.launches = saved  # timing launches are not the path's
+    # read u, delta (bf16), A (f32), B, C, D (bf16); write y (bf16), h_last
+    nbytes = (3 * b * l * d * 2 + 2 * b * l * n * 2 + d * n * 4 + d * 2
+              + b * d * n * 4)
+    exps = b * l * d * n
+    b_ms, o_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * exps / SFU_EXP_PER_S
+    del args, flush_buf
+    torch.cuda.empty_cache()
+    return {"phase": "time_mamba", "name": "mamba_scan",
+            "shape": {"B": b, "L": l, "D": d, "N": n, "dtype": "bfloat16",
+                      "b_c": "slices of a (B, L, dt_rank + 2N) tensor"},
+            "ms": kernel_ms, "plain_ms": plain_ms,
+            "max_abs_err_y": ey, "max_abs_err_h_last": eh,
+            "tol": MAMBA_TOL[torch.bfloat16],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes a selective "
+                            "scan",
+            "bytes": nbytes, "exps": exps, "bound_ms": max(b_ms, o_ms),
+            "bound_by": "operations" if o_ms >= b_ms else "bytes",
+            "bytes_ms": b_ms, "exps_ms": o_ms,
+            "exps_per_s_achieved": exps / (kernel_ms / 1e3),
             "launches_on_main_path": launches, "card": smi}
 
 
@@ -1181,6 +1470,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import fused_adam as fa
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import onebit_quant as ob
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import topk_sparsify as tk
@@ -1223,6 +1513,8 @@ def main() -> int:
         emit(c)
     check_fl = check_flash(fl)
     emit(check_fl)
+    check_ms = check_mamba(ms)
+    emit(check_ms)
 
     def bf16(name):
         return dataclasses.replace(get_config(name), param_dtype="bfloat16",
@@ -1247,12 +1539,14 @@ def main() -> int:
     emit(card_vs_cpu(T, PagedDecodeEngine, Request, get_config))
 
     # dense serving: greedy_generate (flash prefill) and DecodeEngine
+    prefill_kernels = {"flash_attention": fl.flash_attention,
+                       "mamba_scan": ms.mamba_scan}
     flash_launches = 0
     for phase, name, lp, new in (("greedy_qwen2", "qwen2-1.5b", 2048, 32),
                                  ("greedy_gemma3", "gemma3-1b", 2048, 32),
                                  ("greedy_qwen25_14b", "qwen2.5-14b", 1024,
                                   16)):
-        result = greedy(fl, T, E, bf16(name), smi, phase=phase,
+        result = greedy(prefill_kernels, T, E, bf16(name), smi, phase=phase,
                         prompt_len=lp, new=new, seed=len(phase),
                         profile=name != "qwen2.5-14b")
         if name == "gemma3-1b":
@@ -1261,6 +1555,24 @@ def main() -> int:
         flash_launches += result["flash_launches_per_prefill"]
     emit(dense_serve(T, E, qwen, smi))
     emit(dense_card_vs_cpu(T, E, get_config))
+
+    # the recurrent families on the dense serving path: jamba without
+    # experts cut to two super-blocks (2 attention, 14 Mamba layers) at full
+    # width, and xlstm-125m whole
+    jamba = dataclasses.replace(bf16("jamba-1.5-large-398b"), num_experts=0,
+                                num_layers=16)
+    result = greedy(prefill_kernels, T, E, jamba, smi, phase="greedy_jamba",
+                    prompt_len=2048, new=16, seed=12, profile=True)
+    emit({**result, "num_experts": 0,
+          "params_b": jamba.param_count() / 1e9})
+    flash_launches += result["flash_launches_per_prefill"]
+    mamba_launches = result["mamba_scan_launches_per_prefill"]
+    result = greedy(prefill_kernels, T, E, bf16("xlstm-125m"), smi,
+                    phase="greedy_xlstm", prompt_len=1024, new=32, seed=13,
+                    profile=True)
+    emit(result)
+    emit(dense_serve(T, E, jamba, smi, phase="dense_serve_jamba"))
+    emit(recurrent_card_vs_cpu(T, E, get_config))
 
     train_kernels = {"onebit_quant_packed": ob.onebit_quant_packed,
                      "topk_encode_ef": tk.topk_encode_ef,
@@ -1283,6 +1595,8 @@ def main() -> int:
     emit(train_timing)
     flash_timing = time_flash(fl, flash_launches, smi)
     emit(flash_timing)
+    mamba_timing = time_mamba(ms, mamba_launches, smi)
+    emit(mamba_timing)
 
     sources = {"onebit_quant_packed": ("onebit_quant.cu",
                                        "src/repro/kernels/onebit_quant.py:101"),
@@ -1337,6 +1651,19 @@ def main() -> int:
                    for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms")}
             for name, *_ in FLASH_PATH_SHAPES[1:]},
+    }, {
+        "name": "mamba_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:51",
+        "launches": mamba_launches,
+        "max_abs_err": max(check_ms["max_abs_err_f32"],
+                           check_ms["max_abs_err_bf16"]),
+        "max_abs_err_f32": check_ms["max_abs_err_f32"],
+        "tol_f32": check_ms["tol_f32"],
+        "max_abs_err_bf16": check_ms["max_abs_err_bf16"],
+        "tol_bf16": check_ms["tol_bf16"],
+        **{k: mamba_timing[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
     }], "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,7 @@
 
 Module names mirror ``src/repro/`` so each port file names its reference.
 The port imports torch and numpy only: nothing of JAX and nothing of
-``repro``.  It covers three paths, with their kernels written in CUDA C++
+``repro``.  It covers these paths, with their kernels written in CUDA C++
 for ``sm_90a`` (``kernels/csrc/``):
 
   * paged serving: ``serve.engine.PagedDecodeEngine`` →
@@ -10,8 +10,12 @@ for ``sm_90a`` (``kernels/csrc/``):
     ``kernels.ops.paged_attention``;
   * dense serving: ``serve.engine.greedy_generate`` and ``DecodeEngine`` →
     ``models.transformer.prefill`` (``models.layers.attention_prefill`` →
-    ``kernels.ops.flash_attention``) and ``decode_step`` over a dense KV
-    cache;
+    ``kernels.ops.flash_attention``) and ``decode_step`` over a dense
+    cache, for attention stacks and for the recurrent families: jamba
+    without experts (each Mamba layer's prefill scan ``models.ssm.mamba``
+    → ``kernels.ops.mamba_scan``) and xLSTM (``models.ssm.mlstm``,
+    ``slstm``); ``DecodeEngine`` zeroes a slot's recurrent state when it
+    admits a request;
   * data-parallel training: ``launch.train`` → ``train.loop`` → ``sync`` →
     ``core.fabric.Fabric.exchange`` (``kernels.ops.onebit_quant_packed``,
     ``topk_encode_ef``) → ``optim.adam`` (``kernels.ops.fused_adam``).

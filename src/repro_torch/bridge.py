@@ -59,10 +59,11 @@ def params_to_numpy(tree):
 
 def cache_from_numpy(cache, device="cuda"):
     """A dense decode cache of the JAX package after ``np.asarray`` (per
-    layer ``{"k", "v"}``, stacked (repeat, B, S, KV, Dh), as
-    ``init_cache``/``prefill`` return it) → the port's, on ``device``, in
-    its stored dtype, so both packages' ``decode_step`` can start from one
-    cache."""
+    layer attention ``{"k", "v"}`` stacked (repeat, B, S, KV, Dh), or a
+    recurrent mixer's state, as ``init_cache``/``prefill`` return it) →
+    the port's, on ``device``, every leaf in its stored dtype (the f32
+    recurrent states of a bf16 cache stay f32), so both packages'
+    ``decode_step`` can start from one cache."""
     return params_from_numpy(cache, device)
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fused_adam as _adam
+from repro_torch.kernels import mamba_scan as _mamba
 from repro_torch.kernels import onebit_quant as _onebit
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import topk_sparsify as _topk
@@ -36,6 +37,11 @@ def flash_attention(q, k, v, *, causal=True, window=-1):
     fn = _pick("flash_attention", q, _flash.flash_attention,
                _flash.flash_attention_plain)
     return fn(q, k, v, causal=causal, window=window)
+
+
+def mamba_scan(u, delta, a, b, c, d_skip):
+    fn = _pick("mamba_scan", u, _mamba.mamba_scan, _mamba.mamba_scan_plain)
+    return fn(u, delta, a, b, c, d_skip)
 
 
 def onebit_quant_packed(g, r):

@@ -1,0 +1,307 @@
+"""State-space and recurrent mixers: Mamba (selective SSM) and xLSTM's
+mLSTM and sLSTM blocks.
+
+Port of ``repro/models/ssm.py``.  Parameters keep the reference's tree
+layout and every layer is a plain function over a parameter dict.
+
+Precision contract, as in the reference: every carried state is f32
+whatever the compute dtype (the Mamba discretisation and scan, the mLSTM
+(C, n, m) memory and its log-space stabilisers, the sLSTM cell state);
+only the projections in and out run in the compute dtype.  Decode caches
+keep their recurrent leaves f32 even when the cache dtype is bf16
+(``init_*_cache`` takes the narrow dtype for the conv state only).
+
+Differences from the reference:
+  * Mamba's full-sequence scan is ``kernels.ops.mamba_scan``: on a CUDA
+    tensor the hand-written kernel (one launch per Mamba layer), on a CPU
+    tensor its plain version.  The reference sums the recurrence with a
+    chunked associative scan (``_selective_scan_chunk``, ``ssm_chunk``
+    steps a chunk); the port sums it step by step.  The kernel forms
+    ``delta * u`` in f32, where the reference's model forms it in the
+    compute dtype before its f32 cast: the same in f32, within bf16
+    rounding in a bf16 model.  The single-token decode update keeps the
+    reference's order, ``delta * u`` in the compute dtype.
+  * the decode branches update the layer's cache slice IN PLACE (and
+    return it) instead of returning a new cache.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import dense_init, rms_norm
+
+NEG_INF = -2.0e38
+
+
+def _full(shape, fill, dtype, device, lead):
+    return torch.full(tuple(lead) + tuple(shape), fill, dtype=dtype,
+                      device=device)
+
+
+# ===========================================================================
+# Mamba (S6) block
+# ===========================================================================
+def init_mamba(gen, cfg: ModelConfig, dtype, device, lead=()):
+    d = cfg.d_model
+    d_in = cfg.ssm_expand * d
+    n = cfg.ssm_state_dim
+    kconv = cfg.ssm_conv_dim
+    dt_rank = max(1, d // 16)
+    a_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                   device=device)).expand(d_in, n)
+    return {
+        "in_proj": dense_init(gen, (d, 2 * d_in), dtype, device, lead),
+        "conv_w": dense_init(gen, (kconv, d_in), dtype, device, lead),
+        "conv_b": _full((d_in,), 0.0, dtype, device, lead),
+        "x_proj": dense_init(gen, (d_in, dt_rank + 2 * n), dtype, device,
+                             lead),
+        "dt_proj": dense_init(gen, (dt_rank, d_in), dtype, device, lead),
+        "dt_bias": _full((d_in,), 0.0, dtype, device, lead),
+        "A_log": a_log.to(dtype).expand(tuple(lead) + (d_in, n))
+        .contiguous(),
+        "D": _full((d_in,), 1.0, dtype, device, lead),
+        "out_proj": dense_init(gen, (d_in, d), dtype, device, lead),
+    }
+
+
+def _mamba_bcdt(p, cfg, u):
+    """u: (..., d_in) → (delta, B, C) of shapes (..., d_in), (..., N),
+    (..., N); B and C are slices of one projection."""
+    n = cfg.ssm_state_dim
+    dbl = u @ p["x_proj"]  # (..., dt_rank + 2N)
+    dt_rank = dbl.shape[-1] - 2 * n
+    dt, b, c = (dbl[..., :dt_rank], dbl[..., dt_rank:dt_rank + n],
+                dbl[..., dt_rank + n:])
+    delta = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])  # (..., d_in)
+    return delta, b, c
+
+
+def _causal_conv(p, u, conv_state=None):
+    """Depthwise causal conv over time.  u: (B, L, d_in).  Returns
+    (silu(conv + bias), the last k - 1 inputs)."""
+    k = p["conv_w"].shape[0]
+    if conv_state is None:
+        pad = torch.zeros((u.shape[0], k - 1, u.shape[2]), dtype=u.dtype,
+                          device=u.device)
+    else:
+        pad = conv_state.to(u.dtype)
+    full = torch.cat([pad, u], dim=1)  # (B, L + k - 1, d_in)
+    l = u.shape[1]
+    out = full[:, 0:l] * p["conv_w"][0]
+    for i in range(1, k):
+        out = out + full[:, i:i + l] * p["conv_w"][i]
+    new_state = full[:, -(k - 1):] if k > 1 else None
+    return F.silu(out + p["conv_b"]), new_state
+
+
+def mamba(p, cfg: ModelConfig, x, cache=None, collect_cache=False):
+    """x: (B, L, D) → (out, cache).  Without ``cache``: the full-sequence
+    pass; the returned cache is {"conv", "ssm"} with ``collect_cache``,
+    else None.  With ``cache`` ({"conv": (B, k-1, d_in), "ssm": (B, d_in,
+    N) f32}, L = 1): the O(1) decode update, written into ``cache`` in
+    place and returned."""
+    d_in = cfg.ssm_expand * x.shape[-1]
+    xz = x @ p["in_proj"]  # (B, L, 2 d_in)
+    u, z = xz[..., :d_in], xz[..., d_in:]
+    a_mat = -torch.exp(p["A_log"].float())  # (d_in, N)
+
+    if cache is None:
+        u_pre = u  # pre-conv activations: their tail is the conv state
+        u, _ = _causal_conv(p, u)
+        delta, bb, cc = _mamba_bcdt(p, cfg, u)
+        y, h_last = ops.mamba_scan(u, delta, a_mat, bb, cc, p["D"])
+        new_cache = None
+        if collect_cache:
+            kconv = cfg.ssm_conv_dim
+            conv = u_pre[:, -(kconv - 1):] if kconv > 1 else \
+                u_pre[:, :0]
+            # a copy: a view would keep the whole (B, L, 2 d_in) xz alive
+            new_cache = {"conv": conv.clone(), "ssm": h_last}
+    else:
+        u1, conv_state = _causal_conv(p, u, cache["conv"])
+        delta, bb, cc = _mamba_bcdt(p, cfg, u1)
+        abar = torch.exp(delta.float()[..., None] * a_mat)[:, 0]
+        bu = (delta * u1).float()[..., None] * bb.float()[..., None, :]
+        h = abar * cache["ssm"] + bu[:, 0]  # (B, d_in, N)
+        y = torch.einsum("bdn,bn->bd", h, cc[:, 0].float())[:, None]
+        y = y + p["D"].float() * u1.float()
+        cache["conv"].copy_(conv_state)
+        cache["ssm"].copy_(h)
+        new_cache = cache
+
+    y = y.to(x.dtype) * F.silu(z)
+    return y @ p["out_proj"], new_cache
+
+
+def init_mamba_cache(cfg: ModelConfig, batch, dtype, device, lead=()):
+    d_in = cfg.ssm_expand * cfg.d_model
+    lead = tuple(lead)
+    return {
+        "conv": torch.zeros(lead + (batch, cfg.ssm_conv_dim - 1, d_in),
+                            dtype=dtype, device=device),
+        "ssm": torch.zeros(lead + (batch, d_in, cfg.ssm_state_dim),
+                           dtype=torch.float32, device=device),
+    }
+
+
+# ===========================================================================
+# mLSTM block (xLSTM): matrix memory, exponential gating
+# ===========================================================================
+def init_mlstm(gen, cfg: ModelConfig, dtype, device, lead=()):
+    d, h = cfg.d_model, cfg.num_heads
+    dh = (cfg.ssm_expand * d) // h
+    return {
+        "wq": dense_init(gen, (d, h, dh), dtype, device, lead),
+        "wk": dense_init(gen, (d, h, dh), dtype, device, lead),
+        "wv": dense_init(gen, (d, h, dh), dtype, device, lead),
+        "w_igate": dense_init(gen, (d, h), dtype, device, lead),
+        "w_fgate": dense_init(gen, (d, h), dtype, device, lead),
+        "fgate_bias": _full((h,), 3.0, dtype, device, lead),
+        "out_norm": {"scale": _full((h * dh,), 1.0, dtype, device, lead)},
+        "out_proj": dense_init(gen, (h * dh, d), dtype, device, lead),
+    }
+
+
+def mlstm(p, cfg: ModelConfig, x, cache=None, collect_cache=False):
+    """x: (B, L, D) → (out, cache).  Without ``cache``: the parallel
+    (quadratic) form; with ``collect_cache`` the final state {"C", "n",
+    "m"} comes from the parallel form.  With ``cache`` (L = 1): the
+    recurrent form, the state updated in place and returned."""
+    b, l, d = x.shape
+    h = cfg.num_heads
+    dh = (cfg.ssm_expand * d) // h
+    q = torch.einsum("bld,dhk->bhlk", x, p["wq"]) * dh ** -0.5
+    k = torch.einsum("bld,dhk->bhlk", x, p["wk"]) * dh ** -0.5
+    v = torch.einsum("bld,dhk->bhlk", x, p["wv"])
+    logi = (x @ p["w_igate"]).transpose(1, 2).float()  # (B, H, L)
+    logf = F.logsigmoid((x @ p["w_fgate"]).transpose(1, 2).float()
+                        + p["fgate_bias"].float()[None, :, None])
+
+    new_cache = None
+    if cache is None:
+        # D_ij = sum_{s=j+1..i} logf_s + logi_j  (j <= i)
+        cumf = torch.cumsum(logf, dim=-1)  # (B, H, L)
+        dmat = cumf[..., :, None] - cumf[..., None, :] + logi[..., None, :]
+        causal = torch.ones((l, l), dtype=torch.bool,
+                            device=x.device).tril()
+        dmat = torch.where(causal, dmat, NEG_INF)
+        m = dmat.amax(dim=-1, keepdim=True)  # (B, H, L, 1) stabiliser
+        dexp = torch.exp(dmat - m)
+        s = torch.einsum("bhlk,bhsk->bhls", q.float(), k.float()) * dexp
+        norm = torch.maximum(s.sum(dim=-1, keepdim=True).abs(),
+                             torch.exp(-m))
+        out = torch.einsum("bhls,bhsk->bhlk", s / norm, v.float())
+        if collect_cache:
+            # d_j = sum_{s>j} logf_s + logi_j;  C_L = sum_j e^{d_j - m} v_j k_j^T
+            dj = cumf[..., -1:] - cumf + logi  # (B, H, L)
+            m_fin = dj.amax(dim=-1)  # (B, H)
+            w = torch.exp(dj - m_fin[..., None])
+            kf, vf = k.float(), v.float()
+            new_cache = {"C": torch.einsum("bhl,bhlv,bhlk->bhvk", w, vf, kf),
+                         "n": torch.einsum("bhl,bhlk->bhk", w, kf),
+                         "m": m_fin}
+    else:
+        # C ← f C + i v kᵀ ; n ← f n + i k ; h = (Cᵀ q) / max(|n·q|, e⁻ᵐ)
+        c_mat, nvec, m0 = cache["C"], cache["n"], cache["m"]
+        logi0, logf0 = logi[..., 0], logf[..., 0]  # (B, H)
+        m1 = torch.maximum(logf0 + m0, logi0)
+        fp = torch.exp(logf0 + m0 - m1)[..., None]
+        ip = torch.exp(logi0 - m1)[..., None]
+        k0, v0, q0 = (t[:, :, 0].float() for t in (k, v, q))
+        c_new = fp[..., None] * c_mat \
+            + ip[..., None] * (v0[..., :, None] * k0[..., None, :])
+        n_new = fp * nvec + ip * k0
+        num = torch.einsum("bhvk,bhk->bhv", c_new, q0)
+        den = torch.maximum((n_new * q0).sum(dim=-1).abs(), torch.exp(-m1))
+        out = (num / den[..., None])[:, :, None, :]  # (B, H, 1, dh)
+        c_mat.copy_(c_new)
+        nvec.copy_(n_new)
+        m0.copy_(m1)
+        new_cache = cache
+
+    out = out.transpose(1, 2).reshape(b, -1, h * dh).to(x.dtype)
+    return rms_norm(out, p["out_norm"], cfg.norm_eps) @ p["out_proj"], \
+        new_cache
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch, dtype, device, lead=()):
+    h = cfg.num_heads
+    dh = (cfg.ssm_expand * cfg.d_model) // h
+    lead = tuple(lead)
+
+    def z(*shape):
+        return torch.zeros(lead + shape, dtype=torch.float32, device=device)
+
+    return {"C": z(batch, h, dh, dh), "n": z(batch, h, dh), "m": z(batch, h)}
+
+
+# ===========================================================================
+# sLSTM block (xLSTM): scalar memory, recurrent weights, sequential
+# ===========================================================================
+def init_slstm(gen, cfg: ModelConfig, dtype, device, lead=()):
+    d, h = cfg.d_model, cfg.num_heads
+    dh = d // h
+    lead = tuple(lead)
+    bias = torch.cat([torch.zeros(lead + (d,)), torch.full(lead + (d,), 3.0),
+                      torch.zeros(lead + (2 * d,))], dim=-1)
+    return {
+        "W": dense_init(gen, (d, 4 * d), dtype, device, lead),  # i, f, z, o
+        "R": dense_init(gen, (h, dh, 4 * dh), dtype, device, lead),
+        "b": bias.to(dtype=dtype, device=device),
+        "out_proj": dense_init(gen, (d, d), dtype, device, lead),
+    }
+
+
+def _slstm_cell(p, cfg, xw, state):
+    """xw: (B, 4D) = x @ W + b; state: dict of (B, D) f32.  Returns the
+    next state."""
+    b = xw.shape[0]
+    d, h = cfg.d_model, cfg.num_heads
+    dh = d // h
+    c, n, hid, m = state["c"], state["n"], state["h"], state["m"]
+    rec = torch.einsum("bhk,hkj->bhj", hid.reshape(b, h, dh).float(),
+                       p["R"].float()).reshape(b, 4 * d)
+    g = xw.float() + rec
+    gi, gf, gz, go = torch.chunk(g, 4, dim=-1)
+    logf = F.logsigmoid(gf)
+    m1 = torch.maximum(logf + m, gi)
+    ip = torch.exp(gi - m1)
+    fp = torch.exp(logf + m - m1)
+    c1 = fp * c + ip * torch.tanh(gz)
+    n1 = fp * n + ip
+    h1 = torch.sigmoid(go) * c1 / torch.clamp_min(n1, 1.0)
+    return {"c": c1, "n": n1, "h": h1, "m": m1}
+
+
+def slstm(p, cfg: ModelConfig, x, cache=None, collect_cache=False):
+    """x: (B, L, D) → (out, cache).  Without ``cache``: a step-by-step
+    loop over L from the zero state, returning the final state with
+    ``collect_cache``.  With ``cache`` (L = 1): one step, the state updated
+    in place and returned."""
+    b, l, d = x.shape
+    xw = x @ p["W"] + p["b"]  # (B, L, 4D)
+    if cache is None:
+        state = init_slstm_cache(cfg, b, torch.float32, x.device)
+        hs = []
+        for t in range(l):
+            state = _slstm_cell(p, cfg, xw[:, t], state)
+            hs.append(state["h"])
+        out = torch.stack(hs, dim=1).to(x.dtype)  # (B, L, D)
+        new_cache = state if collect_cache else None
+    else:
+        st = _slstm_cell(p, cfg, xw[:, 0], cache)
+        for name, t in st.items():
+            cache[name].copy_(t)
+        out = st["h"][:, None].to(x.dtype)
+        new_cache = cache
+    return out @ p["out_proj"], new_cache
+
+
+def init_slstm_cache(cfg: ModelConfig, batch, dtype, device, lead=()):
+    shape = tuple(lead) + (batch, cfg.d_model)
+    return {name: torch.zeros(shape, dtype=torch.float32, device=device)
+            for name in ("c", "n", "h", "m")}

@@ -1,12 +1,26 @@
-"""Decoder-only transformer: the training forward, prefill and decode over
-a dense KV cache, and the steps over a paged KV cache.
+"""Decoder-only models: the training forward, prefill and decode over a
+dense cache, and the steps over a paged KV cache.
 
 Port of the training and serving paths of ``repro/models/transformer.py``.
 Parameters keep the reference's tree layout: ``embed (V, D)``,
 ``final_norm``, and ``stack`` holding the super-block's layers ``"0"``,
 ``"1"``, ... with every leaf stacked over the ``repeat`` axis, so
-``bridge.params_from_numpy`` is a pure copy.  The reference's ``lax.scan`` over that axis is a Python loop
-here, with each layer's window and RoPE theta from ``cfg.layer_windows()``.
+``bridge.params_from_numpy`` is a pure copy.  The reference's ``lax.scan``
+over that axis is a Python loop here, with each layer's window and RoPE
+theta from ``cfg.layer_windows()``.
+
+Which stacks run where:
+  * dense-cache serving (``init_model``, ``init_cache``, ``prefill``,
+    ``decode_step``) takes attention, Mamba, mLSTM and sLSTM mixers with a
+    dense MLP or no FFN: the dense models, jamba without experts
+    (``num_experts=0``) and xLSTM.  A layer's cache is per mixer, as the
+    reference's: attention ``{"k", "v"}``, Mamba ``{"conv", "ssm"}``,
+    mLSTM ``{"C", "n", "m"}``, sLSTM ``{"c", "n", "h", "m"}``, the
+    recurrent leaves f32 whatever the cache dtype;
+  * the training ``forward`` and the paged cache take attention-only
+    stacks (training the recurrent families is a later slice; recurrent
+    state lives per slot on the dense engine, as in the reference);
+  * MoE FFNs and encoder-decoder stacks raise everywhere: later slices.
 
 The step functions expect parameters already in ``cfg.compute_dtype``
 (``cast_compute``): the reference casts on every call inside ``jit``, the
@@ -37,18 +51,39 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.precision import torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+
+# the recurrent mixers: parameter init, layer, layer-cache init
+_RECURRENT = {
+    "mamba": {"init": S.init_mamba, "layer": S.mamba,
+              "cache": S.init_mamba_cache},
+    "mlstm": {"init": S.init_mlstm, "layer": S.mlstm,
+              "cache": S.init_mlstm_cache},
+    "slstm": {"init": S.init_slstm, "layer": S.slstm,
+              "cache": S.init_slstm_cache},
+}
 
 
-def _check_stack(cfg: ModelConfig):
+def _check_stack(cfg: ModelConfig, attention_only=None):
+    """The layer specs, if the port runs this stack: decoder-only, dense
+    MLP or no FFN, attention or recurrent mixers.  ``attention_only`` is
+    ``(entry point, hint)`` for an entry point that takes attention mixers
+    only."""
     specs, _ = cfg.superblock()
     if cfg.is_encoder_decoder:
         raise ValueError("the port serves decoder-only models; encoder-"
                          "decoder stacks are a later slice")
     for spec in specs:
-        if spec.mixer != "attn" or spec.ffn != "mlp":
+        if spec.ffn not in ("mlp", "none"):
             raise ValueError(
-                f"the port supports attention-only stacks with dense MLPs; "
-                f"got mixer {spec.mixer!r}, ffn {spec.ffn!r}")
+                f"the port runs dense MLP FFNs; got ffn {spec.ffn!r} (MoE "
+                f"is a later slice)")
+        if spec.mixer != "attn" and spec.mixer not in _RECURRENT:
+            raise ValueError(f"the port has no mixer {spec.mixer!r}")
+        if spec.mixer != "attn" and attention_only:
+            what, hint = attention_only
+            raise ValueError(f"{what} supports attention-only stacks; got "
+                             f"mixer {spec.mixer!r} ({hint})")
     return specs
 
 
@@ -72,11 +107,19 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
     def norm(shape):
         return {"scale": torch.ones(shape, dtype=pdt, device=dev)}
 
-    stack = {str(i): {"pre_norm": norm(lead + (cfg.d_model,)),
-                      "attn": L.init_attention(gen, cfg, pdt, dev, lead),
-                      "ffn_norm": norm(lead + (cfg.d_model,)),
-                      "mlp": L.init_mlp(gen, cfg, pdt, dev, lead)}
-             for i in range(len(specs))}
+    def layer(spec):  # the reference's _init_layer
+        p = {"pre_norm": norm(lead + (cfg.d_model,))}
+        if spec.mixer == "attn":
+            p["attn"] = L.init_attention(gen, cfg, pdt, dev, lead)
+        else:
+            p[spec.mixer] = _RECURRENT[spec.mixer]["init"](gen, cfg, pdt,
+                                                           dev, lead)
+        if spec.ffn != "none":
+            p["ffn_norm"] = norm(lead + (cfg.d_model,))
+            p["mlp"] = L.init_mlp(gen, cfg, pdt, dev, lead)
+        return p
+
+    stack = {str(i): layer(spec) for i, spec in enumerate(specs)}
     params = {
         "embed": L.dense_init(gen, (cfg.vocab_size, cfg.d_model), pdt, dev),
         "stack": stack,
@@ -104,26 +147,35 @@ def cast_compute(params, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # stack traversal
 # ---------------------------------------------------------------------------
-def _run_stack(params, cfg: ModelConfig, h, attend):
-    """The layer stack: pre-norm residual (attention → MLP) layers.  The
-    reference's ``lax.scan`` over the repeat axis is a loop here; there is
-    no rematerialisation (the trainer CLI runs with ``remat=False``).
+def _run_stack(params, cfg: ModelConfig, h, attend, recur=None):
+    """The layer stack: pre-norm residual (mixer → MLP) layers, the
+    reference's ``_apply_layer`` per layer.  The reference's ``lax.scan``
+    over the repeat axis is a loop here; there is no rematerialisation (the
+    trainer CLI runs with ``remat=False``).
 
     ``attend(p_attn, x, window, theta, key, r)`` is the attention of layer
     ``key`` of super-block ``r`` (its window and RoPE theta from
     ``cfg.layer_windows()``): the caller picks the training, prefill,
-    dense-cache or paged-cache attention and the layer's cache slice."""
+    dense-cache or paged-cache attention and the layer's cache slice.
+    ``recur(mixer, p_mixer, x, key, r)`` is a recurrent mixer (``"mamba"``,
+    ``"mlstm"``, ``"slstm"``) with the layer's cache slice, for the
+    entry points that run them.  A layer with ffn ``"none"`` (xLSTM) has
+    no MLP."""
     specs, repeat = cfg.superblock()
     windows, thetas = cfg.layer_windows()  # (repeat, S) numpy arrays
     for r in range(repeat):
-        for i in range(len(specs)):
+        for i, spec in enumerate(specs):
             key = str(i)
             p = _index(params["stack"][key], r)
             x = L.rms_norm(h, p["pre_norm"], cfg.norm_eps)
-            h = h + attend(p["attn"], x, int(windows[r, i]),
-                           float(thetas[r, i]), key, r)
-            x = L.rms_norm(h, p["ffn_norm"], cfg.norm_eps)
-            h = h + L.mlp(p["mlp"], cfg, x)
+            if spec.mixer == "attn":
+                h = h + attend(p["attn"], x, int(windows[r, i]),
+                               float(thetas[r, i]), key, r)
+            else:
+                h = h + recur(spec.mixer, p[spec.mixer], x, key, r)
+            if spec.ffn != "none":
+                x = L.rms_norm(h, p["ffn_norm"], cfg.norm_eps)
+                h = h + L.mlp(p["mlp"], cfg, x)
     return h
 
 
@@ -148,7 +200,8 @@ def _embed(params, cfg, tokens):
 def forward(params, cfg: ModelConfig, tokens, positions=None):
     """Training forward pass over (B, L) tokens.  Returns (logits (B, L, V)
     f32, aux loss); aux is 0 for the dense stacks ported so far."""
-    _check_stack(cfg)
+    _check_stack(cfg, ("the training forward",
+                       "training the recurrent families is a later slice"))
     params = cast_compute(params, cfg)
     h = _embed(params, cfg, tokens)
     b, l = h.shape[:2]
@@ -172,9 +225,11 @@ def forward(params, cfg: ModelConfig, tokens, positions=None):
 def init_paged_cache(cfg: ModelConfig, num_pages, page_size, dtype=None,
                      device="cuda"):
     """Per-layer k/v page pools stacked over ``repeat``; page 0 is the
-    reserved trash page.  ``dtype`` defaults to ``cfg.compute_dtype``."""
+    reserved trash page.  ``dtype`` defaults to ``cfg.compute_dtype``.
+    Attention-only stacks: recurrent mixers keep per-slot dense state and
+    stay on the dense ``DecodeEngine``, as in the reference."""
     dev = resolve_device(device)
-    specs = _check_stack(cfg)
+    specs = _check_stack(cfg, ("paged cache", "use the dense DecodeEngine"))
     _, repeat = cfg.superblock()
     dt = torch_dtype(dtype if dtype is not None else cfg.compute_dtype)
     return {str(i): L.init_paged_attn_cache(cfg, num_pages, page_size, dt,
@@ -219,24 +274,33 @@ def prefill_chunk_paged(params, cfg: ModelConfig, tokens, positions, cache,
 # dense cache: prefill and decode
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch, max_seq, dtype=None, device="cuda"):
-    """Dense decode cache: per layer ``{"k", "v"}`` of shape
-    (repeat, batch, max_seq, KV, Dh), the reference's stacked layout.
-    ``dtype`` defaults to ``cfg.compute_dtype``."""
+    """Dense decode cache in the reference's stacked layout: per layer,
+    attention ``{"k", "v"}`` of shape (repeat, batch, max_seq, KV, Dh), or
+    the recurrent mixer's state (repeat, batch, ...).  ``dtype`` (default
+    ``cfg.compute_dtype``) is that of the k/v and Mamba conv leaves; the
+    recurrent states are f32."""
     dev = resolve_device(device)
     specs = _check_stack(cfg)
     _, repeat = cfg.superblock()
     dt = torch_dtype(dtype if dtype is not None else cfg.compute_dtype)
-    return {str(i): L.init_attn_cache(cfg, batch, max_seq, dt, dev,
-                                      lead=(repeat,))
-            for i in range(len(specs))}
+
+    def one(spec):  # the reference's _init_layer_cache
+        if spec.mixer == "attn":
+            return L.init_attn_cache(cfg, batch, max_seq, dt, dev,
+                                     lead=(repeat,))
+        return _RECURRENT[spec.mixer]["cache"](cfg, batch, dt, dev,
+                                               lead=(repeat,))
+
+    return {str(i): one(spec) for i, spec in enumerate(specs)}
 
 
 def prefill(params, cfg: ModelConfig, tokens, last_only=False):
     """Full-sequence forward over (B, L) prompt tokens that also returns the
-    populated decode cache (S = L), as the reference's ``prefill``.  Each
-    layer's attention is one ``flash_attention`` launch on a CUDA tensor.
-    Returns (logits f32, (B, 1, V) with ``last_only`` else (B, L, V),
-    cache)."""
+    populated decode cache (S = L for attention; the recurrent layers'
+    final states), as the reference's ``prefill``.  On CUDA tensors each
+    attention layer is one ``flash_attention`` launch and each Mamba
+    layer one ``mamba_scan`` launch.  Returns (logits f32, (B, 1, V) with
+    ``last_only`` else (B, L, V), cache)."""
     _check_stack(cfg)
     params = cast_compute(params, cfg)
     h = _embed(params, cfg, tokens)
@@ -247,12 +311,18 @@ def prefill(params, cfg: ModelConfig, tokens, last_only=False):
         collected.setdefault(key, []).append(kv)
         return out
 
-    h = _run_stack(params, cfg, h, attend)
+    def recur(mixer, p, x, key, r):
+        out, state = _RECURRENT[mixer]["layer"](p, cfg, x,
+                                                collect_cache=True)
+        collected.setdefault(key, []).append(state)
+        return out
+
+    h = _run_stack(params, cfg, h, attend, recur)
     if last_only:
         h = h[:, -1:]
-    cache = {key: {name: torch.stack([kv[name] for kv in kvs])
-                   for name in ("k", "v")}
-             for key, kvs in collected.items()}
+    cache = {key: {name: torch.stack([c[name] for c in per_r])
+                   for name in per_r[0]}
+             for key, per_r in collected.items()}
     return _logits(params, cfg, h), cache
 
 
@@ -276,7 +346,8 @@ def pad_prefill_cache(cfg: ModelConfig, cache, total):
 def decode_step(params, cfg: ModelConfig, token, pos, cache):
     """One decode token per row against the dense cache, updated in place.
     token: (B,) int; pos: a Python int write position for every row, or a
-    (B,) int tensor of ragged positions (continuous batching).  Expects
+    (B,) int tensor of ragged positions (continuous batching); recurrent
+    layers advance their state one step whatever the position.  Expects
     parameters in ``cfg.compute_dtype`` (``cast_compute``), as the paged
     steps.  Returns logits (B, V) f32."""
     h = _embed(params, cfg, token[:, None])
@@ -285,5 +356,9 @@ def decode_step(params, cfg: ModelConfig, token, pos, cache):
         return L.attention_decode(p, cfg, x, pos, window, theta,
                                   _index(cache[key], r))
 
-    h = _run_stack(params, cfg, h, attend)
+    def recur(mixer, p, x, key, r):
+        return _RECURRENT[mixer]["layer"](p, cfg, x,
+                                          cache=_index(cache[key], r))[0]
+
+    h = _run_stack(params, cfg, h, attend, recur)
     return _logits(params, cfg, h)[:, 0]

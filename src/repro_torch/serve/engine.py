@@ -14,9 +14,11 @@ Differences from the reference:
     ``greedy_generate``'s prefill attention the CUDA flash-attention
     kernel; on ``"cpu"`` their plain PyTorch versions.  int8 pools take the
     gather path on either device, as in the reference.
-  * ``DecodeEngine`` and ``greedy_generate`` take decoder-only attention
-    stacks; encoder-decoder ``memory`` and the reset of recurrent slots
-    come with those model families (``_check_stack`` raises).
+  * ``DecodeEngine`` and ``greedy_generate`` take decoder-only stacks:
+    attention and the recurrent families (jamba's Mamba layers without
+    experts, xLSTM); encoder-decoder ``memory`` and MoE FFNs come with
+    those model families (``_check_stack`` raises).  On ``"cuda"`` the
+    prefill's Mamba scans run the CUDA ``mamba_scan`` kernel.
   * parameters are cast to ``cfg.compute_dtype`` once, here, instead of on
     every step;
   * the caches are updated in place;
@@ -78,10 +80,11 @@ def _tensor(a, device):
 
 
 class DecodeEngine:
-    """Continuous batching over a dense (B, max_seq) KV cache: every slot
+    """Continuous batching over a dense (B, max_seq) cache: every slot
     carries its own position (ragged (B,) writes), a freed slot is refilled
-    from the queue at once and ingests its prompt one token per step while
-    the other slots generate.  One decode call serves both phases."""
+    from the queue at once (its recurrent state zeroed) and ingests its
+    prompt one token per step while the other slots generate.  One decode
+    call serves both phases."""
 
     def __init__(self, params, cfg: ModelConfig, batch_slots: int,
                  max_seq: int, pad_token: int = 0, cache_dtype=None,
@@ -104,6 +107,11 @@ class DecodeEngine:
         self.phase = ["idle"] * batch_slots  # idle | prompt | decode
         self.prompt_cursor = np.zeros(batch_slots, np.int32)
         self._next_tok = np.zeros(batch_slots, np.int32)
+        specs, _ = cfg.superblock()
+        # only recurrent mixers need a reset at admission: attention slots
+        # are hidden by the causal mask, mamba/xLSTM state carries over
+        self._recurrent = [str(i) for i, s in enumerate(specs)
+                           if s.mixer != "attn"]
 
     @torch.no_grad()
     def _decode(self, toks, pos):
@@ -116,9 +124,15 @@ class DecodeEngine:
     def submit(self, req: Request):
         _submit(self, req)
 
+    def _reset_slot(self, i: int):
+        """Zero slot i of the recurrent state leaves (in place).  Attention
+        k/v need no reset: every j <= pos is rewritten by the new request
+        before it is read."""
+        for key in self._recurrent:
+            for leaf in self.cache[key].values():
+                leaf[:, i].zero_()
+
     def _admit(self):
-        # attention slots need no reset: every j <= pos is rewritten by the
-        # new request before it is read
         for i in range(self.b):
             if self.phase[i] == "idle" and self.queue:
                 req = self.queue.popleft()
@@ -126,6 +140,7 @@ class DecodeEngine:
                 self.phase[i] = "prompt"
                 self.prompt_cursor[i] = 0
                 self.pos[i] = 0
+                self._reset_slot(i)
                 self._next_tok[i] = req.prompt[0]
 
     def step(self):
@@ -400,9 +415,10 @@ class PagedDecodeEngine:
 @torch.no_grad()
 def greedy_generate(params, cfg: ModelConfig, prompt, max_new_tokens: int,
                     device="cuda"):
-    """Single-sequence generation: one prefill over the whole prompt (each
-    layer's attention one flash-attention launch on the card), the cache
-    grown to prompt + ``max_new_tokens``, then greedy decode.  Returns the
+    """Single-sequence generation: one prefill over the whole prompt (on
+    the card each attention layer one flash-attention launch, each Mamba
+    layer one mamba_scan launch), the attention cache grown to prompt +
+    ``max_new_tokens``, then greedy decode.  Returns the
     generated token ids; the first comes from the prefill, so at least one
     is returned, as in the reference."""
     dev = resolve_device(device)

@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 from test_torch_layers import ARCHS, close, np_params, tiny_cfgs, to_jax
+from test_torch_layers import make_requests as _requests
+from test_torch_layers import tokens as _tokens
 
 from repro.models import layers as JL
 from repro.models import transformer as JT
@@ -52,22 +54,6 @@ def _setup(arch, seed):
     jcfg, tcfg = tiny_cfgs(arch)
     npp = np_params(jcfg, seed)
     return jcfg, tcfg, to_jax(npp), params_from_numpy(npp, "cpu")
-
-
-def _tokens(seed, b, lp, vocab=64):
-    return np.random.default_rng(seed).integers(0, vocab, (b, lp)) \
-        .astype(np.int32)
-
-
-def _requests(Request, seed, n, lo, hi, max_new=(1, 10)):
-    rng = np.random.default_rng(seed)
-    return [Request(rid=i,
-                    prompt=np.asarray(rng.integers(1, 64, size=int(l)),
-                                      np.int32),
-                    max_new_tokens=int(m))
-            for i, (l, m) in enumerate(zip(
-                rng.integers(lo, hi, size=n),
-                rng.integers(max_new[0], max_new[1], size=n)))]
 
 
 def _gens(finished):
@@ -355,11 +341,22 @@ def test_dense_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_dense_engine_rejects_recurrent_stacks():
+    """The recurrent stacks the dense engine does not serve yet: jamba
+    with its experts (MoE FFNs) and a hybrid encoder-decoder stack.  Jamba
+    without experts and xLSTM are served (tests/test_torch_ssm.py)."""
+    from repro_torch.configs import get_config
+
     _, tcfg = tiny_cfgs("qwen2-1.5b")
-    hybrid = dataclasses.replace(tcfg, family="hybrid", attn_every=2)
     params = TT.init_model(torch.Generator().manual_seed(0), tcfg, "cpu")
-    with pytest.raises(ValueError, match="attention-only"):
-        TE.DecodeEngine(params, hybrid, batch_slots=1, max_seq=8,
+    jamba = get_config("jamba-1.5-large-398b").reduced()
+    assert jamba.num_experts and jamba.family == "hybrid"
+    with pytest.raises(ValueError, match="MoE is a later slice"):
+        TE.DecodeEngine(params, jamba, batch_slots=1, max_seq=8,
+                        device="cpu")
+    enc_dec = dataclasses.replace(jamba, num_experts=0,
+                                  is_encoder_decoder=True)
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        TE.DecodeEngine(params, enc_dec, batch_slots=1, max_seq=8,
                         device="cpu")
 
 

@@ -189,6 +189,17 @@ def test_flash_attention_argtypes_match_c_prototype():
     assert kinds.count(ctypes.c_longlong) == 12
 
 
+def test_mamba_scan_argtypes_match_c_prototype():
+    """The scan's B/C strides are 64-bit: passed as 32-bit ints they would
+    be cut."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    kinds = _c_argtypes("mamba_scan.cu", "mamba_scan_fwd")
+    assert kinds == ms._ARGTYPES
+    assert kinds.count(ctypes.c_longlong) == 4
+    assert kinds.count(ctypes.c_void_p) == 9  # 8 tensors and the stream
+
+
 def test_training_kernels_match_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the H100; chip_smoke.py also "

@@ -43,7 +43,8 @@ def tiny_cfgs(arch, **over):
 
 
 def np_params(cfg, seed=0):
-    """Seeded numpy parameters in ``init_model``'s tree layout."""
+    """Seeded numpy parameters in ``init_model``'s tree layout, the
+    recurrent mixers' leaves included."""
     shapes = jax.eval_shape(lambda k: JT.init_model(k, cfg),
                             jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
@@ -52,8 +53,24 @@ def np_params(cfg, seed=0):
         name, shape = path[-1].key, sds.shape
         if name == "scale":
             a = 1.0 + 0.1 * rng.standard_normal(shape)
-        elif name in ("bq", "bk", "bv"):
+        elif name in ("bq", "bk", "bv", "conv_b", "dt_bias"):
             a = 0.1 * rng.standard_normal(shape)
+        # the recurrent leaves near the reference's init: A = -(1..N),
+        # skip D = 1, forget biases 3, sLSTM's R by its fan-in dh
+        elif name == "A_log":
+            a = np.log(np.arange(1, shape[-1] + 1)) \
+                + 0.1 * rng.standard_normal(shape)
+        elif name == "D":
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif name == "fgate_bias":
+            a = 3.0 + 0.1 * rng.standard_normal(shape)
+        elif name == "b":  # sLSTM gate biases: i, f (3), z, o
+            d = shape[-1] // 4
+            a = np.concatenate([np.zeros(d), np.full(d, 3.0),
+                                np.zeros(2 * d)]) \
+                + 0.1 * rng.standard_normal(shape)
+        elif name == "R":
+            a = rng.standard_normal(shape) / np.sqrt(shape[2])
         else:  # stacked leaves lead with the repeat axis
             fan_in = (shape[-1] if name == "embed" else
                       shape[1] * shape[2] if name == "wo" else shape[1])
@@ -65,6 +82,25 @@ def np_params(cfg, seed=0):
 
 def to_jax(tree):
     return jax.tree.map(jnp.asarray, tree)
+
+
+def tokens(seed, b, lp, vocab=64):
+    """(b, lp) int32 prompt tokens below ``vocab``."""
+    return np.random.default_rng(seed).integers(0, vocab, (b, lp)) \
+        .astype(np.int32)
+
+
+def make_requests(Request, seed, n, lo, hi, max_new=(1, 10), vocab=64):
+    """``n`` requests of the given package's ``Request`` class: prompt
+    lengths in [lo, hi), tokens in [1, vocab), budgets in ``max_new``."""
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i,
+                    prompt=np.asarray(rng.integers(1, vocab, size=int(l)),
+                                      np.int32),
+                    max_new_tokens=int(m))
+            for i, (l, m) in enumerate(zip(
+                rng.integers(lo, hi, size=n),
+                rng.integers(max_new[0], max_new[1], size=n)))]
 
 
 def rand(rng, *shape):

@@ -98,11 +98,12 @@ def test_build_targets_sm90a_and_every_source():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-shared" in flags and "-fPIC" in flags
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) \
-        == ["flash_attention", "fused_adam", "onebit_quant", "paged_attention",
-            "topk_sparsify"]
+        == ["flash_attention", "fused_adam", "mamba_scan", "onebit_quant",
+            "paged_attention", "topk_sparsify"]
 
 
-@pytest.mark.parametrize("name", ["qwen2-1.5b", "gemma3-1b", "qwen2.5-14b"])
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "gemma3-1b", "qwen2.5-14b",
+                                  "jamba-1.5-large-398b", "xlstm-125m"])
 def test_configs_copy_the_reference_field_for_field(name):
     ours, ref = get_config(name), jax_config(name)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
@@ -110,12 +111,19 @@ def test_configs_copy_the_reference_field_for_field(name):
         == dataclasses.asdict(ref.reduced())
     assert ours.param_count() == ref.param_count()
     assert ours.resolved_head_dim == ref.resolved_head_dim
+    for cfg_o, cfg_r in ((ours, ref), (ours.reduced(), ref.reduced())):
+        (specs_o, rep_o), (specs_r, rep_r) = (cfg_o.superblock(),
+                                              cfg_r.superblock())
+        assert rep_o == rep_r
+        assert [dataclasses.asdict(x) for x in specs_o] \
+            == [dataclasses.asdict(x) for x in specs_r]
     for a, b in zip(ours.layer_windows(), ref.layer_windows()):
         np.testing.assert_array_equal(a, b)
 
 
 def test_config_registry_and_dtype_check():
-    assert list_configs() == ["gemma3-1b", "qwen2-1.5b", "qwen2.5-14b"]
+    assert list_configs() == ["gemma3-1b", "jamba-1.5-large-398b",
+                              "qwen2-1.5b", "qwen2.5-14b", "xlstm-125m"]
     with pytest.raises(KeyError):
         get_config("llama-7b")
     with pytest.raises(ValueError, match="supported precision"):
