@@ -24,11 +24,19 @@ then drives the main paths through their entry points:
     on the jamba cut; and in f32 the card against the CPU on jamba's
     reduced widths (8 layers) and xlstm-125m, with ``DecodeEngine``
     reusing a slot (its recurrent state reset);
+  * the leaf-wise error-feedback codec: ``ef_compress_tree`` and
+    ``dgc_compress_tree`` with 1-bit and top-k on qwen2-1.5b's stacked
+    gradient tree at full width (4 layers, W = 4, 14 leaves), each leaf's
+    round one launch of ``onebit_quant`` or ``topk_sparsify``;
   * training: the trainer CLI's body (``repro_torch.launch.train.train``)
-    on qwen2-1.5b at full width, cut to 4 layers, W = 4 replicas, under
-    ``sync`` with ``--compressor onebit`` and ``topk`` and ``--fused-adam``;
-    one step of each under ``torch.profiler``; and the card's losses
-    against the CPU's on a two-layer, W = 2 cut.
+    on qwen2-1.5b at full width, cut to 4 layers, W = 4 replicas,
+    ``--fused-adam``, under ``sync`` with ``--compressor onebit`` and
+    ``topk`` and under the rest of the spectrum: ``local_sgd``, ``easgd``,
+    ``gossip``, ``downpour --compressor onebit``, ``sync_dgc --compressor
+    topk`` and ``ssp`` (cut to 2 layers: its ring holds 4 gradients); one
+    step of each under ``torch.profiler``; and the card's losses and
+    replica divergence against the CPU's on a two-layer, W = 2 cut under
+    ``sync`` (1-bit), ``downpour`` (1-bit) and ``ssp``.
 
 Each kernel's launches are counted from zero over the paths that run it,
 and each is timed against its bound, its plain version and one PyTorch
@@ -1195,12 +1203,234 @@ def check_adam(fa):
 
 
 # ---------------------------------------------------------------------------
+# the leaf-wise codec's kernels against their plain versions
+# ---------------------------------------------------------------------------
+EMBED_ROWS = (4 * 151936 * 1536) // 256  # qwen2-1.5b's stacked embedding
+ONEBIT_SHAPES = [(1, 128), (17, 128), (64, 256), (4, 64),  # test_kernels.py
+                 (EMBED_ROWS, 256)]
+TOPK_SHAPES = [(4, 128, 4), (37, 256, 8), (1, 64, 1), (8, 512, 32),
+               (EMBED_ROWS // 4, 1024, 10)]
+
+
+def card_rows(seed, nb, block):
+    """(g, r) CUDA rows drawn on the card, the first ones ``code_rows``'s
+    cases."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.randn(nb, block, device="cuda", generator=gen)
+    r = 0.1 * torch.randn(nb, block, device="cuda", generator=gen)
+    head = min(nb, 8)
+    sg, sr = code_rows(seed, 8, block)
+    g[:head], r[:head] = sg[:head], sr[:head]
+    return g, r
+
+
+def onebit_err(ob, g, r, what):
+    """The unpacked kernel against its plain version: signs bitwise, the
+    f32 scale within rtol 1e-6 (the f32 sum runs in another order), r'
+    bitwise equal to t - sign * (the kernel's own scale).  Returns the
+    largest |kernel - plain| over scale and r'."""
+    sign, scale, new_r = ob.onebit_quant(g, r)
+    ps, psc, pr = ob.onebit_quant_plain(g, r)
+    torch.cuda.synchronize()
+    if not bitwise_equal(sign, ps):
+        raise AssertionError(f"onebit_quant {what}: signs differ")
+    rel = ((scale - psc).abs() / psc.abs().clamp_min(1e-30)).max().item()
+    if not rel <= 1e-6:
+        raise AssertionError(f"onebit_quant {what}: scale rel err {rel}")
+    own = (g + r) - sign.float() * scale
+    if not bitwise_equal(new_r, own):
+        raise AssertionError(f"onebit_quant {what}: r' is not "
+                             "t - sign * scale")
+    del own
+    return max((scale - psc).abs().max().item(),
+               (new_r - pr).abs().max().item()), rel
+
+
+def topk_equal(tk, x, k, what):
+    """The sparsify kernel against its plain version, bitwise."""
+    got = tk.topk_sparsify(x, k)
+    want = tk.topk_sparsify_plain(x, k)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("vals", "idx", "dense"), got, want):
+        if not bitwise_equal(a, b):
+            raise AssertionError(f"topk_sparsify {what}: {name} differ")
+
+
+def check_onebit_unpacked(ob):
+    err, rel = 0.0, 0.0
+    for nb, block in ONEBIT_SHAPES:
+        g, r = card_rows(nb + block, nb, block)
+        e, q = onebit_err(ob, g, r, f"({nb}, {block})")
+        err, rel = max(err, e), max(rel, q)
+        del g, r
+    torch.cuda.empty_cache()
+    return {"phase": "kernel_check_onebit_unpacked",
+            "shapes": ONEBIT_SHAPES, "signs": "bitwise",
+            "residual_vs_own_scale": "bitwise", "scale_max_rel_err": rel,
+            "max_abs_err_vs_plain": err,
+            "tol": "signs exact; scale rtol 1e-6; r' exact vs own scale"}
+
+
+def check_topk_sparsify(tk):
+    for nb, block, k in TOPK_SHAPES:
+        g, _ = card_rows(nb + block + k, nb, block)
+        for dt in (torch.float32, torch.bfloat16):
+            topk_equal(tk, g.to(dt), k, f"({nb}, {block}) k {k} {dt}")
+        del g
+    torch.cuda.empty_cache()
+    return {"phase": "kernel_check_topk_sparsify", "shapes": TOPK_SHAPES,
+            "dtypes": ["float32", "bfloat16"],
+            "vals_idx_dense": "bitwise", "max_abs_err_vs_plain": 0.0,
+            "tol": "bitwise"}
+
+
+@contextlib.contextmanager
+def plain_codec(ob, tk):
+    """``ops.onebit_quant`` and ``ops.topk_sparsify`` pick their kernel
+    module's attribute at call time: here that is the plain version, so
+    the codec runs plain on CUDA tensors (and counts no launch)."""
+    saved = ob.onebit_quant, tk.topk_sparsify
+    ob.onebit_quant, tk.topk_sparsify = ob.onebit_quant_plain, \
+        tk.topk_sparsify_plain
+    try:
+        yield
+    finally:
+        ob.onebit_quant, tk.topk_sparsify = saved
+
+
+def codec_path(ob, tk, get_config, smi):
+    """``ef_compress_tree`` and ``dgc_compress_tree`` with 1-bit and top-k
+    on qwen2-1.5b's stacked gradient tree at full width (4 layers, W = 4,
+    one backward of a seeded model on seeded tokens): one launch a leaf,
+    the outputs held leaf by leaf against the codec run plain on the same
+    CUDA tensors."""
+    from repro_torch.core import compression as C
+    from repro_torch.core import tree as TT
+    from repro_torch.core.comm import LocalComm
+    from repro_torch.data.pipeline import DataConfig, worker_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.train.loop import _replica_grads, make_loss_fn
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                              num_layers=TRAIN_LAYERS)
+    comm = LocalComm(TRAIN_W)
+    params = comm.replicate(T.init_model(
+        torch.Generator(device="cuda").manual_seed(21), cfg, device="cuda"))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_L,
+                      batch_per_worker=TRAIN_B, seed=21)
+    loss_fn = make_loss_fn(cfg)
+    _, grads = _replica_grads(
+        lambda p, x: loss_fn(p, {"tokens": x, "labels": x}), params,
+        worker_batches(dcfg, TRAIN_W, 0, device="cuda"), TRAIN_W)
+    del params
+    n_leaves = len(TT.leaves(grads))
+    comps = {"onebit": C.get_compressor("onebit"),
+             "topk": C.get_compressor("topk", ratio=0.01)}
+    counts = {"onebit_quant": ob.onebit_quant, "topk_sparsify": tk.topk_sparsify}
+    for fn in counts.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    rec, state = {}, {}
+    t0 = time.perf_counter()
+
+    def held(what, name, call, plain_leaf, keep=None):
+        """Run ``call()`` (one tree call of the codec, counting its
+        launches), then hold each output leaf against ``plain_leaf(i)``
+        (the codec run plain on leaf i alone), freeing the kernel's
+        leaves as it goes but output ``keep``'s.  Records the launches
+        and the largest |kernel - plain|; returns the outputs' leaves."""
+        before = {k: fn.launches for k, fn in counts.items()}
+        outs = [TT.leaves(t) for t in call()]
+        torch.cuda.synchronize()
+        launched = {k: fn.launches - before[k] for k, fn in counts.items()}
+        err = 0.0
+        for i in range(n_leaves):
+            for j, w in enumerate(plain_leaf(i)):
+                a, b = outs[j][i], TT.leaves(w)[0]
+                if name == "onebit" and j == 0 and not torch.equal(
+                        torch.signbit(a), torch.signbit(b)):
+                    raise AssertionError(f"{what}: leaf {i} signs differ")
+                if name == "topk" and not bitwise_equal(a, b):
+                    raise AssertionError(f"{what}: leaf {i} differs")
+                d = (a - b).abs().max().item()
+                if name == "onebit" and not d <= 1e-6 * max(
+                        b.abs().max().item(), 1.0):
+                    raise AssertionError(f"{what}: leaf {i} off by {d}")
+                err = max(err, d)
+            for j, leaves in enumerate(outs):
+                if j != keep:
+                    leaves[i] = None
+        rec[what] = {"launches": launched, "max_abs_err_vs_plain": err}
+        return outs
+
+    def one(tree, i):
+        return {"x": TT.leaves(tree)[i]}
+
+    for name, comp in comps.items():
+        zeros = C.ef_init(grads)
+
+        def plain_ef(i, comp=comp):
+            with plain_codec(ob, tk):
+                return C.ef_compress_tree(comp, one(grads, i), one(zeros, i))
+
+        outs = held(f"ef_{name}", name,
+                    lambda: C.ef_compress_tree(comp, grads, zeros), plain_ef,
+                    keep=1)
+        state[name] = {"x": outs[1]}  # the new residuals, as a tree
+        del outs, zeros, plain_ef
+    # DGC from a nonzero state: the two residuals just made
+    dgc_state = {"velocity": state.pop("onebit"), "residual": state.pop("topk")}
+    for name, comp in comps.items():
+        def plain_dgc(i, comp=comp):
+            with plain_codec(ob, tk):
+                g_hat, new = C.dgc_compress_tree(comp, one(grads, i), {
+                    k: one(v, i) for k, v in dgc_state.items()})
+            return g_hat, new["velocity"], new["residual"]
+
+        def call(comp=comp):
+            g_hat, new = C.dgc_compress_tree(comp, grads, dgc_state)
+            return g_hat, new["velocity"], new["residual"]
+
+        held(f"dgc_{name}", name, call, plain_dgc)
+    wall = time.perf_counter() - t0
+    for what, r in rec.items():
+        kernel = "onebit_quant" if what.endswith("onebit") else "topk_sparsify"
+        want = {k: n_leaves if k == kernel else 0 for k in counts}
+        if r["launches"] != want:
+            raise AssertionError(f"codec {what}: launches {r['launches']}, "
+                                 f"expected {want}")
+    launches = {k: fn.launches for k, fn in counts.items()}
+    del grads, dgc_state
+    torch.cuda.empty_cache()
+    return {"phase": "codec_path", "arch": cfg.name, "layers": TRAIN_LAYERS,
+            "workers": TRAIN_W, "n_leaves": n_leaves, "calls": rec,
+            "launches": launches, "wall_s": wall,
+            "tol": "top-k bitwise; 1-bit signs exact, values within 1e-6 "
+                   "of max(|plain|, 1) (the f32 scale's sum order)",
+            "card": smi}
+
+
+# ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
 TRAIN_W, TRAIN_B, TRAIN_L, TRAIN_LAYERS, TRAIN_STEPS = 4, 4, 64, 4, 10
 
 
-def train_path(kernels, get_config, compressor, smi):
+# comm_events a step under the CLI's defaults (local_sgd averages every 8
+# steps, easgd every 4, gossip mixes both ways every step, downpour pushes
+# one replica in 4 a step)
+def events_closed_form(strategy, t):
+    if strategy in ("local_sgd", "easgd"):
+        return float((t + 1) % {"local_sgd": 8, "easgd": 4}[strategy] == 0)
+    if strategy == "gossip":
+        return 2.0
+    if strategy == "downpour":
+        return sum((t + w) % 4 == 0 for w in range(TRAIN_W)) / TRAIN_W
+    return 1.0
+
+
+def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
+               layers=TRAIN_LAYERS):
     """The trainer CLI's body at full width, depth cut, on the card: each
     kernel's launch count set to 0 just before and read just after."""
     from repro_torch.core.comm import LocalComm
@@ -1208,30 +1438,38 @@ def train_path(kernels, get_config, compressor, smi):
     from repro_torch.core.fabric import Fabric
     from repro_torch.launch import train as CLI
 
-    argv = ["--arch", "qwen2-1.5b", "--strategy", "sync", "--compressor",
+    phase = f"train_{compressor}" if strategy == "sync" else \
+        f"train_{strategy}"
+    argv = ["--arch", "qwen2-1.5b", "--strategy", strategy, "--compressor",
             compressor, "--fused-adam", "--workers", str(TRAIN_W),
             "--batch-per-worker", str(TRAIN_B), "--seq-len", str(TRAIN_L),
             "--steps", str(TRAIN_STEPS), "--log-every", "1",
             "--device", "cuda"]
     args = CLI.build_argparser().parse_args(argv)
     CLI.check_ported(args)
-    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
-                              num_layers=TRAIN_LAYERS)
-    comp = (get_compressor("topk", ratio=0.01) if compressor == "topk"
-            else get_compressor(compressor))
-    rec = {"t": [], "loss": [], "div": [], "wire": []}
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=layers)
+    comp = None if compressor == "none" else (
+        get_compressor("topk", ratio=0.01) if compressor == "topk"
+        else get_compressor(compressor))
+    rec = {"t": [], "loss": [], "div": [], "wire": [], "events": [],
+           "peak": []}
     prof = {}
 
     def on_step(t, state, m):
         torch.cuda.synchronize()
         rec["t"].append(time.perf_counter())
+        rec["peak"].append(torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
         rec["loss"].append(float(m["loss"]))
         rec["div"].append(float(m["replica_divergence"]))
         rec["wire"].append(m["wire_bytes"].item())
+        rec["events"].append(m["comm_events"].item())
         if t == 0:
-            lay = Fabric(LocalComm(TRAIN_W)).layout(state["params"])
+            fab = Fabric(LocalComm(TRAIN_W))
+            lay = fab.layout(state["params"])
             rec["lay"] = (lay.n_buckets, lay.n_leaves,
-                          Fabric(LocalComm(TRAIN_W)).wire_bytes(lay, comp))
+                          fab.wire_bytes(lay, comp) if comp
+                          else fab.flat_bytes(lay))
         if t == TRAIN_STEPS - 2:  # the last step runs under the profiler
             prof["p"] = torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
@@ -1244,6 +1482,7 @@ def train_path(kernels, get_config, compressor, smi):
     for fn in kernels.values():
         fn.launches = 0
     torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = io.StringIO()
@@ -1252,31 +1491,40 @@ def train_path(kernels, get_config, compressor, smi):
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in kernels.items()}
     wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(rec["peak"] + [torch.cuda.max_memory_allocated() / 1e9])
 
-    n_buckets, n_leaves, wire_closed = rec["lay"]
-    expect = {"fused_adam": n_leaves * TRAIN_STEPS,
-              ("onebit_quant_packed" if compressor == "onebit"
-               else "topk_encode_ef"): n_buckets * TRAIN_STEPS}
+    n_buckets, n_leaves, per_send = rec["lay"]
+    expect = {"fused_adam": n_leaves * TRAIN_STEPS}
+    if comp is not None:  # sync, sync_dgc, downpour: one encode a bucket
+        expect["onebit_quant_packed" if compressor == "onebit"
+               else "topk_encode_ef"] = n_buckets * TRAIN_STEPS
     for name, n in launches.items():
         if n != expect.get(name, 0):
-            raise AssertionError(f"train {compressor}: {name} launched {n} "
-                                 f"times, expected {expect.get(name, 0)}")
+            raise AssertionError(f"{phase}: {name} launched {n} times, "
+                                 f"expected {expect.get(name, 0)}")
     if not all(math.isfinite(x) for x in rec["loss"]):
-        raise AssertionError(f"train {compressor}: loss {rec['loss']}")
-    if any(d != 0.0 for d in rec["div"]):
-        raise AssertionError(f"train {compressor}: replica divergence "
-                             f"{rec['div']} (sync must keep it 0)")
-    if any(w != float(np.float32(wire_closed)) for w in rec["wire"]):
-        raise AssertionError(f"train {compressor}: wire_bytes {rec['wire']} "
-                             f"!= closed form {wire_closed}")
+        raise AssertionError(f"{phase}: loss {rec['loss']}")
+    zero_div = range(TRAIN_STEPS) if strategy in ("sync", "sync_dgc") else \
+        [t for t in range(TRAIN_STEPS) if strategy == "local_sgd"
+         and events_closed_form(strategy, t)]
+    if any(rec["div"][t] != 0.0 for t in zero_div):
+        raise AssertionError(f"{phase}: replica divergence {rec['div']} "
+                             f"(must be 0 at steps {list(zero_div)})")
+    events = [events_closed_form(strategy, t) for t in range(TRAIN_STEPS)]
+    wire_closed = [float(np.float32(per_send) * np.float32(e))
+                   for e in events]
+    if rec["events"] != events or rec["wire"] != wire_closed:
+        raise AssertionError(f"{phase}: wire_bytes {rec['wire']}, events "
+                             f"{rec['events']} != closed form "
+                             f"{wire_closed}, {events}")
     steps_s = np.diff(np.asarray(rec["t"]))  # steps 1 .. STEPS-1
     timed = steps_s[:-1]  # the last one ran under the profiler
     step_ms = 1e3 * statistics.median(timed.tolist())
     result = {
-        "phase": f"train_{compressor}", "arch": cfg.name,
-        "layers": TRAIN_LAYERS, "d_model": cfg.d_model, "dtype": "float32",
-        "workers": TRAIN_W, "batch_per_worker": TRAIN_B, "seq_len": TRAIN_L,
+        "phase": phase, "strategy": strategy, "compressor": compressor,
+        "arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
+        "dtype": "float32", "workers": TRAIN_W,
+        "batch_per_worker": TRAIN_B, "seq_len": TRAIN_L,
         "steps": TRAIN_STEPS, "fused_adam": True,
         "params_per_replica": cfg.param_count(),
         "n_buckets": n_buckets, "n_leaves": n_leaves,
@@ -1286,15 +1534,18 @@ def train_path(kernels, get_config, compressor, smi):
         "step_ms_all": (1e3 * steps_s).tolist(),
         "tokens_per_s": TRAIN_W * TRAIN_B * TRAIN_L / (step_ms / 1e3),
         "loss": rec["loss"], "wire_bytes": rec["wire"][0],
+        "wire_bytes_all": rec["wire"], "comm_events": rec["events"],
         "wire_bytes_closed_form": wire_closed,
+        "replica_divergence": rec["div"],
         "replica_divergence_max": max(rec["div"]),
-        "peak_mem_gb": peak / 1e9, "wall_s": wall,
+        "peak_mem_gb": peak, "peak_mem_gb_by_step": rec["peak"],
+        "mem_before_gb": before, "wall_s": wall,
         "cli_lines": out.getvalue().splitlines()[:3], "card": smi,
     }
-    return result, profile_summary(prof["p"], 1e3 * steps_s[-1], compressor)
+    return result, profile_summary(prof["p"], 1e3 * steps_s[-1], phase)
 
 
-def profile_summary(prof, step_ms, compressor):
+def profile_summary(prof, step_ms, phase):
     """Device-busy share, kernels per step, the top device ops and the time
     of the port's kernels, from one profiled train step."""
     events = [e for e in prof.key_averages()
@@ -1306,7 +1557,7 @@ def profile_summary(prof, step_ms, compressor):
                       if name in e.key) / 1e3
             for name in ("onebit_quant_packed_kernel",
                          "topk_encode_ef_kernel", "fused_adam_kernel")}
-    return {"phase": "profile_train", "compressor": compressor,
+    return {"phase": "profile_train", "train_phase": phase,
             "step_ms_under_profiler": step_ms,
             "device_ms_per_step": dev_ms,
             "device_busy_share": dev_ms / step_ms if step_ms else None,
@@ -1316,24 +1567,28 @@ def profile_summary(prof, step_ms, compressor):
                               for e in top}}
 
 
-def train_card_vs_cpu(get_config):
+def rel_diff(a, b):
+    return abs(a - b) / abs(b) if b else abs(a)
+
+
+def card_vs_cpu_steps(get_config, strategy, compressor, w=2, steps=3):
     """The same initial state and batches through the train step on the
-    card and on the CPU: qwen2-1.5b at full width cut to 2 layers, W = 2,
-    3 steps, onebit and fused Adam, f32 with TF32 off."""
+    card and on the CPU: qwen2-1.5b at full width cut to 2 layers, fused
+    Adam, f32 with TF32 off, the strategy as the CLI builds it.  Returns
+    {device: (losses, divergences, wire bytes, seconds)}."""
     from repro_torch.core import tree as TT
     from repro_torch.core.comm import LocalComm
-    from repro_torch.core.compression import get_compressor
-    from repro_torch.core.strategies import sync
     from repro_torch.data.pipeline import DataConfig, worker_batches
+    from repro_torch.launch import train as CLI
     from repro_torch.models import transformer as T
     from repro_torch.optim import adam, warmup_cosine
     from repro_torch.train.loop import (init_train_state, make_loss_fn,
                                         make_replica_train_step)
 
-    w, steps = 2, 3
     cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=2)
     comm = LocalComm(w)
-    strategy = sync(compressor=get_compressor("onebit"))
+    strat = CLI.strategy_from_args(CLI.build_argparser().parse_args(
+        ["--strategy", strategy, "--compressor", compressor]))
     opt = adam(warmup_cosine(1e-3, 1, steps), fused=True)
     loss_fn = make_loss_fn(cfg)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
@@ -1343,34 +1598,51 @@ def train_card_vs_cpu(get_config):
     runs = {}
     for dev in ("cuda", "cpu"):
         state = init_train_state(TT.tree_map(lambda x, d=dev: x.to(d),
-                                             params), opt, strategy, comm)
+                                             params), opt, strat, comm)
         step = make_replica_train_step(
             lambda p, x: loss_fn(p, {"tokens": x, "labels": x}), opt,
-            strategy, comm)
-        losses, wires = [], []
+            strat, comm)
+        losses, divs, wires = [], [], []
         t0 = time.perf_counter()
         for t in range(steps):
             state, m = step(state, worker_batches(dcfg, w, t, device=dev))
             losses.append(float(m["loss"]))
+            divs.append(float(m["replica_divergence"]))
             wires.append(m["wire_bytes"].item())
-        runs[dev] = (losses, wires, time.perf_counter() - t0)
+        runs[dev] = (losses, divs, wires, time.perf_counter() - t0)
         del state
         torch.cuda.empty_cache()
-    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"][0],
-                                                  runs["cpu"][0]))
-    if runs["cuda"][1] != runs["cpu"][1]:
-        raise AssertionError(f"card vs CPU wire_bytes {runs['cuda'][1]} vs "
-                             f"{runs['cpu'][1]}")
-    if not rel <= 1e-4:
-        raise AssertionError(f"card vs CPU losses {runs['cuda'][0]} vs "
-                             f"{runs['cpu'][0]}: rel {rel} > 1e-4")
-    return {"phase": "train_card_vs_cpu", "arch": cfg.name, "layers": 2,
-            "workers": w, "steps": steps, "compressor": "onebit",
-            "fused_adam": True, "dtype": "float32",
+    what = f"{strategy} {compressor}"
+    if runs["cuda"][2] != runs["cpu"][2]:
+        raise AssertionError(f"card vs CPU {what}: wire_bytes "
+                             f"{runs['cuda'][2]} vs {runs['cpu'][2]}")
+    for i, name in ((0, "losses"), (1, "divergences")):
+        rel = max(rel_diff(a, b) for a, b in zip(runs["cuda"][i],
+                                                 runs["cpu"][i]))
+        if not rel <= 1e-4:
+            raise AssertionError(f"card vs CPU {what} {name} "
+                                 f"{runs['cuda'][i]} vs {runs['cpu'][i]}: "
+                                 f"rel {rel} > 1e-4")
+    return runs
+
+
+def train_card_vs_cpu(get_config, cases, phase):
+    out = {"phase": phase, "arch": "qwen2-1.5b", "layers": 2, "workers": 2,
+           "steps": 3, "fused_adam": True, "dtype": "float32",
+           "tol_rel": 1e-4, "cases": {}}
+    for strategy, compressor in cases:
+        runs = card_vs_cpu_steps(get_config, strategy, compressor)
+        out["cases"][f"{strategy}+{compressor}"] = {
             "loss_cuda": runs["cuda"][0], "loss_cpu": runs["cpu"][0],
-            "loss_max_rel_diff": rel, "tol_rel": 1e-4,
-            "wire_bytes": runs["cuda"][1][0],
-            "cpu_s": runs["cpu"][2], "cuda_s": runs["cuda"][2]}
+            "loss_max_rel_diff": max(rel_diff(a, b) for a, b in zip(
+                runs["cuda"][0], runs["cpu"][0])),
+            "divergence_cuda": runs["cuda"][1],
+            "divergence_cpu": runs["cpu"][1],
+            "divergence_max_rel_diff": max(rel_diff(a, b) for a, b in zip(
+                runs["cuda"][1], runs["cpu"][1])),
+            "wire_bytes": runs["cuda"][2],
+            "cpu_s": runs["cpu"][3], "cuda_s": runs["cuda"][3]}
+    return out
 
 
 def time_train_kernels(ob, tk, fa, launches, get_config, smi):
@@ -1458,6 +1730,63 @@ def time_train_kernels(ob, tk, fa, launches, get_config, smi):
             "card": smi}
 
 
+def time_codec_kernels(ob, tk, launches, get_config, smi):
+    """The leaf-wise codec's kernels on the largest leaf of the codec path,
+    the stacked embedding (W x 151936 x 1536 = 933.5 M f32 elements for
+    qwen2-1.5b), against their bounds, their plain versions and one
+    PyTorch call where one exists; each held against the plain output on
+    the timed inputs first."""
+    cfg = get_config("qwen2-1.5b")
+    n = TRAIN_W * cfg.vocab_size * cfg.d_model
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+
+    def flush():
+        flush_buf.zero_()  # 256 MB > the 50 MB L2
+
+    def bound(nbytes, ops):
+        b, o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        return 1e3 * max(b, o), "bytes" if b >= o else "operations"
+
+    saved = ob.onebit_quant.launches, tk.topk_sparsify.launches
+    out = {}
+    g, r = card_rows(31, n // 256, 256)
+    err, _ = onebit_err(ob, g, r, "timing inputs")
+    # per element: read g, r, write r' (12 B) and an int8 sign (1 B); per
+    # row a 4 B scale; ~6 f32 ops per element
+    rows = g.shape[0]
+    ms = cuda_ms(lambda: ob.onebit_quant(g, r), 10, flush)
+    plain = cuda_ms(lambda: ob.onebit_quant_plain(g, r), 3, flush)
+    bms, by = bound(13 * n + 4 * rows, 6 * n)
+    out["onebit_quant"] = {
+        "shape": [rows, 256], "ms": ms, "plain_ms": plain, "bound_ms": bms,
+        "bound_by": by, "library_ms": None, "max_abs_err_vs_plain": err,
+        "library_note": "no single PyTorch call gives sign, scale and "
+                        "residual"}
+    del r
+    x = g.view(-1, 1024)
+    k = 10
+    topk_equal(tk, x, k, "timing inputs")
+    # per element: read x, write dense (8 B); per row k f32 values and k
+    # int32 indices; k rounds of a compare and a select per element
+    rows = x.shape[0]
+    ms = cuda_ms(lambda: tk.topk_sparsify(x, k), 10, flush)
+    plain = cuda_ms(lambda: tk.topk_sparsify_plain(x, k), 2, flush)
+    lib = cuda_ms(lambda: torch.topk(x.abs(), k, dim=-1), 5, flush)
+    bms, by = bound(8 * n + 8 * k * rows, 2 * k * n + 2 * n)
+    out["topk_sparsify"] = {
+        "shape": [rows, 1024], "k": k, "ms": ms, "plain_ms": plain,
+        "bound_ms": bms, "bound_by": by, "library_ms": lib,
+        "library_note": "torch.topk(x.abs(), k): selection only, no dense "
+                        "output"}
+    del g, x
+    torch.cuda.empty_cache()
+    ob.onebit_quant.launches, tk.topk_sparsify.launches = saved
+    for name, rec in out.items():
+        rec["launches"] = launches[name]
+    return {"phase": "time_codec_kernels", "elements": n, "kernels": out,
+            "card": smi}
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     t_start = time.perf_counter()
@@ -1508,7 +1837,9 @@ def main() -> int:
     check = check_kernel(pa)
     emit({"phase": "kernel_check", **check})
     checks = {"onebit_quant_packed": check_onebit(ob),
-              "topk_encode_ef": check_topk(tk), "fused_adam": check_adam(fa)}
+              "topk_encode_ef": check_topk(tk), "fused_adam": check_adam(fa),
+              "onebit_quant": check_onebit_unpacked(ob),
+              "topk_sparsify": check_topk_sparsify(tk)}
     for c in checks.values():
         emit(c)
     check_fl = check_flash(fl)
@@ -1574,18 +1905,38 @@ def main() -> int:
     emit(dense_serve(T, E, jamba, smi, phase="dense_serve_jamba"))
     emit(recurrent_card_vs_cpu(T, E, get_config))
 
+    # the leaf-wise codec (its counts zeroed inside, read just after)
+    codec = codec_path(ob, tk, get_config, smi)
+    emit(codec)
+
     train_kernels = {"onebit_quant_packed": ob.onebit_quant_packed,
                      "topk_encode_ef": tk.topk_encode_ef,
-                     "fused_adam": fa.fused_adam}
+                     "fused_adam": fa.fused_adam,
+                     "onebit_quant": ob.onebit_quant,
+                     "topk_sparsify": tk.topk_sparsify}
     train_launches = dict.fromkeys(train_kernels, 0)
-    for comp in ("onebit", "topk"):
-        result, prof = train_path(train_kernels, get_config, comp, smi)
+    # (strategy, compressor, layers): sync first, then the spectrum; ssp's
+    # ring of 4 gradients fits at 2 layers
+    for strategy, comp, layers in (
+            ("sync", "onebit", TRAIN_LAYERS), ("sync", "topk", TRAIN_LAYERS),
+            ("local_sgd", "none", TRAIN_LAYERS),
+            ("easgd", "none", TRAIN_LAYERS),
+            ("gossip", "none", TRAIN_LAYERS),
+            ("downpour", "onebit", TRAIN_LAYERS),
+            ("sync_dgc", "topk", TRAIN_LAYERS), ("ssp", "none", 2)):
+        result, prof = train_path(train_kernels, get_config, smi,
+                                  strategy=strategy, compressor=comp,
+                                  layers=layers)
         emit(result)
         emit(prof)
         for k, n in result["launches"].items():
             train_launches[k] += n
         torch.cuda.empty_cache()
-    emit(train_card_vs_cpu(get_config))
+    emit(train_card_vs_cpu(get_config, [("sync", "onebit")],
+                           "train_card_vs_cpu"))
+    emit(train_card_vs_cpu(get_config, [("downpour", "onebit"),
+                                        ("ssp", "none")],
+                           "strategies_card_vs_cpu"))
 
     timing = time_kernel(pa, main_path_launches / serve_qwen["decode_steps"],
                          smi)
@@ -1593,6 +1944,9 @@ def main() -> int:
     train_timing = time_train_kernels(ob, tk, fa, train_launches, get_config,
                                       smi)
     emit(train_timing)
+    codec_timing = time_codec_kernels(ob, tk, codec["launches"],
+                                      get_config, smi)
+    emit(codec_timing)
     flash_timing = time_flash(fl, flash_launches, smi)
     emit(flash_timing)
     mamba_timing = time_mamba(ms, mamba_launches, smi)
@@ -1603,14 +1957,19 @@ def main() -> int:
                "topk_encode_ef": ("topk_sparsify.cu",
                                   "src/repro/kernels/topk_sparsify.py:113"),
                "fused_adam": ("fused_adam.cu",
-                              "src/repro/kernels/fused_adam.py:35")}
+                              "src/repro/kernels/fused_adam.py:35"),
+               "onebit_quant": ("onebit_quant.cu",
+                                "src/repro/kernels/onebit_quant.py:45"),
+               "topk_sparsify": ("topk_sparsify.cu",
+                                 "src/repro/kernels/topk_sparsify.py:56")}
     rows = []
     for name, (src, replaces) in sources.items():
-        tim = train_timing["kernels"][name]
+        tim = {**train_timing["kernels"],
+               **codec_timing["kernels"]}[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": replaces, "launches": train_launches[name],
+            "replaces": replaces, "launches": tim["launches"],
             "max_abs_err": checks[name]["max_abs_err_vs_plain"],
             "tol": checks[name]["tol"], "ms": tim["ms"],
             "plain_ms": tim["plain_ms"], "bound_ms": tim["bound_ms"],

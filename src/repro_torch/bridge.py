@@ -2,8 +2,10 @@
 package's trees and the port's tensors.
 
 Both packages use the same nested-dict layout (``models/transformer.py``,
-``train/loop.py::init_train_state``), so the conversion is a pure copy,
-leaf by leaf, through numpy.  bfloat16
+``train/loop.py::init_train_state``, each strategy's ``comm_state``), so
+the conversion is a pure copy, leaf by leaf, through numpy; the one
+exception is ``ssp``'s ring, one (s, W, ...) array a parameter in the
+reference and a tuple of s parameter trees in the port.  bfloat16
 leaves go through a 16-bit integer view: ``torch.from_numpy`` rejects
 ml_dtypes' ``bfloat16``.
 """
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import tree as T
 from repro_torch.core.precision import torch_dtype
 
 
@@ -72,12 +75,37 @@ def cache_to_numpy(cache):
     return params_to_numpy(cache)
 
 
+def _map_rings(tree, fn):
+    """``fn`` applied to every ``ssp`` ring (a ``"buf"`` entry) of a comm
+    state, at any depth (a hierarchy nests one tier's state)."""
+    if not isinstance(tree, dict):
+        return tree
+    return {k: fn(v) if k == "buf" else _map_rings(v, fn)
+            for k, v in tree.items()}
+
+
+def _ring_to_tuple(buf):
+    """The reference's ring, one (s, W, ...) leaf per parameter → the
+    port's tuple of s parameter trees (each slot its own tensor)."""
+    s = T.leaves(buf)[0].shape[0]
+    return tuple(T.tree_map(lambda x, i=i: x[i].clone(), buf)
+                 for i in range(s))
+
+
+def _ring_to_stack(buf):
+    """Inverse of ``_ring_to_tuple``."""
+    return T.tree_map(lambda *slots: torch.stack(slots), *buf)
+
+
 def train_state_from_numpy(state, device="cuda"):
     """A train state of the JAX package after ``np.asarray`` (stacked
-    ``params``, ``opt_state`` m/v, ``comm_state`` residual, ``step``) →
-    the port's, on ``device``; ``step`` becomes an int32 scalar tensor."""
+    ``params``, ``opt_state``, the strategy's ``comm_state``, ``step``) →
+    the port's, on ``device``; ``step`` becomes an int32 scalar tensor and
+    an ``ssp`` ring a tuple of s trees."""
     out = params_from_numpy({k: v for k, v in state.items() if k != "step"},
                             device)
+    if "comm_state" in out:
+        out["comm_state"] = _map_rings(out["comm_state"], _ring_to_tuple)
     out["step"] = torch.tensor(int(np.asarray(state["step"])),
                                dtype=torch.int32,
                                device=resolve_device(device))
@@ -86,6 +114,9 @@ def train_state_from_numpy(state, device="cuda"):
 
 def train_state_to_numpy(state):
     """Inverse of ``train_state_from_numpy``."""
+    state = dict(state)
+    if "comm_state" in state:
+        state["comm_state"] = _map_rings(state["comm_state"], _ring_to_stack)
     out = params_to_numpy({k: v for k, v in state.items() if k != "step"})
     out["step"] = np.asarray(int(state["step"]), np.int32)
     return out

@@ -1,13 +1,14 @@
 """The tensor-moving interface, stacked-replica realization.
 
-Port of ``repro/core/comm.py::LocalComm``: every worker's tensors are
-stacked on a leading axis W and the collectives are axis reductions and
-rolls, on one device.  Strategies are written against it, and
-``core/fabric.py`` drives it once per flat bucket.  ``all_mean`` and
-``all_sum`` return a broadcast VIEW of the reduced value (``expand``), not
-W copies; the reference's ``broadcast_to`` means the same.
+Port of ``repro/core/comm.py``'s ``LocalComm``, ``HierComm`` and
+``LocalHierComm``: every worker's tensors are stacked on leading replica
+axes and the collectives are axis reductions and rolls, on one device.
+Strategies are written against it, and ``core/fabric.py`` drives it once
+per flat bucket.  ``all_mean`` and ``all_sum`` return a broadcast VIEW of
+the reduced value (``expand``), not W copies; the reference's
+``broadcast_to`` means the same.
 
-``ShardComm`` and the hierarchical comms are later slices of the port.
+``ShardComm`` is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -90,7 +91,11 @@ class LocalComm:
         return tree_map(one, tree)
 
     def worker_index(self, like=None):
-        return torch.arange(self.size).reshape((1,) * self.axis + (self.size,))
+        """Per-worker index in [0, W), broadcastable against the stacked
+        leaves, on ``like``'s device (the host when None)."""
+        dev = like.device if like is not None else None
+        return torch.arange(self.size, device=dev).reshape(
+            (1,) * self.axis + (self.size,))
 
     # helpers for the stacked layout ---------------------------------------
     def replicate(self, tree):
@@ -101,3 +106,26 @@ class LocalComm:
 
     def replica(self, tree, w: int):
         return tree_map(lambda x: x[w], tree)
+
+
+class HierComm:
+    """Two-tier comm: ``inner`` (the fast fabric, within a pod) and
+    ``outer`` (the slow fabric, pod to pod).  The hierarchical strategy
+    composes a complete strategy on ``inner`` with a partial one on
+    ``outer``."""
+
+    def __init__(self, inner, outer):
+        self.inner = inner
+        self.outer = outer
+        self.size = inner.size * outer.size
+
+
+class LocalHierComm(HierComm):
+    """Stacked layout (P, W, ...): axis 0 = pods (outer), axis 1 = workers.
+
+    Both tier comms declare lead_axes=2: a compression block must never
+    mix values across pods OR workers, whichever tier is communicating."""
+
+    def __init__(self, pods: int, workers: int):
+        super().__init__(LocalComm(workers, axis=1, lead_axes=2),
+                         LocalComm(pods, axis=0, lead_axes=2))

@@ -5,9 +5,20 @@ mean-|x| scale), int8 and block-local top-k compressors, the
 error-feedback round ``c = encode(g + r); r <- (g + r) - decode(c)``, the
 narrowing of each compressor's wire to its true on-the-wire dtypes (8
 signs per byte, bf16 scales, uint16 top-k indices), the uint8 packing of
-those arrays into one buffer per bucket, and the fused encode rounds that
+those arrays into one buffer per bucket, the fused encode rounds that
 ``core/fabric.py`` dispatches to the kernels (``kernels/ops.py``: the CUDA
-kernel for CUDA tensors, its plain version for CPU tensors).
+kernel for CUDA tensors, its plain version for CPU tensors), and the
+leaf-wise error-feedback codec (``ef_compress_tree``, and DGC's momentum
+correction ``dgc_compress_tree``) that a strategy of one's own may call.
+
+The leaf-wise codec runs each leaf's round for the 1-bit and top-k
+compressors as ONE kernel launch: ``ops.onebit_quant`` (t = g + r, int8
+signs, f32 mean-|t| scale, residual) and ``ops.topk_sparsify`` on
+t = g + r (values, indices and the dense kept entries, which are
+``decompress(compress(t))``).  A leaf is folded as ``compress`` folds it:
+flattened whole, replica axes included, its tail zero-padded to a block.
+Blocks the kernels do not take, and the int8 and none compressors, run the
+codec's compress → decompress round.
 
 Differences from the reference, none of which changes a result:
   * ``Compressor`` also records its ``block`` (and ``k`` for top-k), so
@@ -59,9 +70,11 @@ def none_compressor() -> Compressor:
 
 
 def _blocks(x, block):
+    """x flattened to f32 (nb, block) rows, the tail zero-padded (a view of
+    a contiguous f32 x that fills whole blocks)."""
     flat = x.reshape(-1).float()
     pad = (-flat.shape[0]) % block
-    return F.pad(flat, (0, pad)).reshape(-1, block)
+    return (F.pad(flat, (0, pad)) if pad else flat).reshape(-1, block)
 
 
 def _numel(shape):
@@ -231,16 +244,55 @@ def ef_init(params):
                       params)
 
 
-def ef_compress_tree(comp: Compressor, grads, residual):
-    """Apply the compressor with error feedback leaf-wise.  Returns
-    (g_hat, new_residual): ``g_hat`` is what gets communicated (already
-    decompressed), the residual carries the compression error on."""
+def _kernel_decode(comp: Compressor):
+    """The leaf round as one kernel launch, ``(g, r)`` (nb, block) f32
+    rows → (decoded rows, new residual rows), or None where the codec
+    round runs instead.  The 1-bit kernel forms t = g + r itself."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.onebit_quant import ONEBIT_BLOCKS
+    from repro_torch.kernels.topk_sparsify import MAX_BLOCK
 
-    def one(g, r):
+    if comp.name == "onebit" and comp.block in ONEBIT_BLOCKS:
+        def onebit(g, r):
+            sign, scale, new_r = ops.onebit_quant(g, r)
+            return sign.float() * scale, new_r
+
+        return onebit
+    if comp.name.startswith("topk") and comp.block % 32 == 0 \
+            and comp.block <= MAX_BLOCK:
+        def topk(g, r):
+            t = g + r
+            dense = ops.topk_sparsify(t, comp.k)[2]
+            return dense, t - dense
+
+        return topk
+    return None
+
+
+def _leaf_round(comp: Compressor, g, r):
+    """One error-feedback round of one leaf: (decoded g_hat f32 of g's
+    shape, new residual) with g_hat = decompress(compress(g + r))."""
+    kernel = _kernel_decode(comp)
+    if kernel is None:
         target = g.float() + r
         wire, meta = comp.compress(target)
         g_hat = comp.decompress(wire, meta, tuple(g.shape), torch.float32)
-        return g_hat.to(g.dtype), target - g_hat
+        return g_hat, target - g_hat
+    n = g.numel()
+    dec, new_r = kernel(_blocks(g, comp.block), _blocks(r, comp.block))
+    return (dec.reshape(-1)[:n].reshape(g.shape),
+            new_r.reshape(-1)[:n].reshape(g.shape))
+
+
+def ef_compress_tree(comp: Compressor, grads, residual):
+    """Apply the compressor with error feedback leaf-wise.  Returns
+    (g_hat, new_residual): ``g_hat`` is what gets communicated (already
+    decompressed), the residual carries the compression error on.  One
+    kernel launch a leaf for 1-bit and top-k."""
+
+    def one(g, r):
+        g_hat, new_r = _leaf_round(comp, g, r)
+        return g_hat.to(g.dtype), new_r
 
     flat_g, tdef = T.flatten(grads)
     out = [one(g, r) for g, r in zip(flat_g, T.leaves(residual))]
@@ -252,6 +304,40 @@ def wire_bytes(comp: Compressor, tree) -> float:
     """EXACT bytes on the wire to ship ``tree`` once under ``comp``, each
     leaf compressed on its own (padded tail blocks charged)."""
     return float(sum(packed_nbytes(comp, x.numel()) for x in T.leaves(tree)))
+
+
+# ---------------------------------------------------------------------------
+# Deep Gradient Compression momentum correction (Lin et al.): accumulate
+# MOMENTUM (not raw gradients) into the residual before compressing, so
+# velocity that was not sent keeps accumulating instead of being lost.
+# ---------------------------------------------------------------------------
+def dgc_init(params):
+    def z(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+
+    return {"velocity": T.tree_map(z, params),
+            "residual": T.tree_map(z, params)}
+
+
+def dgc_compress_tree(comp: Compressor, grads, state, momentum: float = 0.9):
+    """Returns (g_hat, new_state): g_hat is the communicated (decompressed)
+    velocity; velocity and residual carry what was not sent.  One kernel
+    launch a leaf for 1-bit and top-k."""
+
+    def one(g, u, r):
+        u1 = momentum * u + g.float()
+        # the round of target = r + u1 (f32 addition commutes bit for bit)
+        sent, new_r = _leaf_round(comp, u1, r)
+        # what was sent leaves both accumulators: u1 * (1 - mask), mask =
+        # sent != 0, is u1 times (sent == 0) bit for bit
+        return sent.to(g.dtype), u1 * (sent == 0), new_r
+
+    flat_g, tdef = T.flatten(grads)
+    outs = [one(g, u, r) for g, u, r in zip(
+        flat_g, T.leaves(state["velocity"]), T.leaves(state["residual"]))]
+    return (T.unflatten(tdef, [o[0] for o in outs]),
+            {"velocity": T.unflatten(tdef, [o[1] for o in outs]),
+             "residual": T.unflatten(tdef, [o[2] for o in outs])})
 
 
 _WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)

@@ -14,9 +14,12 @@ Replica safety: the ``comm.lead_axes`` leading replica axes are kept
 through flattening, and every per-replica decode runs replica by replica
 (``_vmap_replicas``), so a compression block never mixes two replicas.
 
-The wire is f32: the partitioned (ZeRO) layout, the narrow bf16 wire of
-the precision policy, DGC, the microbatch accumulator and the
-``ShardComm`` branches are later slices of the port.
+Besides the all-mean exchange it ports the ring shift (``ppermute``), the
+error-feedback compression without a collective that buffering strategies
+use (``compress``) and the exchange with DGC momentum correction
+(``exchange_dgc``).  The wire is f32: the partitioned (ZeRO) layout, the
+narrow bf16 wire of the precision policy, the microbatch accumulator and
+the ``ShardComm`` branches are later slices of the port.
 """
 
 from __future__ import annotations
@@ -172,6 +175,14 @@ class Fabric:
         op = self.comm.all_mean if mean else self.comm.all_sum
         return lay.debucketize(op(lay.bucketize(tree)))
 
+    def ppermute(self, tree, shift: int = 1):
+        """Ring shift of every bucket: worker w receives worker
+        (w - shift) % W's value."""
+        lay = self.layout(tree)
+        if lay.n_leaves == 0:
+            return tree
+        return lay.debucketize(self.comm.ppermute(lay.bucketize(tree), shift))
+
     # -- wire accounting ----------------------------------------------------
     def flat_bytes(self, tree_or_layout) -> float:
         """Uncompressed f32 bytes to ship the tree once (all replicas)."""
@@ -232,16 +243,9 @@ class Fabric:
 
         return self._vmap_replicas(one)(target)
 
-    def _bucket_mean_compressed(self, target, compressor):
-        """(mean of per-replica decodes, own decode) for one flat bucket:
-        decode per replica, then one axis-mean."""
-        dec_self = self._self_decode(target, compressor)
-        (mean,) = self.comm.all_mean([dec_self])
-        return mean, dec_self
-
-    def _bucket_ef_round(self, g, r, compressor):
-        """One compressed error-feedback round for a flat bucket:
-        (mean of per-replica decodes, own decode, new residual).
+    def _bucket_encode(self, g, r, compressor):
+        """One compressed error-feedback round for a flat bucket, with no
+        collective: (own decode, new residual).
 
         Fused path (the default): ``compressor.fused_encode`` runs the
         whole encode (t = g + r, narrow wire arrays, residual update) as
@@ -250,8 +254,8 @@ class Fabric:
         fe = compressor.fused_encode if self.fused else None
         if fe is None:
             t = g + r
-            mean, dec_self = self._bucket_mean_compressed(t, compressor)
-            return mean, dec_self, t - dec_self
+            dec_self = self._self_decode(t, compressor)
+            return dec_self, t - dec_self
         arrs, widen, new_r = fe(g, r)
         n = g.shape[-1]
 
@@ -259,7 +263,12 @@ class Fabric:
             return compressor.decompress(widen(a), None, (n,),
                                          torch.float32)
 
-        dec_self = self._vmap_replicas(dec)(arrs)
+        return self._vmap_replicas(dec)(arrs), new_r
+
+    def _bucket_ef_round(self, g, r, compressor):
+        """``_bucket_encode`` and one axis-mean of the replicas' decodes:
+        (mean, own decode, new residual)."""
+        dec_self, new_r = self._bucket_encode(g, r, compressor)
         (mean,) = self.comm.all_mean([dec_self])
         return mean, dec_self, new_r
 
@@ -289,3 +298,42 @@ class Fabric:
         return (lay.debucketize(g_out),
                 lay.debucketize(r_out, cast=False),
                 self.metrics(self.wire_bytes(lay, compressor), events))
+
+    def exchange_dgc(self, grads, state, compressor, momentum: float = 0.9,
+                     events=1.0):
+        """Fused all-mean with DGC momentum correction (Lin et al.):
+        velocity accumulates into the residual before compression, and
+        whatever was sent leaves both accumulators.  ``state`` =
+        {"velocity", "residual"} param-shaped f32 trees.  Returns
+        (mean_tree, new_state, metrics)."""
+        lay = self.layout(grads)
+        g_out, u_out, r_out = [], [], []
+        for g, u, r in zip(lay.bucketize(grads),
+                           lay.bucketize(state["velocity"]),
+                           lay.bucketize(state["residual"])):
+            u1 = momentum * u + g
+            mean, sent, new_r = self._bucket_ef_round(u1, r, compressor)
+            g_out.append(mean)
+            u_out.append(u1 * (sent == 0))  # u1 * (1 - (sent != 0))
+            r_out.append(new_r)
+            del u1, sent
+        new_state = {"velocity": lay.debucketize(u_out, cast=False),
+                     "residual": lay.debucketize(r_out, cast=False)}
+        return (lay.debucketize(g_out), new_state,
+                self.metrics(self.wire_bytes(lay, compressor), events))
+
+    def compress(self, grads, residual, compressor):
+        """Error-feedback compression WITHOUT a collective, for strategies
+        that buffer or accumulate before communicating (ssp, downpour).
+        Returns (g_hat_tree, new_residual_tree, packed_bytes_one_send)."""
+        lay = self.layout(grads)
+        if compressor is None or compressor.name == "none":
+            return grads, residual, self.flat_bytes(lay)
+        g_out, r_out = [], []
+        for g, r in zip(lay.bucketize(grads), lay.bucketize(residual)):
+            dec, new_r = self._bucket_encode(g, r, compressor)
+            g_out.append(dec)
+            r_out.append(new_r)
+        return (lay.debucketize(g_out),
+                lay.debucketize(r_out, cast=False),
+                self.wire_bytes(lay, compressor))

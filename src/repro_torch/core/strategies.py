@@ -1,12 +1,36 @@
-"""The communication-completeness spectrum as executable strategies.
+"""The communication-completeness spectrum (paper §3) as executable
+strategies.
 
-Port of ``repro/core/strategies.py``.  ``Strategy`` keeps every field of
-the reference, so the later strategies (ZeRO, DGC, the local-step and
-asynchronous ones) slot in without changing it; the registry holds only
-what is ported.  This slice ports spectrum point 1, ``sync``: a
-bucket-fused all-mean of the gradients (``core/fabric.py``), optionally
-compressed with error feedback, then one optimizer step.  Every replica
-applies the same mean, so the replicas never diverge.
+Port of ``repro/core/strategies.py``.  Spectrum point → strategy:
+
+  1. synchronous (large mini-batch)   → ``sync``; with DGC momentum
+     correction ``sync_dgc``
+  2. complete, bounded delay          → ``ssp`` (stale-synchronous)
+  3. complete, unbounded delay        → ``downpour`` (decentralized
+     parameter-server semantics)
+  4. partial communication            → ``gossip`` (ring mixing)
+  +. model averaging                  → ``local_sgd``, ``easgd``
+  +. hierarchical                     → ``hierarchical`` (complete within
+     the fast tier × partial across the slow tier)
+
+Every strategy is written against the ``Comm`` interface and moves its
+tensors through the bucketed ``Fabric`` (``core/fabric.py``).  Asynchrony
+is logical: per-worker schedules are explicit, deterministic state.
+
+Differences from the reference, none of which changes a result:
+  * the schedule gates decide on the host.  The reference traces the
+    step ``t`` and gates with ``lax.cond``; here ``t`` is a Python int
+    (the train loop keeps one beside its device step counter), so a
+    gated collective simply does not run, and no step reads a device
+    value back.  A tensor ``t`` is accepted and read back once
+    (``_host_step``);
+  * ``ssp``'s ring of the last s gradients is a tuple of s trees, not one
+    (s, W, ...) array: a step builds a new tuple that holds the fresh
+    gradient in its slot, so the ring is neither copied nor mutated
+    (``bridge.py`` converts to and from the reference's layout);
+  * the precision policy (``policy=``), the ZeRO strategies and the unused
+    ``compressor`` arguments of ``local_sgd`` and ``gossip`` are not
+    ported.
 """
 
 from __future__ import annotations
@@ -14,8 +38,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-from repro_torch.core.compression import Compressor, ef_init
+import torch
+
+from repro_torch.core import tree as T
+from repro_torch.core.compression import Compressor, dgc_init, ef_init
 from repro_torch.core.fabric import DEFAULT_BUCKET_BYTES, Fabric
+from repro_torch.optim.optimizers import Optimizer
 
 
 @dataclass(frozen=True)
@@ -42,7 +70,17 @@ class Strategy:
     update_partitioned: Optional[Callable] = None  # boundary step of it
 
     # Contract: ``update`` treats ``comm_state`` as immutable and returns a
-    # FRESH mapping.
+    # FRESH mapping: callers re-step from saved state.
+
+
+def _host_step(t) -> int:
+    """The optimizer step as a Python int (a tensor is read back)."""
+    return t if isinstance(t, int) else int(t)
+
+
+def _gate(flag: bool, sync_fn, operand):
+    """Run ``sync_fn`` (which issues collectives) only on sync steps."""
+    return sync_fn(operand) if flag else operand
 
 
 # ---------------------------------------------------------------------------
@@ -50,8 +88,6 @@ class Strategy:
 # ---------------------------------------------------------------------------
 def sync(compressor: Optional[Compressor] = None,
          bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> Strategy:
-    """f32 wire and update; the precision policy is a later slice."""
-
     def init(params, comm):
         return {"residual": ef_init(params)} if compressor else {}
 
@@ -67,8 +103,278 @@ def sync(compressor: Optional[Compressor] = None,
                     wire_profile="compressed" if compressor else "dense")
 
 
+# ---------------------------------------------------------------------------
+# +. local SGD / model averaging (paper §2.2.3)
+# ---------------------------------------------------------------------------
+def local_sgd(sync_every: int = 8,
+              bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> Strategy:
+    def init(params, comm):
+        return {}
+
+    def update(params, grads, opt_state, cstate, t, opt, comm):
+        fab = Fabric(comm, bucket_bytes)
+        params, opt_state = opt.update(grads, opt_state, params, t)
+        do_avg = (_host_step(t) + 1) % sync_every == 0
+        # the mean is a broadcast view: materialize W replicas again, so
+        # the optimizer can update them in place
+        params = _gate(do_avg, lambda p: T.tree_map(
+            lambda x: x.contiguous(), fab.all_mean(p)), params)
+        m = fab.metrics(fab.flat_bytes(params), events=float(do_avg))
+        return params, opt_state, cstate, m
+
+    return Strategy("local_sgd", 2, True, init, update,
+                    exchange_at_boundary=False,
+                    gated=True, sync_every=sync_every)
+
+
+# ---------------------------------------------------------------------------
+# 1b. sync + Deep Gradient Compression (momentum correction)
+# ---------------------------------------------------------------------------
+def sync_dgc(compressor: Compressor, momentum: float = 0.9,
+             bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> Strategy:
+    """Synchronous exchange of momentum-corrected compressed gradients:
+    velocity (not the raw gradient) accumulates into the residual, so the
+    updates compression left out keep their momentum.  Runs on the flat
+    buckets."""
+
+    def init(params, comm):
+        return {"dgc": dgc_init(params)}
+
+    def update(params, grads, opt_state, cstate, t, opt, comm):
+        fab = Fabric(comm, bucket_bytes)
+        g, new_dgc, m = fab.exchange_dgc(grads, cstate["dgc"], compressor,
+                                         momentum)
+        params, opt_state = opt.update(g, opt_state, params, t)
+        return params, opt_state, {"dgc": new_dgc}, m
+
+    return Strategy("sync_dgc", 1, True, init, update,
+                    wire_profile="compressed")
+
+
+# ---------------------------------------------------------------------------
+# +. elastic averaging SGD (paper §2.2.3)
+# ---------------------------------------------------------------------------
+def easgd(alpha: float = 0.1, sync_every: int = 4,
+          bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> Strategy:
+    """Workers are elastically attracted to a (replicated) center variable;
+    the center moves toward the worker average."""
+
+    def init(params, comm):
+        # average over the axis THIS comm reduces (not lead_axes - 1 for
+        # the outer tier of a hierarchy)
+        ax = getattr(comm, "axis", comm.lead_axes - 1)
+
+        def center(p):
+            return (p.float().mean(dim=ax, keepdim=True)
+                    + torch.zeros_like(p, dtype=torch.float32))
+
+        return {"center": T.tree_map(center, params)}
+
+    def update(params, grads, opt_state, cstate, t, opt, comm):
+        fab = Fabric(comm, bucket_bytes)
+        params, opt_state = opt.update(grads, opt_state, params, t)
+        do = (_host_step(t) + 1) % sync_every == 0
+
+        def attract(args):
+            p, c = args
+            diff = T.tree_map(lambda p_, c_: p_.float() - c_, p, c)
+            new_c = T.tree_map(lambda c_, d: c_ + alpha * d, c,
+                               fab.all_mean(diff))
+            new_p = T.tree_map(
+                lambda p_, d: (p_.float() - alpha * d).to(p_.dtype), p, diff)
+            return new_p, new_c
+
+        params, center = _gate(do, attract, (params, cstate["center"]))
+        m = fab.metrics(fab.flat_bytes(params), events=float(do))
+        return params, opt_state, {"center": center}, m
+
+    return Strategy("easgd", 2, True, init, update,
+                    exchange_at_boundary=False,
+                    gated=True, sync_every=sync_every)
+
+
+# ---------------------------------------------------------------------------
+# 2. stale-synchronous — complete communication, bounded delay s
+# ---------------------------------------------------------------------------
+def ssp(staleness: int = 4, compressor: Optional[Compressor] = None,
+        staleness_aware_lr: bool = False,
+        bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> Strategy:
+    """Each worker applies its own fresh gradient and the others' from s
+    steps ago.  ``staleness_aware_lr`` (Zhang et al.) scales the stale
+    contributions by 1/s."""
+    s = max(1, staleness)
+
+    def init(params, comm):
+        st = {"buf": tuple(T.tree_map(
+            lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+            for _ in range(s))}
+        if compressor:
+            st["residual"] = ef_init(params)
+        return st
+
+    def update(params, grads, opt_state, cstate, t, opt, comm):
+        fab = Fabric(comm, bucket_bytes)
+        new_c = dict(cstate)
+        if compressor:
+            grads, new_c["residual"], nbytes = fab.compress(
+                grads, cstate["residual"], compressor)
+        else:
+            nbytes = fab.flat_bytes(grads)
+        slot = _host_step(t) % s
+        g_old = cstate["buf"][slot]  # g_{t-s}
+        others_old = T.tree_map(lambda a, b: a - b, fab.all_sum(g_old),
+                                g_old)
+        w = comm.size
+        stale_scale = 1.0 / s if staleness_aware_lr else 1.0
+        g_eff = T.tree_map(lambda g, o: (g.float() + stale_scale * o) / w,
+                           grads, others_old)
+        del others_old
+        params, opt_state = opt.update(g_eff, opt_state, params, t)
+        buf = cstate["buf"]
+        new_c["buf"] = (buf[:slot] + (T.tree_map(lambda g: g.float(), grads),)
+                        + buf[slot + 1:])
+        return params, opt_state, new_c, fab.metrics(nbytes)
+
+    return Strategy("ssp", 2, True, init, update,
+                    exchange_at_boundary=False)
+
+
+# ---------------------------------------------------------------------------
+# 3. downpour — complete communication, unbounded(-class) delay
+# ---------------------------------------------------------------------------
+def downpour(push_every: int = 4,
+             compressor: Optional[Compressor] = None,
+             bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> Strategy:
+    """Decentralized Downpour: workers accumulate locally and push on
+    staggered schedules; every update is eventually delivered everywhere
+    (complete)."""
+
+    def init(params, comm):
+        st = {"acc": T.tree_map(
+            lambda p: torch.zeros_like(p, dtype=torch.float32), params)}
+        if compressor:
+            st["residual"] = ef_init(params)
+        return st
+
+    def update(params, grads, opt_state, cstate, t, opt, comm):
+        fab = Fabric(comm, bucket_bytes)
+        new_c = dict(cstate)
+        if compressor:
+            grads, new_c["residual"], nbytes = fab.compress(
+                grads, cstate["residual"], compressor)
+        else:
+            nbytes = fab.flat_bytes(grads)
+        n, w = _host_step(t), comm.size
+        flat_g, tdef = T.flatten(grads)
+        del grads
+        acc = T.leaves(cstate["acc"])
+        # per-replica push mask, on the leaves' device, trailing axes 1
+        push = (n + comm.worker_index(like=acc[0])) % push_every == 0
+        g_eff, new_acc = [], []
+        for i in range(len(flat_g)):  # leaf by leaf: one leaf's temporaries
+            g, flat_g[i] = flat_g[i], None
+            a_plus = acc[i] + g.float()
+            mask = push.reshape(tuple(push.shape)
+                                + (1,) * (a_plus.dim() - push.dim()))
+            deliver = torch.where(mask, a_plus, 0.0)
+            recv = fab.all_sum(deliver) - deliver
+            del deliver
+            g_eff.append((g.float() + recv) / w)
+            del recv, g
+            new_acc.append(torch.where(mask, 0.0, a_plus))
+            del a_plus
+        params, opt_state = opt.update(T.unflatten(tdef, g_eff), opt_state,
+                                       params, t)
+        new_c["acc"] = T.unflatten(tdef, new_acc)
+        # the fleet-wide push fraction: the staggered schedule is
+        # deterministic in t, so it is known here without a collective
+        ev = sum((n + i) % push_every == 0 for i in range(w)) / w
+        return params, opt_state, new_c, fab.metrics(nbytes, events=ev)
+
+    return Strategy("downpour", 3, True, init, update,
+                    exchange_at_boundary=False)
+
+
+# ---------------------------------------------------------------------------
+# 4. gossip — PARTIAL communication (ring mixing)
+# ---------------------------------------------------------------------------
+def gossip(mix_every: int = 1, symmetric: bool = True,
+           bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> Strategy:
+    """Ring gossip on the weights after the local step.  A worker only ever
+    hears from its ring neighbors: updates from the others are never
+    delivered directly (point 4: model consistency is given up)."""
+
+    def init(params, comm):
+        return {}
+
+    def update(params, grads, opt_state, cstate, t, opt, comm):
+        fab = Fabric(comm, bucket_bytes)
+        params, opt_state = opt.update(grads, opt_state, params, t)
+        do_mix = (_host_step(t) + 1) % mix_every == 0
+
+        def mix(p):
+            left = fab.ppermute(p, shift=1)
+            if symmetric:
+                right = fab.ppermute(p, shift=-1)
+                mixed = T.tree_map(
+                    lambda p_, lf, rt: (p_.float() + lf.float()
+                                        + rt.float()) / 3.0,
+                    p, left, right)
+            else:
+                mixed = T.tree_map(
+                    lambda p_, lf: (p_.float() + lf.float()) / 2.0, p, left)
+            return T.tree_map(lambda m_, p_: m_.to(p_.dtype), mixed, p)
+
+        params = _gate(do_mix, mix, params)
+        ev = float(do_mix) * (2.0 if symmetric else 1.0)
+        m = fab.metrics(fab.flat_bytes(params), events=ev)
+        return params, opt_state, cstate, m
+
+    return Strategy("gossip", 4, False, init, update,
+                    exchange_at_boundary=False, wire_profile="ring",
+                    gated=True, sync_every=mix_every,
+                    wire_events=2 if symmetric else 1)
+
+
+# ---------------------------------------------------------------------------
+# beyond-paper: hierarchical — complete inner tier × partial outer tier
+# ---------------------------------------------------------------------------
+def hierarchical(inner: Strategy, outer: Strategy) -> Strategy:
+    """Compose: ``inner`` runs every step on the fast fabric (intra-pod),
+    ``outer`` on the slow fabric (cross-pod).  The comm handed to update
+    must be a ``HierComm``; each tier builds its own Fabric over its own
+    comm."""
+
+    def init(params, comm):
+        return {"inner": inner.init(params, comm.inner),
+                "outer": outer.init(params, comm.outer)}
+
+    def update(params, grads, opt_state, cstate, t, opt, comm):
+        params, opt_state, c_in, m1 = inner.update(
+            params, grads, opt_state, cstate["inner"], t, opt, comm.inner)
+        noop = Optimizer(lambda p: {}, lambda g, s_, p, tt: (p, s_))
+        zero_g = T.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                            grads)
+        params, _, c_out, m2 = outer.update(
+            params, zero_g, {}, cstate["outer"], t, noop, comm.outer)
+        m = {k: m1[k] + m2[k] for k in m1}
+        return params, opt_state, {"inner": c_in, "outer": c_out}, m
+
+    return Strategy(f"hier({inner.name}x{outer.name})",
+                    4 if not outer.complete else inner.spectrum_point,
+                    inner.complete and outer.complete, init, update,
+                    exchange_at_boundary=(inner.exchange_at_boundary
+                                          and outer.exchange_at_boundary))
+
+
 REGISTRY = {
     "sync": sync,
+    "sync_dgc": sync_dgc,
+    "local_sgd": local_sgd,
+    "easgd": easgd,
+    "ssp": ssp,
+    "downpour": downpour,
+    "gossip": gossip,
 }
 
 

@@ -15,36 +15,39 @@ trees hold none on the ported paths).
 from __future__ import annotations
 
 
+def _flatten(x, leaves):
+    if isinstance(x, dict):
+        keys = tuple(sorted(x))
+        return (dict, keys, tuple(_flatten(x[k], leaves) for k in keys))
+    if isinstance(x, (list, tuple)):
+        return (type(x), len(x), tuple(_flatten(v, leaves) for v in x))
+    leaves.append(x)
+    return None
+
+
 def flatten(tree):
     """``(leaves, treedef)``: the leaves in ``jax.tree`` order and what
-    ``unflatten`` needs to rebuild the containers."""
+    ``unflatten`` needs to rebuild the containers.  The recursion is a
+    module-level function, not a closure that calls itself: such a
+    closure is a reference cycle that would keep every leaf alive until
+    the cyclic garbage collector runs."""
     leaves = []
+    return leaves, _flatten(tree, leaves)
 
-    def rec(x):
-        if isinstance(x, dict):
-            keys = tuple(sorted(x))
-            return (dict, keys, tuple(rec(x[k]) for k in keys))
-        if isinstance(x, (list, tuple)):
-            return (type(x), len(x), tuple(rec(v) for v in x))
-        leaves.append(x)
-        return None
 
-    return leaves, rec(tree)
+def _unflatten(node, it):
+    if node is None:
+        return next(it)
+    kind, keys, children = node
+    if kind is dict:
+        return {k: _unflatten(c, it) for k, c in zip(keys, children)}
+    return kind(_unflatten(c, it) for c in children)
 
 
 def unflatten(treedef, leaves):
     """Inverse of ``flatten``."""
     it = iter(leaves)
-
-    def rec(node):
-        if node is None:
-            return next(it)
-        kind, keys, children = node
-        if kind is dict:
-            return {k: rec(c) for k, c in zip(keys, children)}
-        return kind(rec(c) for c in children)
-
-    out = rec(treedef)
+    out = _unflatten(treedef, it)
     rest = sum(1 for _ in it)
     if rest:
         raise ValueError(f"unflatten: {rest} leaves left over")

@@ -1,8 +1,9 @@
-// Block-local top-k with error feedback, for Hopper (sm_90a).
+// Block-local top-k, for Hopper (sm_90a): with error feedback, and the
+// plain sparsify.
 //
-// Replaces the Pallas TPU kernel repro/kernels/topk_sparsify.py::
-// topk_encode_ef (_topk_ef_kernel, lines 86-109).  Per row of block f32
-// values (a flat bucket folded into rows):
+// topk_encode_ef_fwd replaces the Pallas TPU kernel
+// repro/kernels/topk_sparsify.py::topk_encode_ef (_topk_ef_kernel, lines
+// 86-109).  Per row of block f32 values (a flat bucket folded into rows):
 //   t      = g + r
 //   k rounds: pick the largest |t| not yet taken, the LOWEST column on a
 //             tie (lax.top_k's order), and take it
@@ -17,23 +18,33 @@
 // number here; the reference would take none for it (NaN gradients are
 // out of scope on both sides).
 //
-// Bound on the H100: device-memory bytes.  Each element reads g and r and
-// writes new_r (12 B); each row writes 8k B of vals and idx: 12 + 8k/block
-// bytes per element.  The selection costs k passes of compares over the
+// topk_sparsify_fwd replaces repro/kernels/topk_sparsify.py::topk_sparsify
+// (_topk_kernel, lines 32-53), one round of the leaf-wise codec
+// (core/compression.py::ef_compress_tree, dgc_compress_tree): the same k
+// rounds over |x| in f32 for an f32 or bf16 row x, vals = x at the taken
+// columns in x's dtype (as take_along_axis: a taken -0.0 stays -0.0), idx,
+// and dense = taken ? x : +0.0 in x's dtype.
+//
+// Bound on the H100: device-memory bytes.  topk_encode_ef reads g and r
+// and writes new_r (12 B an element); topk_sparsify reads x and writes
+// dense (8 B an f32 element, 4 B a bf16 one); each row writes k values
+// and k int32 indices.  The selection costs k passes of compares over the
 // row, which stays in registers, so it adds instructions, not bytes.
 //
 // Design.  The TPU kernel runs k rounds of masked max over an (8, block)
 // VMEM tile.  Here one warp takes one row (block <= 1024, block % 32 == 0)
 // and lane l keeps columns l, l + 32, ... (block / 32 <= 32 of them) in
-// registers; the loads are coalesced 128-byte warp reads.  Each column has
+// registers as f32; the loads are coalesced warp reads.  Each column has
 // a 64-bit key (bits(|t|) + 1) << 32 | ~column: non-negative floats order
 // as their bit patterns, so the largest key is the largest magnitude and,
 // among equals, the lowest column; a taken column's key is 0.  Each lane
 // keeps the best key of its own columns; a round is a 5-step xor-shuffle
 // max of the lanes' keys, after which only the owner lane of the winner
 // marks it taken (a 32-bit mask) and rescans its own columns.  Lane i % 32
-// stores round i's value and column.  No shared memory, no barriers.
+// stores round i's value and column.  No shared memory, no barriers.  Both
+// kernels share that selection (select_topk).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -49,27 +60,14 @@ __device__ __forceinline__ unsigned long long key_of(float t, int col) {
          static_cast<unsigned>(~col);
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-    topk_encode_ef_kernel(const float* __restrict__ g,
-                          const float* __restrict__ r,
-                          float* __restrict__ vals, int* __restrict__ idx,
-                          float* __restrict__ new_r, long long rows, int block,
-                          int k) {
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;  // whole warps leave together
-  const int per = block >> 5;
-  const long long base = row * block;
-
-  float t[kMaxPerLane];
-#pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j)
-    if (j < per) {
-      const long long e = base + lane + 32 * j;
-      t[j] = __fadd_rn(g[e], r[e]);
-    }
-
+// k rounds of selection over one row whose lane holds t[j] = column
+// lane + 32 j (j < per).  Round i calls store(i, col, v) on lane i % 32
+// with the taken column and its value.  Returns the lane's mask of taken
+// j.
+template <class Store>
+__device__ __forceinline__ unsigned select_topk(const float (&t)[kMaxPerLane],
+                                                int per, int lane, int k,
+                                                Store store) {
   unsigned taken = 0u;
   unsigned long long best = 0ull;
 #pragma unroll
@@ -106,17 +104,92 @@ __global__ void __launch_bounds__(kWarps * 32)
         }
     }
     v = __shfl_sync(0xffffffffu, v, owner);
-    if (lane == (i & 31)) {
-      vals[row * k + i] = v;
-      idx[row * k + i] = col;
-    }
+    if (lane == (i & 31)) store(i, col, v);
   }
+  return taken;
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+    topk_encode_ef_kernel(const float* __restrict__ g,
+                          const float* __restrict__ r,
+                          float* __restrict__ vals, int* __restrict__ idx,
+                          float* __restrict__ new_r, long long rows, int block,
+                          int k) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;  // whole warps leave together
+  const int per = block >> 5;
+  const long long base = row * block;
+
+  float t[kMaxPerLane];
+#pragma unroll
+  for (int j = 0; j < kMaxPerLane; ++j)
+    if (j < per) {
+      const long long e = base + lane + 32 * j;
+      t[j] = __fadd_rn(g[e], r[e]);
+    }
+
+  float* vrow = vals + row * k;
+  int* irow = idx + row * k;
+  const unsigned taken =
+      select_topk(t, per, lane, k, [vrow, irow](int i, int col, float v) {
+        vrow[i] = v;
+        irow[i] = col;
+      });
 
 #pragma unroll
   for (int j = 0; j < kMaxPerLane; ++j)
     if (j < per)
       new_r[base + lane + 32 * j] =
           __fsub_rn(t[j], ((taken >> j) & 1u) ? t[j] : 0.f);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <class T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);  // exact: x came from a bf16
+}
+
+template <class T>
+__global__ void __launch_bounds__(kWarps * 32)
+    topk_sparsify_kernel(const T* __restrict__ x, T* __restrict__ vals,
+                         int* __restrict__ idx, T* __restrict__ dense,
+                         long long rows, int block, int k) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;  // whole warps leave together
+  const int per = block >> 5;
+  const long long base = row * block;
+
+  float t[kMaxPerLane];
+#pragma unroll
+  for (int j = 0; j < kMaxPerLane; ++j)
+    if (j < per) t[j] = to_f32(x[base + lane + 32 * j]);
+
+  T* vrow = vals + row * k;
+  int* irow = idx + row * k;
+  const unsigned taken =
+      select_topk(t, per, lane, k, [vrow, irow](int i, int col, float v) {
+        vrow[i] = from_f32<T>(v);
+        irow[i] = col;
+      });
+
+#pragma unroll
+  for (int j = 0; j < kMaxPerLane; ++j)
+    if (j < per)
+      dense[base + lane + 32 * j] =
+          from_f32<T>(((taken >> j) & 1u) ? t[j] : 0.f);
 }
 
 }  // namespace
@@ -138,5 +211,32 @@ extern "C" int topk_encode_ef_fwd(const void* g, const void* r, void* vals,
       static_cast<const float*>(g), static_cast<const float*>(r),
       static_cast<float*>(vals), static_cast<int*>(idx),
       static_cast<float*>(new_r), rows, block, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the sparsify kernel on `stream` and returns cudaGetLastError()
+// (0 on success).  x and dense are (rows, block), vals (rows, k), all f32
+// or all bf16 (is_bf16); idx is (rows, k) int32.  The caller checks
+// shapes, dtypes, devices and contiguity; the limits are re-checked here.
+extern "C" int topk_sparsify_fwd(const void* x, void* vals, void* idx,
+                                 void* dense, long long rows, int block, int k,
+                                 int is_bf16, void* stream) {
+  if (rows < 1 || block < 32 || block % 32 != 0 ||
+      block > 32 * kMaxPerLane || k < 1 || k > block)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long grid = (rows + kWarps - 1) / kWarps;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    topk_sparsify_kernel<__nv_bfloat16>
+        <<<static_cast<unsigned>(grid), kWarps * 32, 0, st>>>(
+            static_cast<const __nv_bfloat16*>(x),
+            static_cast<__nv_bfloat16*>(vals), static_cast<int*>(idx),
+            static_cast<__nv_bfloat16*>(dense), rows, block, k);
+  else
+    topk_sparsify_kernel<float><<<static_cast<unsigned>(grid), kWarps * 32, 0,
+                                  st>>>(
+        static_cast<const float*>(x), static_cast<float*>(vals),
+        static_cast<int*>(idx), static_cast<float*>(dense), rows, block, k);
   return static_cast<int>(cudaGetLastError());
 }

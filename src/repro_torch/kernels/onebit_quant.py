@@ -1,4 +1,5 @@
-"""1-bit quantization with error feedback, emitting the packed wire format.
+"""1-bit quantization with error feedback: the packed wire format and the
+unpacked variant.
 
 Port of ``repro/kernels/onebit_quant.py::onebit_quant_packed`` (the Pallas
 TPU kernel on the Fabric's default compressed path).  One fused round per
@@ -13,10 +14,20 @@ row of a flat f32 bucket folded into ``(nb, block)`` rows:
 The residual is taken against the ROUNDED scale, the one the receivers
 decode with.
 
-``onebit_quant_packed`` launches the CUDA kernel (``csrc/onebit_quant.cu``)
-and counts its launches in ``onebit_quant_packed.launches``;
-``onebit_quant_packed_plain`` is the plain PyTorch version.
-``kernels.ops.onebit_quant_packed`` picks between them by the tensors'
+Port of ``repro/kernels/onebit_quant.py::onebit_quant``, one round of
+the leaf-wise error-feedback codec (``core/compression.py``):
+
+    t = g + r
+    sign   +1 where t >= 0, else -1                     (nb, block) int8
+    scale  mean |t|, f32, not rounded                   (nb, 1) f32
+    new_r  t − sign·scale                               (nb, block) f32
+
+at the blocks the codec and the reference's sweep use (``ONEBIT_BLOCKS``).
+
+``onebit_quant_packed`` and ``onebit_quant`` launch the CUDA kernels
+(``csrc/onebit_quant.cu``) and count their launches in ``.launches``;
+``onebit_quant_packed_plain`` and ``onebit_quant_plain`` are the plain
+PyTorch versions.  ``kernels.ops`` picks between them by the tensors'
 device.
 """
 
@@ -27,6 +38,7 @@ import ctypes
 import torch
 
 _BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
+ONEBIT_BLOCKS = (64, 128, 256)  # the unpacked kernel's blocks
 
 
 def onebit_quant_packed_plain(g, r):
@@ -45,61 +57,92 @@ def onebit_quant_packed_plain(g, r):
     return packed, scale, t - sign * scale.float()
 
 
-# the C prototype of onebit_quant_packed_fwd in csrc/onebit_quant.cu:
-# g, r, packed, scale, new_r; rows; block; stream
+def onebit_quant_plain(g, r):
+    """g, r: (nb, block) f32 → (sign (nb, block) int8, scale (nb, 1) f32,
+    new_r (nb, block) f32), as ``onebit_quant_ref``."""
+    t = g.float() + r
+    sign = torch.where(t >= 0, 1, -1).to(torch.int8)
+    scale = t.abs().sum(dim=-1, keepdim=True) / t.shape[-1]  # jnp.mean
+    return sign, scale, t - sign.float() * scale
+
+
+# the C prototypes of both entry points in csrc/onebit_quant.cu: g, r,
+# packed (sign), scale, new_r; rows; block; stream
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int]
              + [ctypes.c_void_p])
 
 
-def _kernel_fn():
+def _kernel_fn(name):
     from repro_torch.kernels import _build
 
-    fn = _build.load("onebit_quant").onebit_quant_packed_fwd
+    fn = getattr(_build.load("onebit_quant"), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(g, r):
-    for name, t in (("g", g), ("r", r)):
+def _check(name, g, r):
+    for arg, t in (("g", g), ("r", r)):
         if t.device.type != "cuda":
-            raise ValueError(f"onebit_quant_packed: {name} is on {t.device}; "
-                             "the kernel takes CUDA tensors only")
+            raise ValueError(f"{name}: {arg} is on {t.device}; the kernel "
+                             "takes CUDA tensors only")
         if t.dtype != torch.float32:
-            raise ValueError(f"onebit_quant_packed: {name} must be float32, "
-                             f"got {t.dtype}")
+            raise ValueError(f"{name}: {arg} must be float32, got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"onebit_quant_packed: {name} must be contiguous "
-                             "and 16-byte aligned (the kernel reads float4)")
+            raise ValueError(f"{name}: {arg} must be contiguous and 16-byte "
+                             "aligned (the kernel reads float4)")
     if g.device != r.device or g.shape != r.shape or g.dim() != 2:
-        raise ValueError(f"onebit_quant_packed: g{tuple(g.shape)} on "
-                         f"{g.device} and r{tuple(r.shape)} on {r.device} "
-                         "must be one (nb, block) shape on one device")
+        raise ValueError(f"{name}: g{tuple(g.shape)} on {g.device} and "
+                         f"r{tuple(r.shape)} on {r.device} must be one "
+                         "(nb, block) shape on one device")
     nb, block = g.shape
     if nb < 1 or block < 8 or block % 8:
-        raise ValueError(f"onebit_quant_packed: needs nb >= 1 and block a "
-                         f"positive multiple of 8, got ({nb}, {block})")
+        raise ValueError(f"{name}: needs nb >= 1 and block a positive "
+                         f"multiple of 8, got ({nb}, {block})")
 
 
-def onebit_quant_packed(g, r):
-    """Launch the CUDA kernel on the current stream (CUDA tensors only;
-    raises on anything the kernel does not take)."""
-    _check(g, r)
+def _launch(name, g, r, out0, scale):
     nb, block = g.shape
-    packed = torch.empty((nb, block // 8), dtype=torch.uint8, device=g.device)
-    scale = torch.empty((nb, 1), dtype=torch.bfloat16, device=g.device)
     new_r = torch.empty_like(g)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel_fn()(g.data_ptr(), r.data_ptr(), packed.data_ptr(),
-                           scale.data_ptr(), new_r.data_ptr(), nb, block,
-                           stream)
+        err = _kernel_fn(f"{name}_fwd")(g.data_ptr(), r.data_ptr(),
+                                        out0.data_ptr(), scale.data_ptr(),
+                                        new_r.data_ptr(), nb, block, stream)
     if err:
-        raise RuntimeError(f"onebit_quant_packed kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out0, scale, new_r
+
+
+def onebit_quant_packed(g, r):
+    """Launch the packed kernel on the current stream (CUDA tensors only;
+    raises on anything the kernel does not take)."""
+    _check("onebit_quant_packed", g, r)
+    nb, block = g.shape
+    out = _launch(
+        "onebit_quant_packed", g, r,
+        torch.empty((nb, block // 8), dtype=torch.uint8, device=g.device),
+        torch.empty((nb, 1), dtype=torch.bfloat16, device=g.device))
     onebit_quant_packed.launches += 1
-    return packed, scale, new_r
+    return out
+
+
+def onebit_quant(g, r):
+    """Launch the unpacked kernel on the current stream (CUDA tensors and a
+    block of ``ONEBIT_BLOCKS`` only; raises on anything else)."""
+    _check("onebit_quant", g, r)
+    nb, block = g.shape
+    if block not in ONEBIT_BLOCKS:
+        raise ValueError(f"onebit_quant: the kernel takes blocks "
+                         f"{ONEBIT_BLOCKS}, got {block}")
+    out = _launch(
+        "onebit_quant", g, r,
+        torch.empty((nb, block), dtype=torch.int8, device=g.device),
+        torch.empty((nb, 1), dtype=torch.float32, device=g.device))
+    onebit_quant.launches += 1
+    return out
 
 
 onebit_quant_packed.launches = 0
+onebit_quant.launches = 0

@@ -50,6 +50,18 @@ def onebit_quant_packed(g, r):
     return fn(g, r)
 
 
+def onebit_quant(g, r):
+    fn = _pick("onebit_quant", g, _onebit.onebit_quant,
+               _onebit.onebit_quant_plain)
+    return fn(g, r)
+
+
+def topk_sparsify(x, k):
+    fn = _pick("topk_sparsify", x, _topk.topk_sparsify,
+               _topk.topk_sparsify_plain)
+    return fn(x, k)
+
+
 def topk_encode_ef(g, r, k):
     fn = _pick("topk_encode_ef", g, _topk.topk_encode_ef,
                _topk.topk_encode_ef_plain)

@@ -1,17 +1,21 @@
-"""Trainer CLI: W stacked model replicas under the ``sync`` strategy with
-optional compression, on one card.
+"""Trainer CLI: W stacked model replicas under any strategy of the
+spectrum (``sync``, ``sync_dgc``, ``local_sgd``, ``easgd``, ``ssp``,
+``downpour``, ``gossip``) with optional compression, on one card.
 
 Port of ``repro/launch/train.py`` (its replica-simulator mode), with the
 reference's flags, printed fields, ``--out`` JSON and exit-2 messages, and
-one more flag, ``--device`` (default ``cuda``).  Flags whose machinery is
-a later slice of the port exit 2 with a one-line message that names it:
-``--zero-stage``, ``--precision`` other than f32, ``--accum-steps`` above
-1, ``--ckpt-dir`` and ``--resume``, and any strategy but ``sync``.
+one more flag, ``--device`` (default ``cuda``).  As in the reference,
+``--compressor`` goes to ``sync``, ``ssp``, ``downpour`` and ``sync_dgc``
+(which needs one).  Flags whose machinery is a later slice of the port
+exit 2 with a one-line message that names it: ``--zero-stage`` and the
+``sync_zero*`` strategies, ``--precision`` other than f32,
+``--accum-steps`` above 1, ``--ckpt-dir`` and ``--resume``.
 ``--prefetch-depth`` is accepted and has no effect yet.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
-      --reduced --device cpu --compressor onebit --fused-adam --steps 20
+      --reduced --device cpu --strategy downpour --compressor onebit \\
+      --fused-adam --steps 20
 """
 
 from __future__ import annotations
@@ -92,9 +96,8 @@ def check_ported(args):
         _exit2(f"--zero-stage {args.zero_stage}: ZeRO partitioning is a "
                "later slice of the port")
     if args.strategy not in REGISTRY:
-        _exit2(f"--strategy {args.strategy}: only "
-               f"{', '.join(sorted(REGISTRY))} is ported; the other "
-               "strategies are a later slice")
+        _exit2(f"--strategy {args.strategy}: ZeRO partitioning is a later "
+               f"slice of the port; ported: {', '.join(sorted(REGISTRY))}")
     if args.precision != "f32":
         _exit2(f"--precision {args.precision}: precision policies are a "
                "later slice of the port")
@@ -125,16 +128,23 @@ def strategy_from_args(args):
     if args.compressor != "none":
         comp = get_compressor(args.compressor) if args.compressor != "topk" \
             else get_compressor("topk", ratio=0.01)
-    return get_strategy(args.strategy, compressor=comp)
+    kw = {}
+    if args.strategy in ("sync", "ssp", "downpour"):
+        kw["compressor"] = comp
+    if args.strategy == "sync_dgc":
+        if comp is None:
+            _exit2("sync_dgc needs --compressor (onebit | int8 | topk)")
+        kw["compressor"] = comp
+    return get_strategy(args.strategy, **kw)
 
 
 def train(args, cfg, on_step=None):
     """The CLI's body for a resolved config: prints the reference's fields
     and returns the logged history.  ``on_step(t, state, metrics)``, when
     given, runs after every step."""
+    strategy = strategy_from_args(args)
     dev = resolve_device(args.device)
     comm = LocalComm(args.workers)
-    strategy = strategy_from_args(args)
     sched = warmup_cosine(args.lr, warmup=max(1, args.steps // 20),
                           total_steps=args.steps)
     opt = (adam(sched, fused=args.fused_adam) if args.optimizer == "adam"

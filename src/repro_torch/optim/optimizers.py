@@ -27,11 +27,16 @@ from repro_torch.core import tree as T
 from repro_torch.kernels import ops
 
 
-def _step_tensor(t):
-    """The step counter as an int32 tensor (a Python int becomes one on
-    the host)."""
-    return t if isinstance(t, torch.Tensor) else torch.tensor(
-        int(t), dtype=torch.int32)
+def _step_tensor(t, params=None):
+    """The step counter as an int32 tensor.  A Python int (the train loop
+    passes one) becomes one on the device of ``params``' first leaf, the
+    host without ``params``; ``torch.full`` fills it there without a
+    host-to-device copy, which would wait for the device."""
+    if isinstance(t, torch.Tensor):
+        return t
+    leaves = T.leaves(params) if params is not None else []
+    return torch.full((), int(t), dtype=torch.int32,
+                      device=leaves[0].device if leaves else None)
 
 
 # ---------------------------------------------------------------------------
@@ -91,7 +96,7 @@ def sgd(lr, weight_decay: float = 0.0) -> Optimizer:
         return {}
 
     def update(grads, state, params, t):
-        step = lr(t)
+        step = lr(_step_tensor(t, params))
 
         def one(p, g):
             return (p.float() - step * (g.float() + weight_decay * p.float())
@@ -110,7 +115,7 @@ def momentum(lr, beta: float = 0.9, nesterov: bool = False,
         return {"m": T.tree_map(_zeros, params)}
 
     def update(grads, state, params, t):
-        step = lr(t)
+        step = lr(_step_tensor(t, params))
         m = T.tree_map(lambda m_, g: beta * m_ + g.float(), state["m"], grads)
         upd = (T.tree_map(lambda m_, g: beta * m_ + g.float(), m, grads)
                if nesterov else m)
@@ -140,7 +145,8 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                 "v": T.tree_map(_zeros, params)}
 
     def update(grads, state, params, t):
-        tt = _step_tensor(t).float() + 1.0
+        t = _step_tensor(t, params)
+        tt = t.float() + 1.0
         m = T.tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.float(),
                        state["m"], grads)
         v = T.tree_map(
@@ -158,7 +164,8 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return T.tree_map(one, params, mh, vh), {"m": m, "v": v}
 
     def update_fused(grads, state, params, t):
-        tt = _step_tensor(t).float() + 1.0
+        t = _step_tensor(t, params)
+        tt = t.float() + 1.0
         # (lr, bc1, bc2) stay an f32 tensor on the device: no host read
         consts = torch.stack([lr(t), 1.0 - b1 ** tt, 1.0 - b2 ** tt])
         for p, g, m_, v_ in zip(T.leaves(params), T.leaves(grads),

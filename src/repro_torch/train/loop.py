@@ -16,6 +16,14 @@ given where the optimizer updates in place (``adam(fused=True)``), as the
 reference's donated step reuses its buffers: keep a copy of a state you
 want to re-step from.
 
+The step counter ``state["step"]`` is an int32 tensor on the device, as
+the reference's; beside it the step keeps the counter as a Python int and
+hands that to ``strategy.update``, so a strategy's schedule (``local_sgd``,
+``easgd`` and ``gossip``'s gates, ``ssp``'s ring slot, ``downpour``'s
+pushes) decides on the host with no device read-back a step.  The int is
+read back from the tensor only for a state this step did not make (the
+first step, a state from ``bridge``).
+
 This slice ports the f32 step (the reference's ``policy=None``) at
 ``accum_steps=1`` for the strategies of ``core/strategies.py``; precision
 policies, microbatch accumulation and the ZeRO strategies are later
@@ -81,15 +89,20 @@ def make_replica_train_step(loss_fn, optimizer: Optimizer, strategy: Strategy,
     ``comm_events``, ``loss`` (mean over replicas) and
     ``replica_divergence``."""
 
+    host = {"tensor": None, "t": 0}  # the last step tensor made, its value
+
     def step(state, batches):
         src = state["params"]
+        t = host["t"] if state["step"] is host["tensor"] \
+            else int(state["step"])
         loss, grads = _replica_grads(loss_fn, src, batches, comm.size)
         params, opt_state, comm_state, metrics = strategy.update(
-            src, grads, state["opt_state"], state["comm_state"],
-            state["step"], optimizer, comm)
+            src, grads, state["opt_state"], state["comm_state"], t,
+            optimizer, comm)
         del grads
         new_state = {"params": params, "opt_state": opt_state,
                      "comm_state": comm_state, "step": state["step"] + 1}
+        host.update(tensor=new_state["step"], t=t + 1)
         metrics = dict(metrics)
         metrics["loss"] = loss.mean()
         metrics["replica_divergence"] = _stack_divergence(params)

@@ -165,10 +165,16 @@ def _c_argtypes(source, fn):
     return kinds
 
 
+# the ctypes argtypes of an entry point other than its module's _ARGTYPES
+_OTHER_ARGTYPES = {"topk_sparsify_fwd": "_SPARSIFY_ARGTYPES"}
+
+
 @pytest.mark.parametrize("module,source,fn", [
     ("onebit_quant", "onebit_quant.cu", "onebit_quant_packed_fwd"),
     ("topk_sparsify", "topk_sparsify.cu", "topk_encode_ef_fwd"),
     ("fused_adam", "fused_adam.cu", "fused_adam_fwd"),
+    ("onebit_quant", "onebit_quant.cu", "onebit_quant_fwd"),
+    ("topk_sparsify", "topk_sparsify.cu", "topk_sparsify_fwd"),
 ])
 def test_training_kernel_argtypes_match_c_prototype(module, source, fn):
     """A count, width or pointer/int mismatch would only show on the
@@ -176,7 +182,8 @@ def test_training_kernel_argtypes_match_c_prototype(module, source, fn):
     import importlib
 
     mod = importlib.import_module(f"repro_torch.kernels.{module}")
-    assert _c_argtypes(source, fn) == mod._ARGTYPES
+    assert _c_argtypes(source, fn) == getattr(
+        mod, _OTHER_ARGTYPES.get(fn, "_ARGTYPES"))
 
 
 def test_flash_attention_argtypes_match_c_prototype():
