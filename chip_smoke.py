@@ -1207,6 +1207,7 @@ def check_adam(fa):
 # ---------------------------------------------------------------------------
 EMBED_ROWS = (4 * 151936 * 1536) // 256  # qwen2-1.5b's stacked embedding
 ONEBIT_SHAPES = [(1, 128), (17, 128), (64, 256), (4, 64),  # test_kernels.py
+                 (9, 8), (5, 520), (3, 2048),  # any block % 8 == 0
                  (EMBED_ROWS, 256)]
 TOPK_SHAPES = [(4, 128, 4), (37, 256, 8), (1, 64, 1), (8, 512, 32),
                (EMBED_ROWS // 4, 1024, 10)]
@@ -1333,30 +1334,42 @@ def codec_path(ob, tk, get_config, smi):
     rec, state = {}, {}
     t0 = time.perf_counter()
 
-    def held(what, name, call, plain_leaf, keep=None):
+    def held(what, name, call, plain_leaf, target, keep=None):
         """Run ``call()`` (one tree call of the codec, counting its
         launches), then hold each output leaf against ``plain_leaf(i)``
         (the codec run plain on leaf i alone), freeing the kernel's
-        leaves as it goes but output ``keep``'s.  Records the launches
-        and the largest |kernel - plain|; returns the outputs' leaves."""
+        leaves as it goes but output ``keep``'s.  Top-k: every output
+        bitwise.  1-bit: g_hat = ±scale with the signs bitwise and each
+        element at rtol 1e-6 (the f32 scale's sum order), the residual
+        (the last output) bitwise against ``target(i)`` − g_hat with the
+        kernel's own g_hat, any other output (DGC's velocity) bitwise.
+        Records the launches and the largest |kernel − plain|; returns
+        the outputs' leaves."""
         before = {k: fn.launches for k, fn in counts.items()}
         outs = [TT.leaves(t) for t in call()]
         torch.cuda.synchronize()
         launched = {k: fn.launches - before[k] for k, fn in counts.items()}
         err = 0.0
         for i in range(n_leaves):
-            for j, w in enumerate(plain_leaf(i)):
-                a, b = outs[j][i], TT.leaves(w)[0]
-                if name == "onebit" and j == 0 and not torch.equal(
-                        torch.signbit(a), torch.signbit(b)):
+            got = [o[i] for o in outs]
+            want = [TT.leaves(w)[0] for w in plain_leaf(i)]
+            if name == "topk":
+                exact = list(zip(got, want))
+            else:
+                a, b = got[0], want[0]
+                if not torch.equal(torch.signbit(a), torch.signbit(b)):
                     raise AssertionError(f"{what}: leaf {i} signs differ")
-                if name == "topk" and not bitwise_equal(a, b):
+                if not bool(((a - b).abs() <= 1e-6 * b.abs()).all()):
+                    raise AssertionError(f"{what}: leaf {i} g_hat beyond "
+                                         "rtol 1e-6 of the plain one")
+                exact = ([(got[-1], target(i) - a.float())]
+                         + list(zip(got[1:-1], want[1:-1])))
+            for a, b in exact:
+                if not bitwise_equal(a, b):
                     raise AssertionError(f"{what}: leaf {i} differs")
-                d = (a - b).abs().max().item()
-                if name == "onebit" and not d <= 1e-6 * max(
-                        b.abs().max().item(), 1.0):
-                    raise AssertionError(f"{what}: leaf {i} off by {d}")
-                err = max(err, d)
+            err = max([err] + [(a.float() - b.float()).abs().max().item()
+                               for a, b in zip(got, want)])
+            del got, want, exact
             for j, leaves in enumerate(outs):
                 if j != keep:
                     leaves[i] = None
@@ -1373,13 +1386,22 @@ def codec_path(ob, tk, get_config, smi):
             with plain_codec(ob, tk):
                 return C.ef_compress_tree(comp, one(grads, i), one(zeros, i))
 
+        def ef_target(i, zeros=zeros):
+            return TT.leaves(grads)[i].float() + TT.leaves(zeros)[i]
+
         outs = held(f"ef_{name}", name,
                     lambda: C.ef_compress_tree(comp, grads, zeros), plain_ef,
-                    keep=1)
+                    ef_target, keep=1)
         state[name] = {"x": outs[1]}  # the new residuals, as a tree
-        del outs, zeros, plain_ef
+        del outs, zeros, plain_ef, ef_target
     # DGC from a nonzero state: the two residuals just made
     dgc_state = {"velocity": state.pop("onebit"), "residual": state.pop("topk")}
+
+    def dgc_target(i):  # r + u1, u1 = 0.9 u + g, as dgc_compress_tree
+        u1 = 0.9 * TT.leaves(dgc_state["velocity"])[i] \
+            + TT.leaves(grads)[i].float()
+        return u1 + TT.leaves(dgc_state["residual"])[i]
+
     for name, comp in comps.items():
         def plain_dgc(i, comp=comp):
             with plain_codec(ob, tk):
@@ -1391,7 +1413,7 @@ def codec_path(ob, tk, get_config, smi):
             g_hat, new = C.dgc_compress_tree(comp, grads, dgc_state)
             return g_hat, new["velocity"], new["residual"]
 
-        held(f"dgc_{name}", name, call, plain_dgc)
+        held(f"dgc_{name}", name, call, plain_dgc, dgc_target)
     wall = time.perf_counter() - t0
     for what, r in rec.items():
         kernel = "onebit_quant" if what.endswith("onebit") else "topk_sparsify"
@@ -1405,8 +1427,10 @@ def codec_path(ob, tk, get_config, smi):
     return {"phase": "codec_path", "arch": cfg.name, "layers": TRAIN_LAYERS,
             "workers": TRAIN_W, "n_leaves": n_leaves, "calls": rec,
             "launches": launches, "wall_s": wall,
-            "tol": "top-k bitwise; 1-bit signs exact, values within 1e-6 "
-                   "of max(|plain|, 1) (the f32 scale's sum order)",
+            "tol": "top-k bitwise; 1-bit g_hat signs bitwise and each "
+                   "element at rtol 1e-6 (the f32 scale's sum order), the "
+                   "residual bitwise against t - g_hat, DGC's velocity "
+                   "bitwise",
             "card": smi}
 
 

@@ -244,42 +244,29 @@ def ef_init(params):
                       params)
 
 
-def _kernel_decode(comp: Compressor):
-    """The leaf round as one kernel launch, ``(g, r)`` (nb, block) f32
-    rows → (decoded rows, new residual rows), or None where the codec
-    round runs instead.  The 1-bit kernel forms t = g + r itself."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.onebit_quant import ONEBIT_BLOCKS
-    from repro_torch.kernels.topk_sparsify import MAX_BLOCK
-
-    if comp.name == "onebit" and comp.block in ONEBIT_BLOCKS:
-        def onebit(g, r):
-            sign, scale, new_r = ops.onebit_quant(g, r)
-            return sign.float() * scale, new_r
-
-        return onebit
-    if comp.name.startswith("topk") and comp.block % 32 == 0 \
-            and comp.block <= MAX_BLOCK:
-        def topk(g, r):
-            t = g + r
-            dense = ops.topk_sparsify(t, comp.k)[2]
-            return dense, t - dense
-
-        return topk
-    return None
-
-
 def _leaf_round(comp: Compressor, g, r):
     """One error-feedback round of one leaf: (decoded g_hat f32 of g's
-    shape, new residual) with g_hat = decompress(compress(g + r))."""
-    kernel = _kernel_decode(comp)
-    if kernel is None:
+    shape, new residual) with g_hat = decompress(compress(g + r)).  1-bit
+    and top-k run it as one kernel launch on the leaf folded into
+    ``(nb, block)`` rows (the plain version for CPU tensors; on the card
+    the kernel raises on a block it does not take); none and int8 run the
+    codec."""
+    from repro_torch.kernels import ops
+
+    if comp.name == "onebit":  # the kernel forms t = g + r itself
+        sign, scale, new_r = ops.onebit_quant(_blocks(g, comp.block),
+                                              _blocks(r, comp.block))
+        dec = sign.float() * scale
+    elif comp.name.startswith("topk"):
+        t = _blocks(g, comp.block) + _blocks(r, comp.block)
+        dec = ops.topk_sparsify(t, comp.k)[2]
+        new_r = t - dec
+    else:
         target = g.float() + r
         wire, meta = comp.compress(target)
         g_hat = comp.decompress(wire, meta, tuple(g.shape), torch.float32)
         return g_hat, target - g_hat
     n = g.numel()
-    dec, new_r = kernel(_blocks(g, comp.block), _blocks(r, comp.block))
     return (dec.reshape(-1)[:n].reshape(g.shape),
             new_r.reshape(-1)[:n].reshape(g.shape))
 

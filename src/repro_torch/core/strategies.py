@@ -22,8 +22,7 @@ Differences from the reference, none of which changes a result:
     step ``t`` and gates with ``lax.cond``; here ``t`` is a Python int
     (the train loop keeps one beside its device step counter), so a
     gated collective simply does not run, and no step reads a device
-    value back.  A tensor ``t`` is accepted and read back once
-    (``_host_step``);
+    value back;
   * ``ssp``'s ring of the last s gradients is a tuple of s trees, not one
     (s, W, ...) array: a step builds a new tuple that holds the fresh
     gradient in its slot, so the ring is neither copied nor mutated
@@ -53,7 +52,8 @@ class Strategy:
     complete: bool  # does every update eventually reach every worker?
     init: Callable  # (params, comm) -> comm_state
     update: Callable  # (params, grads, opt_state, comm_state, t, optimizer,
-    #                   comm) -> (params, opt_state, comm_state, metrics)
+    #                   comm) -> (params, opt_state, comm_state, metrics),
+    #                   t the step as a Python int
     init_opt: Optional[Callable] = None  # (params, optimizer, comm) ->
     #                 opt_state, for strategies that own its layout (ZeRO)
     owns_master: bool = False  # the f32 master lives in opt_state (ZeRO-1)
@@ -71,16 +71,6 @@ class Strategy:
 
     # Contract: ``update`` treats ``comm_state`` as immutable and returns a
     # FRESH mapping: callers re-step from saved state.
-
-
-def _host_step(t) -> int:
-    """The optimizer step as a Python int (a tensor is read back)."""
-    return t if isinstance(t, int) else int(t)
-
-
-def _gate(flag: bool, sync_fn, operand):
-    """Run ``sync_fn`` (which issues collectives) only on sync steps."""
-    return sync_fn(operand) if flag else operand
 
 
 # ---------------------------------------------------------------------------
@@ -114,11 +104,12 @@ def local_sgd(sync_every: int = 8,
     def update(params, grads, opt_state, cstate, t, opt, comm):
         fab = Fabric(comm, bucket_bytes)
         params, opt_state = opt.update(grads, opt_state, params, t)
-        do_avg = (_host_step(t) + 1) % sync_every == 0
-        # the mean is a broadcast view: materialize W replicas again, so
-        # the optimizer can update them in place
-        params = _gate(do_avg, lambda p: T.tree_map(
-            lambda x: x.contiguous(), fab.all_mean(p)), params)
+        do_avg = (t + 1) % sync_every == 0
+        if do_avg:
+            # the mean is a broadcast view: materialize W replicas again,
+            # so the optimizer can update them in place
+            params = T.tree_map(lambda x: x.contiguous(),
+                                fab.all_mean(params))
         m = fab.metrics(fab.flat_bytes(params), events=float(do_avg))
         return params, opt_state, cstate, m
 
@@ -173,18 +164,15 @@ def easgd(alpha: float = 0.1, sync_every: int = 4,
     def update(params, grads, opt_state, cstate, t, opt, comm):
         fab = Fabric(comm, bucket_bytes)
         params, opt_state = opt.update(grads, opt_state, params, t)
-        do = (_host_step(t) + 1) % sync_every == 0
-
-        def attract(args):
-            p, c = args
-            diff = T.tree_map(lambda p_, c_: p_.float() - c_, p, c)
-            new_c = T.tree_map(lambda c_, d: c_ + alpha * d, c,
-                               fab.all_mean(diff))
-            new_p = T.tree_map(
-                lambda p_, d: (p_.float() - alpha * d).to(p_.dtype), p, diff)
-            return new_p, new_c
-
-        params, center = _gate(do, attract, (params, cstate["center"]))
+        do = (t + 1) % sync_every == 0
+        center = cstate["center"]
+        if do:
+            diff = T.tree_map(lambda p_, c_: p_.float() - c_, params, center)
+            center = T.tree_map(lambda c_, d: c_ + alpha * d, center,
+                                fab.all_mean(diff))
+            params = T.tree_map(
+                lambda p_, d: (p_.float() - alpha * d).to(p_.dtype), params,
+                diff)
         m = fab.metrics(fab.flat_bytes(params), events=float(do))
         return params, opt_state, {"center": center}, m
 
@@ -220,7 +208,7 @@ def ssp(staleness: int = 4, compressor: Optional[Compressor] = None,
                 grads, cstate["residual"], compressor)
         else:
             nbytes = fab.flat_bytes(grads)
-        slot = _host_step(t) % s
+        slot = t % s
         g_old = cstate["buf"][slot]  # g_{t-s}
         others_old = T.tree_map(lambda a, b: a - b, fab.all_sum(g_old),
                                 g_old)
@@ -264,7 +252,7 @@ def downpour(push_every: int = 4,
                 grads, cstate["residual"], compressor)
         else:
             nbytes = fab.flat_bytes(grads)
-        n, w = _host_step(t), comm.size
+        n, w = t, comm.size
         flat_g, tdef = T.flatten(grads)
         del grads
         acc = T.leaves(cstate["acc"])
@@ -310,22 +298,20 @@ def gossip(mix_every: int = 1, symmetric: bool = True,
     def update(params, grads, opt_state, cstate, t, opt, comm):
         fab = Fabric(comm, bucket_bytes)
         params, opt_state = opt.update(grads, opt_state, params, t)
-        do_mix = (_host_step(t) + 1) % mix_every == 0
-
-        def mix(p):
-            left = fab.ppermute(p, shift=1)
+        do_mix = (t + 1) % mix_every == 0
+        if do_mix:
+            left = fab.ppermute(params, shift=1)
             if symmetric:
-                right = fab.ppermute(p, shift=-1)
+                right = fab.ppermute(params, shift=-1)
                 mixed = T.tree_map(
                     lambda p_, lf, rt: (p_.float() + lf.float()
                                         + rt.float()) / 3.0,
-                    p, left, right)
+                    params, left, right)
             else:
                 mixed = T.tree_map(
-                    lambda p_, lf: (p_.float() + lf.float()) / 2.0, p, left)
-            return T.tree_map(lambda m_, p_: m_.to(p_.dtype), mixed, p)
-
-        params = _gate(do_mix, mix, params)
+                    lambda p_, lf: (p_.float() + lf.float()) / 2.0, params,
+                    left)
+            params = T.tree_map(lambda m_, p_: m_.to(p_.dtype), mixed, params)
         ev = float(do_mix) * (2.0 if symmetric else 1.0)
         m = fab.metrics(fab.flat_bytes(params), events=ev)
         return params, opt_state, cstate, m

@@ -185,8 +185,8 @@ extern "C" int onebit_quant_packed_fwd(const void* g, const void* r,
 // Launches the unpacked kernel on `stream` and returns cudaGetLastError()
 // (0 on success).  g, r and new_r are (rows, block) f32, 16-byte aligned;
 // sign is (rows, block) int8 and scale (rows,) f32.  The caller checks
-// shapes, dtypes, devices, alignment, contiguity and the block sizes the
-// codec uses; the limits are re-checked here.
+// shapes, dtypes, devices, alignment and contiguity; the limits are
+// re-checked here.
 extern "C" int onebit_quant_fwd(const void* g, const void* r, void* sign,
                                 void* scale, void* new_r, long long rows,
                                 int block, void* stream) {

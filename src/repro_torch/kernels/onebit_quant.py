@@ -22,7 +22,7 @@ the leaf-wise error-feedback codec (``core/compression.py``):
     scale  mean |t|, f32, not rounded                   (nb, 1) f32
     new_r  t − sign·scale                               (nb, block) f32
 
-at the blocks the codec and the reference's sweep use (``ONEBIT_BLOCKS``).
+Both kernels take any block that is a multiple of 8.
 
 ``onebit_quant_packed`` and ``onebit_quant`` launch the CUDA kernels
 (``csrc/onebit_quant.cu``) and count their launches in ``.launches``;
@@ -38,7 +38,6 @@ import ctypes
 import torch
 
 _BIT_WEIGHTS = (1, 2, 4, 8, 16, 32, 64, 128)
-ONEBIT_BLOCKS = (64, 128, 256)  # the unpacked kernel's blocks
 
 
 def onebit_quant_packed_plain(g, r):
@@ -129,13 +128,10 @@ def onebit_quant_packed(g, r):
 
 
 def onebit_quant(g, r):
-    """Launch the unpacked kernel on the current stream (CUDA tensors and a
-    block of ``ONEBIT_BLOCKS`` only; raises on anything else)."""
+    """Launch the unpacked kernel on the current stream (CUDA tensors only;
+    raises on anything the kernel does not take)."""
     _check("onebit_quant", g, r)
     nb, block = g.shape
-    if block not in ONEBIT_BLOCKS:
-        raise ValueError(f"onebit_quant: the kernel takes blocks "
-                         f"{ONEBIT_BLOCKS}, got {block}")
     out = _launch(
         "onebit_quant", g, r,
         torch.empty((nb, block), dtype=torch.int8, device=g.device),

@@ -326,8 +326,8 @@ def test_downpour_events_is_fleet_fraction():
     opt = TO.sgd(0.05)
     cstate = strat.init(params, comm)
     for t in range(4):
-        *_, m = strat.update(params, grads, opt.init(params), cstate,
-                             torch.tensor(t, dtype=torch.int32), opt, comm)
+        *_, m = strat.update(params, grads, opt.init(params), cstate, t,
+                             opt, comm)
         assert m["comm_events"].item() == pytest.approx(0.25)
 
 
