@@ -40,7 +40,10 @@ then drives the main paths through their entry points:
 
 Each kernel's launches are counted from zero over the paths that run it,
 and each is timed against its bound, its plain version and one PyTorch
-call.  Each line of output is a JSON object, except the raw
+call.  The paged kernel is checked at the edges of its split-K parts and
+timed at the qwen2-1.5b and gemma3-1b decode shapes; the build line
+counts the tensor-core instructions in each library's SASS (the bf16
+flash kernel runs on wgmma: HGMMA).  Each line of output is a JSON object, except the raw
 ``nvidia-smi --query-gpu=name,power.limit`` line just before the last;
 the last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises and the script exits non-zero without that line.  It needs one
@@ -82,16 +85,33 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def tensor_core_instructions(lib, nvcc):
+    """Counts of HGMMA (wgmma) and HMMA (mma.sync) in the SASS of a built
+    library, from the ``cuobjdump`` beside ``nvcc``; "not available"
+    where the toolkit has none."""
+    tool = Path(nvcc).with_name("cuobjdump")
+    if not tool.is_file():
+        return "not available"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in ("HGMMA", "HMMA")}
+
+
 def cuda_ms(fn, iters, flush=None):
     """Median device time of ``fn`` over ``iters`` calls after warm-up,
     one pair of CUDA events around each call; ``flush`` (untimed) runs
-    before each call to evict the L2 cache."""
+    before each call to evict the L2 cache.  A spin kernel of ~0.2 ms
+    keeps the card busy before the start event while the host enqueues
+    ``fn``, so the host's time in a wrapper is not counted as the
+    kernel's."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(iters):
         if flush is not None:
             flush()
+        torch.cuda._sleep(400_000)  # clock cycles: ~0.2 ms at 1.98 GHz
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -127,23 +147,43 @@ def paged_inputs(rng, b, kv, g, dh, page, ctx, q_dtype, kv_dtype, idle_row):
             dev(bt, torch.int32), dev(ctx, torch.int32))
 
 
+# ctx values at the edges of the split-K parts, +- 1, with 0 (a row with
+# no live token) and 1: a 2048-token reach gives qwen2-1.5b's 8 x 2 rows 17
+# parts (32 tokens each up to ctx 544, 64 from 545) and gemma3-1b's 4 x 1
+# rows 64 parts of 32 tokens
+SPLIT_EDGES = {"qwen2-1.5b": (17, [0, 1, 543, 544, 545, 1087, 1088, 2048]),
+               "gemma3-1b": (64, [0, 31, 33, 2048])}
+
+
 def check_kernel(pa):
-    """Phase 2: the CUDA kernel against its plain version on the card."""
+    """Phase 2: the CUDA kernel against its plain version on the card:
+    ragged ctx with an idle row (ctx 1 over a trash page), then ctx at the
+    split-K parts' edges (SPLIT_EDGES), windows 7, 100 and 512 crossing
+    them."""
     shapes = {"qwen2-1.5b": dict(b=8, kv=2, g=6, dh=128, page=16),
               "gemma3-1b": dict(b=4, kv=1, g=4, dh=256, page=16)}
     dts = (torch.float32, torch.bfloat16)
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     cases = 0
+    runs = []
     for si, (arch, s) in enumerate(shapes.items()):
         rng = np.random.default_rng(si)
         ctx = rng.integers(1, 2049, size=s["b"])
         ctx[-1] = 2048
+        runs.append((arch, s, ctx, True, (-1, 7, 512)))
+        splits, edges = SPLIT_EDGES[arch]
+        runs.append((arch, s, np.asarray(edges), False, (-1, 7, 100, 512)))
+    for ri, (arch, s, ctx, idle_row, windows) in enumerate(runs):
         for qd in dts:
             for kd in dts:
-                inp = paged_inputs(np.random.default_rng(100 + si), s["b"],
+                inp = paged_inputs(np.random.default_rng(100 + ri), s["b"],
                                    s["kv"], s["g"], s["dh"], s["page"], ctx,
-                                   qd, kd, idle_row=True)
-                for window in (-1, 7, 512):
+                                   qd, kd, idle_row=idle_row)
+                if not idle_row and pa.split_plan(inp[0], inp[1], inp[3]) \
+                        != SPLIT_EDGES[arch][0]:
+                    raise AssertionError(f"{arch}: split_plan is not "
+                                         f"{SPLIT_EDGES[arch][0]}")
+                for window in windows:
                     for softcap in (None, 30.0):
                         out = pa.paged_attention(*inp, window=window,
                                                  softcap=softcap)
@@ -157,12 +197,16 @@ def check_kernel(pa):
                         e = (out.float() - ref.float()).abs().max().item()
                         if not e <= TOL[qd]:
                             raise AssertionError(
-                                f"paged_attention {arch} q={qd} pages={kd} "
-                                f"window={window} softcap={softcap}: max "
-                                f"abs err {e} > {TOL[qd]}")
+                                f"paged_attention {arch} ctx={list(ctx)} "
+                                f"q={qd} pages={kd} window={window} "
+                                f"softcap={softcap}: max abs err {e} > "
+                                f"{TOL[qd]}")
                         err[qd] = max(err[qd], e)
                         cases += 1
-    return {"cases": cases, "max_abs_err_f32": err[torch.float32],
+    return {"cases": cases, "split_edges": {
+                arch: {"splits": n, "ctx": c}
+                for arch, (n, c) in SPLIT_EDGES.items()},
+            "max_abs_err_f32": err[torch.float32],
             "tol_f32": TOL[torch.float32],
             "max_abs_err_bf16": err[torch.bfloat16],
             "tol_bf16": TOL[torch.bfloat16]}
@@ -291,6 +335,7 @@ def profile_decode(eng, ctx=1024, steps=5):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    paged = [e for e in events if "paged_attention" in e.key]
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:6]
     return {"profile": {
@@ -299,6 +344,11 @@ def profile_decode(eng, ctx=1024, steps=5):
         "device_ms_per_step": dev_ms,
         "device_busy_share": dev_ms / (1e3 * step_s) if dev_ms else None,
         "device_kernels_per_step": sum(e.count for e in events) / steps,
+        # both passes of the paged kernel (split and combine)
+        "paged_attention_ms_per_step": sum(
+            e.self_device_time_total for e in paged) / 1e3 / steps,
+        "paged_attention_kernels_per_step": sum(
+            e.count for e in paged) / steps,
         "top_device_ms_per_step": {
             e.key[:60]: e.self_device_time_total / 1e3 / steps for e in top},
     }}
@@ -370,56 +420,121 @@ def _tree(tree, fn):
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
+def profiled_ms(fn, iters, flush, match):
+    """Device time a call of the kernels ``fn`` launches whose names hold
+    ``match``, from torch.profiler (``flush`` runs before each call):
+    {kernel name: ms a call}.  Unlike events around a call, it leaves out
+    the host's time and the gaps between kernels.  A trace that holds no
+    such kernel is taken once more; if that one holds none either, the
+    result is empty: not measured."""
+    def run():
+        for _ in range(iters):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(2):
+        with torch.profiler.profile(activities=acts) as prof:
+            run()
+        found = {e.key: e.self_device_time_total / 1e3 / iters
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and match in e.key}
+        if found:
+            break
+    return found
+
+
+# the decode shapes timed: (name, B, KV, G, Dh, ctx, window); qwen2-1.5b's
+# is the serving phase's, gemma3-1b's its global and local (window 512)
+# layers at 4 slots
+PAGED_TIMING = [("qwen2-1.5b", 8, 2, 6, 128, 1024, -1),
+                ("gemma3-1b", 4, 1, 4, 256, 1024, -1),
+                ("gemma3-1b local", 4, 1, 4, 256, 1024, 512)]
+
+
 def time_kernel(pa, launches_per_step, smi):
     """Kernel, plain version and F.scaled_dot_product_attention at the
-    qwen2-1.5b decode shapes of the serving phase: B=8, ctx 1024, bf16."""
-    b, kv, g, dh, page, ctx = 8, 2, 6, 128, 16, 1024
-    q, kp, vp, bt, cl = paged_inputs(
-        np.random.default_rng(7), b, kv, g, dh, page, [ctx] * b,
-        torch.bfloat16, torch.bfloat16, idle_row=False)
+    decode shapes of PAGED_TIMING, bf16, page 16, every slot at ctx; the
+    kernel's output held against the plain version's.  ``kernel_ms`` is
+    CUDA events around a call (the gap between the two passes included),
+    ``device_ms`` the profiler's sum of the call's two kernels.  The
+    qwen2-1.5b shape's numbers are also the phase's top-level keys."""
+    page = 16
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
 
     def flush():
         flush_buf.zero_()  # 256 MB > the 50 MB L2: each call starts cold
 
-    saved = pa.paged_attention.launches
-    kernel_ms = cuda_ms(lambda: pa.paged_attention(q, kp, vp, bt, cl), 50,
-                        flush)
-    pa.paged_attention.launches = saved  # timing launches are not the path's
-    plain_ms = cuda_ms(lambda: pa.paged_attention_plain(q, kp, vp, bt, cl),
-                       20, flush)
-
-    # one library call on the pre-gathered dense view (gather excluded)
-    s = ctx
-    ks = kp[bt.long()].reshape(b, s, kv, dh).transpose(1, 2).contiguous()
-    vs = vp[bt.long()].reshape(b, s, kv, dh).transpose(1, 2).contiguous()
-    qh = q.reshape(b, kv * g, 1, dh)
-    mask = (torch.arange(s, device="cuda")[None, :]
-            <= (cl.long() - 1)[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(
-        lambda: sdpa(qh, ks, vs, attn_mask=mask, enable_gqa=True), 50, flush)
-    lib_out = sdpa(qh, ks, vs, attn_mask=mask, enable_gqa=True)
-    lib_err = (lib_out.reshape(b, kv, g, dh).float()
-               - pa.paged_attention_plain(q, kp, vp, bt, cl).float()
-               ).abs().max().item()
+    saved = pa.paged_attention.launches
+    shapes = {}
+    for name, b, kv, g, dh, ctx, w in PAGED_TIMING:
+        q, kp, vp, bt, cl = paged_inputs(
+            np.random.default_rng(7), b, kv, g, dh, page, [ctx] * b,
+            torch.bfloat16, torch.bfloat16, idle_row=False)
+        call = lambda: pa.paged_attention(q, kp, vp, bt, cl, window=w)  # noqa: E731
+        kernel_ms = cuda_ms(call, 50, flush)
+        by_kernel = profiled_ms(call, 20, flush, "paged_attention")
+        plain_ms = cuda_ms(lambda: pa.paged_attention_plain(
+            q, kp, vp, bt, cl, window=w), 20, flush)
+        out = call()
+        ref = pa.paged_attention_plain(q, kp, vp, bt, cl, window=w)
+        err = (out.float() - ref.float()).abs().max().item()
+        if not err <= TOL[torch.bfloat16]:
+            raise AssertionError(f"paged_attention {name} (kernel_timing): "
+                                 f"max abs err {err}")
 
-    live = int(cl.sum().item())
-    nbytes = (live * kv * dh * 2 * kp.element_size()    # k and v, once
-              + 2 * q.numel() * q.element_size()         # q in, out
-              + bt.numel() * 4 + cl.numel() * 4)
+        # one library call on the pre-gathered dense view (gather excluded)
+        ks = kp[bt.long()].reshape(b, ctx, kv, dh).transpose(1, 2) \
+            .contiguous()
+        vs = vp[bt.long()].reshape(b, ctx, kv, dh).transpose(1, 2) \
+            .contiguous()
+        qh = q.reshape(b, kv * g, 1, dh)
+        j = torch.arange(ctx, device="cuda")[None, :]
+        pos = (cl.long() - 1)[:, None]
+        mask = (j <= pos) & ((pos - j < w) if w > 0 else True)
+        mask = mask[:, None, None, :]
+        library_ms = cuda_ms(
+            lambda: sdpa(qh, ks, vs, attn_mask=mask, enable_gqa=True), 50,
+            flush)
+        lib_out = sdpa(qh, ks, vs, attn_mask=mask, enable_gqa=True)
+        lib_err = (lib_out.reshape(b, kv, g, dh).float() - ref.float()
+                   ).abs().max().item()
+
+        live = b * (min(ctx, w) if w > 0 else ctx)
+        nbytes = (live * kv * dh * 2 * kp.element_size()    # k and v, once
+                  + 2 * q.numel() * q.element_size()         # q in, out
+                  + bt.numel() * 4 + cl.numel() * 4)
+        shapes[name] = {
+            "shape": {"B": b, "KV": kv, "G": g, "Dh": dh, "page": page,
+                      "ctx": ctx, "window": w, "dtype": "bfloat16",
+                      "splits": pa.split_plan(q, kp, bt)},
+            "kernel_ms": kernel_ms,
+            "device_ms": sum(by_kernel.values()) if by_kernel else None,
+            "device_ms_by_kernel": {k[:60]: v for k, v in by_kernel.items()},
+            "plain_ms": plain_ms, "max_abs_err_vs_plain": err,
+            "library_ms": library_ms,
+            "library_max_abs_err_vs_plain": lib_err,
+            "bytes": nbytes, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+            "bound_by": "bytes"}
+        del q, kp, vp, bt, cl, ks, vs, lib_out
+    pa.paged_attention.launches = saved  # timing launches are not the path's
+    del flush_buf
+    torch.cuda.empty_cache()
     return {
         "phase": "kernel_timing", "name": "paged_attention",
-        "shape": {"B": b, "KV": kv, "G": g, "Dh": dh, "page": page,
-                  "ctx": ctx, "dtype": "bfloat16"},
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms,
+        **{k: shapes["qwen2-1.5b"][k] for k in (
+            "shape", "kernel_ms", "device_ms", "plain_ms", "library_ms",
+            "library_max_abs_err_vs_plain", "bytes", "bound_ms",
+            "bound_by")},
+        "shapes": shapes,
         "library_note": "F.scaled_dot_product_attention on the pre-gathered "
-                        "dense view, gather excluded; never called by the "
-                        "port",
-        "library_max_abs_err_vs_plain": lib_err,
-        "bytes": nbytes, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-        "bound_by": "bytes", "launches_per_decode_step": launches_per_step,
+                        "dense view (a window mask for gemma3-1b local), "
+                        "gather excluded; never called by the port",
+        "launches_per_decode_step": launches_per_step,
         "card": smi,
     }
 
@@ -1849,7 +1964,9 @@ def main() -> int:
         spills = [int(s) for s in re.findall(r"(\d+) bytes spill", text)]
         per_lib[name] = {"kernels": len(regs),
                          "max_registers": max(regs, default=None),
-                         "spill_bytes": sum(spills)}
+                         "spill_bytes": sum(spills),
+                         "tensor_core_instructions":
+                             tensor_core_instructions(path, _build._nvcc())}
     emit({"phase": "build", "libs": sorted(libs),
           "s": time.perf_counter() - t,
           "kernels_compiled": sum(v["kernels"] for v in per_lib.values()),
@@ -1857,6 +1974,10 @@ def main() -> int:
                                 for v in per_lib.values()), default=None),
           "spill_bytes": sum(v["spill_bytes"] for v in per_lib.values()),
           "per_library": per_lib})
+    tc = per_lib["flash_attention"]["tensor_core_instructions"]
+    if isinstance(tc, dict) and not tc["HGMMA"] + tc["HMMA"]:
+        raise AssertionError("the flash library's SASS holds no tensor-core "
+                             f"instruction: {tc}")
 
     check = check_kernel(pa)
     emit({"phase": "kernel_check", **check})
@@ -2010,9 +2131,15 @@ def main() -> int:
         "tol_f32": check["tol_f32"],
         "max_abs_err_bf16": check["max_abs_err_bf16"],
         "tol_bf16": check["tol_bf16"],
-        "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
+        "ms": timing["kernel_ms"], "device_ms": timing["device_ms"],
+        "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": "bytes",
         "library_ms": timing["library_ms"],
+        "other_shapes": {
+            name: {k: timing["shapes"][name][k]
+                   for k in ("kernel_ms", "device_ms", "plain_ms",
+                             "bound_ms", "bound_by", "library_ms")}
+            for name, *_ in PAGED_TIMING[1:]},
     }] + rows + [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -151,13 +151,14 @@ def easgd(alpha: float = 0.1, sync_every: int = 4,
     the center moves toward the worker average."""
 
     def init(params, comm):
-        # average over the axis THIS comm reduces (not lead_axes - 1 for
-        # the outer tier of a hierarchy)
-        ax = getattr(comm, "axis", comm.lead_axes - 1)
-
         def center(p):
-            return (p.float().mean(dim=ax, keepdim=True)
-                    + torch.zeros_like(p, dtype=torch.float32))
+            if comm.lead_axes:  # stacked replicas: a common center
+                # average over the axis THIS comm reduces (not
+                # lead_axes - 1 for the outer tier of a hierarchy)
+                ax = getattr(comm, "axis", comm.lead_axes - 1)
+                return (p.float().mean(dim=ax, keepdim=True)
+                        + torch.zeros_like(p, dtype=torch.float32))
+            return p.float()
 
         return {"center": T.tree_map(center, params)}
 

@@ -9,8 +9,8 @@ TPU kernel) and of its oracle ``repro/kernels/ref.py::flash_attention_ref``.
          computes, without the copy
   causal mask j <= i (absolute indices, both from 0)
   window sliding window i - j < window; <= 0 is full attention
-  → (B, H, Lq, D) in q's dtype; logits, softmax and PV in f32, scale
-    D^-0.5; a row with no visible key is 0
+  → (B, H, Lq, D) in q's dtype; logits and softmax in f32, scale D^-0.5
+    on the f32 logits; a row with no visible key is 0
 
 The inputs may be strided views with a contiguous last dim, such as
 ``x.transpose(1, 2)`` of the model's (B, L, H, D) tensors: the kernel reads
@@ -18,9 +18,13 @@ them in place, and the output has q's strides (``torch.empty_like``), so
 transposing it back gives a contiguous (B, L, H, D) tensor.
 
 ``flash_attention`` launches the CUDA kernel (``csrc/flash_attention.cu``)
-and counts its launches in ``flash_attention.launches``.
-``flash_attention_plain`` is the plain PyTorch version.
-``kernels.ops.flash_attention`` picks between them by the tensors' device.
+and counts its launches in ``flash_attention.launches``.  The kernel has
+two designs, picked by dtype: bf16 runs on the tensor cores (``wgmma``,
+BLOCK_Q query rows a block, BLOCK_K keys a tile), with P rounded to bf16
+before the f32-accumulated PV, as the model's own attention rounds it; f32
+runs a SIMT kernel with PV in f32.  ``flash_attention_plain`` is the plain
+PyTorch version (PV in f32).  ``kernels.ops.flash_attention`` picks between
+them by the tensors' device.
 """
 
 from __future__ import annotations
@@ -33,6 +37,9 @@ NEG_INF = -2.0e38
 # the head dims the kernel is built for: the registered configs use 256 and
 # 128 (64 reduced), the quickstart example 32
 HEAD_DIMS = (32, 64, 128, 256)
+# the bf16 (tensor-core) kernel's tiles: query rows a block, keys a kv tile
+BLOCK_Q = 64
+BLOCK_K = 64
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = -1):

@@ -11,8 +11,10 @@ TPU kernel) and of its oracle ``repro/kernels/ref.py::paged_attention_ref``.
   softcap       optional logit softcap
   → (B, KV, G, Dh) in q's dtype
 
-``paged_attention`` launches the CUDA kernel (``csrc/paged_attention.cu``)
-and counts its launches in ``paged_attention.launches``.
+``paged_attention`` launches the CUDA kernel (``csrc/paged_attention.cu``:
+a split-K pass over parts of each row's context, then a pass that combines
+the parts) and counts its calls in ``paged_attention.launches``.
+``split_plan`` picks the number of parts from the static shapes alone.
 ``paged_attention_plain`` is the plain PyTorch version: it gathers the
 pages into a dense view, masks, and runs softmax and PV in f32.
 ``kernels.ops.paged_attention`` picks between them by the tensors' device.
@@ -28,6 +30,13 @@ import torch
 NEG_INF = -2.0e38
 MAX_GROUPS = 16
 MAX_HEAD_DIM = 256
+# split-K: each (sequence, kv head) row's live context is cut into at most
+# MAX_SPLITS parts, each a whole number of SPLIT_TILE tokens, so that a
+# decode step launches at least TARGET_BLOCKS blocks: two for each of the
+# H100's 132 SMs
+MAX_SPLITS = 64
+SPLIT_TILE = 32
+TARGET_BLOCKS = 2 * 132
 
 
 def paged_attention_plain(q, k_pages, v_pages, block_tables, ctx_lens, *,
@@ -51,16 +60,44 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, ctx_lens, *,
     if window is not None and window > 0:
         mask = mask & ((pos - j) < window)
     logits = torch.where(mask, logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
+    # masked probabilities are zeroed, as the kernels zero them, so a row
+    # with no live token (ctx <= 0) gives 0; every other row is unchanged
+    probs = torch.where(mask, torch.softmax(logits, dim=-1), 0.0)
     out = torch.einsum("bkgs,bskd->bkgd", probs, vs.float())
     return out.to(q.dtype)
 
 
+def split_plan(q, k_pages, block_tables):
+    """The number of parts S each row's context is split into, from the
+    tensors' shapes alone: B·KV·S ≥ TARGET_BLOCKS where the table's reach
+    (max_blocks · page_size tokens) gives every part at least one
+    SPLIT_TILE, and S ≤ MAX_SPLITS.  It reads no tensor values, so a decode
+    step never waits on ``ctx_lens``."""
+    rows = q.shape[0] * q.shape[1]
+    reach = block_tables.shape[1] * k_pages.shape[1]
+    want = -(-TARGET_BLOCKS // rows)
+    return max(1, min(want, reach // SPLIT_TILE, MAX_SPLITS))
+
+
+def split_range(ctx, reach, window, splits, s):
+    """The tokens [begin, end) that part ``s`` of ``splits`` covers in a
+    row whose ``ctx_lens`` entry is ``ctx`` and whose table reaches
+    ``reach`` tokens (ints): the s-th of ``splits`` equal parts of the live
+    range [lo, min(ctx, reach)), rounded up to SPLIT_TILE tokens, as the
+    kernel's first pass cuts it; the window's edge lo is the query's."""
+    lo = max(ctx - window, 0) if window is not None and window > 0 else 0
+    hi = min(ctx, reach)
+    per = -(-max(hi - lo, 0) // splits)  # ceil(live / splits)
+    part = -(-per // SPLIT_TILE) * SPLIT_TILE
+    begin = lo + s * part
+    return begin, min(begin + part, hi)
+
+
 # the C prototype of paged_attention_fwd in csrc/paged_attention.cu:
-# q, k_pages, v_pages, block_tables, ctx_lens, out; batch, num_kv, groups,
-# head_dim, page_size, max_blocks, window; scale, softcap; q_bf16, kv_bf16;
-# stream
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+# q, k_pages, v_pages, block_tables, ctx_lens, out, scratch; batch, num_kv,
+# groups, head_dim, page_size, max_blocks, window, splits, split_tile;
+# scale, softcap; q_bf16, kv_bf16; stream
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
              + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
@@ -112,6 +149,9 @@ def _check(q, k_pages, v_pages, block_tables, ctx_lens, softcap):
                          f"Dh={dh}, G={g}")
     if b < 1 or kv < 1 or block_tables.shape[1] < 1:
         raise ValueError("paged_attention: empty batch, heads or tables")
+    if max(b, kv) > 65535:
+        raise ValueError(f"paged_attention: B={b} or KV={kv} above the "
+                         "kernel's grid limit 65535")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("paged_attention: k/v pages must be 16-byte aligned "
                          "(the kernel reads them with 16-byte loads)")
@@ -128,14 +168,19 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
     on the device would cost a synchronisation per layer."""
     _check(q, k_pages, v_pages, block_tables, ctx_lens, softcap)
     b, kv, g, dh = q.shape
+    splits = split_plan(q, k_pages, block_tables)
     out = torch.empty_like(q)
+    # the first pass's partial acc, m and l of every (b, h, part, g) row
+    scratch = torch.empty(b * kv * splits * g * (dh + 2),
+                          dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel_fn()(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-            b, kv, g, dh, k_pages.shape[1], block_tables.shape[1],
-            -1 if window is None else int(window), dh ** -0.5,
+            scratch.data_ptr(), b, kv, g, dh, k_pages.shape[1],
+            block_tables.shape[1], -1 if window is None else int(window),
+            splits, SPLIT_TILE, dh ** -0.5,
             0.0 if softcap is None else float(softcap),
             int(q.dtype == torch.bfloat16),
             int(k_pages.dtype == torch.bfloat16), stream)

@@ -10,6 +10,8 @@ test skips here, and ``chip_smoke.py`` holds it against the plain version
 on the H100.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -160,6 +162,74 @@ def test_plain_matches_model_attention():
         *(torch.from_numpy(a).transpose(1, 2) for a in (q, k, v)))
     np.testing.assert_allclose(_np(out.transpose(1, 2)), _np(dense),
                                atol=3e-5, rtol=3e-5)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core kernel's numerics, emulated on the CPU
+# ---------------------------------------------------------------------------
+def _tensor_core_emulation(q, k, v, causal, window):
+    """The bf16 kernel's arithmetic: per BLOCK_Q-row q tile, the BLOCK_K-key
+    tiles from the first its first row can see to the last its last row
+    can see; S = q . k in f32 (bf16 products are exact in f32), scaled by
+    D^-0.5 log2(e) in f32; masks on edge tiles only (asserted all-true on
+    the others); the online max and sum in log2 units; P rounded to bf16
+    before an f32-accumulated PV; acc / max(l, 1e-30) rounded to bf16."""
+    bq, bk = fa.BLOCK_Q, fa.BLOCK_K
+    b, h, lq, d = q.shape
+    kvh, lk = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(h // kvh, dim=1)
+    vf = v.float().repeat_interleave(h // kvh, dim=1)
+    scale_log2 = d ** -0.5 * math.log2(math.e)
+    out = torch.empty(b, h, lq, d)
+    for q0 in range(0, lq, bq):
+        rows = torch.arange(q0, min(q0 + bq, lq))
+        k_hi = min(lk, int(rows[-1]) + 1) if causal else lk
+        k_lo = max(0, q0 - window + 1) if window > 0 else 0
+        m = torch.full((b, h, len(rows)), fa.NEG_INF)
+        l_sum = torch.zeros(b, h, len(rows))
+        acc = torch.zeros(b, h, len(rows), d)
+        for k0 in range(k_lo // bk * bk, k_hi, bk):
+            j = torch.arange(k0, min(k0 + bk, lk))
+            s = torch.einsum("bhid,bhjd->bhij", q.float()[:, :, rows],
+                             kf[:, :, j]) * scale_log2
+            i_, j_ = rows[:, None], j[None, :]
+            mask = torch.ones(len(rows), len(j), dtype=torch.bool)
+            if causal:
+                mask &= j_ <= i_
+            if window > 0:
+                mask &= (i_ - j_) < window
+            edge = (k0 + bk > lk or (causal and k0 + bk - 1 > q0)
+                    or (window > 0 and q0 + bq - 1 - k0 >= window))
+            assert edge or mask.all()
+            x = torch.where(mask, s, fa.NEG_INF)
+            m_new = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.where(mask, torch.exp2(x - m_new[..., None]), 0.0)
+            l_sum = l_sum * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhij,bhjd->bhid", p.bfloat16().float(), vf[:, :, j])
+            m = m_new
+        out[:, :, rows] = acc / l_sum.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("b,h,kv,l,d,causal,window", [
+    (1, 4, 2, 200, 64, True, -1),     # GQA, a causal edge in every q tile
+    (2, 6, 2, 150, 32, True, 50),     # window narrower than a tile
+    (1, 5, 1, 130, 128, False, -1),   # non-causal, ragged Lk tail
+    (1, 4, 1, 300, 64, False, 100),   # non-causal window
+    (1, 2, 1, 257, 256, True, 130),   # gemma3's head dim, window > a tile
+])
+def test_tensor_core_numerics_match_plain_within_bf16_gate(b, h, kv, l, d,
+                                                           causal, window):
+    """P rounded to bf16 before PV moves the output by far less than the
+    bf16 gate (2e-2) the card holds the kernel to against the plain
+    version."""
+    q, k, v = _torch(_qkv(20 + d, b, h, l, d, kv=kv), torch.bfloat16)
+    out = _tensor_core_emulation(q, k, v, causal, window)
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert out.dtype == torch.bfloat16
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
 
 
 # ---------------------------------------------------------------------------

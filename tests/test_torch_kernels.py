@@ -97,6 +97,142 @@ def test_plain_mixed_dtypes_upcast_like_ref():
     np.testing.assert_allclose(_np(out), _np(ref), atol=1e-5)
 
 
+def test_plain_row_without_live_token_is_zero_like_interpret_kernel():
+    """A row with ctx 0 has no live token: the Pallas kernel (and the CUDA
+    kernel) give 0 there, and so does the plain version; the other rows
+    are the reference's."""
+    q, kp, vp, bt, ctx = _inputs(seed=6)
+    ctx = ctx.copy()
+    ctx[0] = 0
+    arrs = (q, kp, vp, bt, ctx)
+    ref = pallas_paged(*_jax(arrs, jnp.float32), window=7, interpret=True)
+    out = pa.paged_attention_plain(*_torch(arrs, torch.float32), window=7)
+    assert not out[0].any()
+    np.testing.assert_allclose(_np(out), _np(ref), atol=1e-5)
+    oracle = paged_attention_ref(*_jax(arrs, jnp.float32), window=7)
+    np.testing.assert_allclose(_np(out)[1:], _np(oracle)[1:], atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the split-K design, emulated on the CPU with the wrapper's own planner
+# ---------------------------------------------------------------------------
+def _split_k_emulation(q, kp, vp, bt, ctx, window, softcap):
+    """The kernel's two passes in f32: every (b, h) row's live context cut
+    into ``split_plan`` parts by ``split_range``; each part's m, l and acc
+    (an empty part: m = -2e38, l = 0, acc = 0); then the combine
+    m* = max m_s, l = sum l_s e^(m_s - m*), out = sum acc_s e^(m_s - m*)
+    / max(l, 1e-30)."""
+    b, kv, g, dh = q.shape
+    splits = pa.split_plan(q, kp, bt)
+    ks = kp[bt.long()].reshape(b, -1, kv, dh).float()
+    vs = vp[bt.long()].reshape(b, -1, kv, dh).float()
+    out = torch.empty(b, kv, g, dh)
+    for i in range(b):
+        ms, ls, accs = [], [], []
+        for s in range(splits):
+            lo, hi = pa.split_range(int(ctx[i]), ks.shape[1], window, splits,
+                                    s)
+            if lo >= hi:
+                ms.append(torch.full((kv, g), pa.NEG_INF))
+                ls.append(torch.zeros(kv, g))
+                accs.append(torch.zeros(kv, g, dh))
+                continue
+            x = torch.einsum("kgd,skd->kgs", q[i].float(), ks[i, lo:hi]) \
+                * (dh ** -0.5)
+            if softcap is not None:
+                x = softcap * torch.tanh(x / softcap)
+            m = x.amax(-1)
+            p = torch.exp(x - m[..., None])
+            ms.append(m)
+            ls.append(p.sum(-1))
+            accs.append(torch.einsum("kgs,skd->kgd", p, vs[i, lo:hi]))
+        m = torch.stack(ms)
+        w = torch.exp(m - m.amax(0))
+        l_tot = (torch.stack(ls) * w).sum(0)
+        acc = (torch.stack(accs) * w[..., None]).sum(0)
+        out[i] = acc / l_tot.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype), splits
+
+
+# (b, kv, g, dh, page_size, max_blocks, ctx per row, splits expected): ctx
+# 0 (an idle row), 1, and ctx at the parts' edges +- 1: 8 parts of 32
+# tokens cover a 256-token reach; 17 parts of 2048 give 32-token parts up
+# to ctx 544 = 17 * 32 and 64-token parts from 545
+SPLIT_CASES = [
+    (4, 2, 4, 32, 16, 16, [0, 1, 255, 256], 8),
+    (4, 2, 4, 32, 16, 16, [31, 32, 33, 64], 8),
+    (8, 2, 6, 32, 16, 128, [0, 1, 543, 544, 545, 1087, 1088, 2048], 17),
+    # ctx past the table's reach (64 tokens): the window's edge is the
+    # query's, at ctx - 1
+    (2, 1, 3, 64, 8, 8, [63, 67], 2),
+]
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (7, None),
+                                            (100, None), (512, None),
+                                            (100, 30.0)])
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=[f"case{i}" for i in range(len(SPLIT_CASES))])
+def test_split_k_emulation_matches_plain(case, window, softcap):
+    b, kv, g, dh, ps, mb, ctx, want = case
+    rng = np.random.default_rng(b * mb + dh)
+    n_pages = 1 + b * mb
+    q = torch.from_numpy(rng.standard_normal((b, kv, g, dh), np.float32))
+    kp = torch.from_numpy(
+        rng.standard_normal((n_pages, ps, kv, dh), np.float32))
+    vp = torch.from_numpy(
+        rng.standard_normal((n_pages, ps, kv, dh), np.float32))
+    bt = torch.from_numpy(
+        rng.permutation(np.arange(1, n_pages)).reshape(b, mb).astype(np.int32))
+    cl = torch.tensor(ctx, dtype=torch.int32)
+    out, splits = _split_k_emulation(q, kp, vp, bt, cl, window, softcap)
+    assert splits == want
+    ref = pa.paged_attention_plain(q, kp, vp, bt, cl, window=window,
+                                   softcap=softcap)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_split_parts_tile_the_live_range():
+    """Parts are whole SPLIT_TILEs, disjoint, in order, and cover exactly
+    the live range [lo, ctx) (the last one cut at ctx)."""
+    reach = 2048
+    for splits in (1, 2, 8, 17, 64):
+        for ctx in (0, 1, 31, 32, 33, 543, 544, 545, 2048, 2050):
+            for window in (None, -1, 7, 100, 512):
+                lo = max(ctx - window, 0) if window and window > 0 else 0
+                hi = min(ctx, reach)
+                covered = []
+                for s in range(splits):
+                    begin, end = pa.split_range(ctx, reach, window, splits,
+                                                s)
+                    if begin < end:
+                        assert (begin - lo) % pa.SPLIT_TILE == 0
+                        covered += range(begin, end)
+                assert covered == list(range(lo, max(hi, lo)))
+
+
+def test_split_plan_reads_shapes_only():
+    """The planner takes meta tensors, which hold no values: it cannot read
+    ``ctx_lens`` (or anything else) back from the card."""
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    # qwen2-1.5b at 8 slots: B·KV = 16, 2048-token reach -> 17 parts
+    assert pa.split_plan(meta(8, 2, 6, 128), meta(257, 16, 2, 128),
+                         meta(8, 128, dtype=torch.int32)) == 17
+    # gemma3-1b at 4 slots: B·KV = 4 wants 66 parts, capped at 1024 / 32
+    assert pa.split_plan(meta(4, 1, 4, 256), meta(65, 16, 1, 256),
+                         meta(4, 64, dtype=torch.int32)) == 32
+    # a short reach keeps one tile a part; a wide batch needs one part
+    assert pa.split_plan(meta(1, 1, 1, 32), meta(2, 8, 1, 32),
+                         meta(1, 2, dtype=torch.int32)) == 1
+    assert pa.split_plan(meta(256, 2, 4, 64), meta(9, 16, 2, 64),
+                         meta(256, 128, dtype=torch.int32)) == 1
+    assert pa.split_plan(meta(1, 1, 1, 32), meta(2, 16, 1, 32),
+                         meta(1, 1024, dtype=torch.int32)) == pa.MAX_SPLITS
+
+
 def test_ops_dispatch_cpu_takes_plain_without_launch():
     arrs = _inputs(seed=3)
     before = pa.paged_attention.launches

@@ -255,6 +255,30 @@ def test_hier_comm_axis_binding_and_easgd_center_match_reference():
             np.asarray(JST.easgd().init(jx, jt)["center"]["w"]))
 
 
+class _NoReplicaAxes:
+    """A comm whose params carry no replica axis (``lead_axes == 0``), as a
+    sharded comm's; ``axis`` names a weight axis that must not be averaged."""
+    lead_axes = 0
+    axis = 0
+
+
+def test_easgd_center_without_replica_axes_matches_reference():
+    rng = np.random.default_rng(3)
+    x = {"w": rng.standard_normal((3, 5)).astype(np.float32),
+         "b": rng.standard_normal(5).astype(np.float16)}
+    comm = _NoReplicaAxes()
+    center = ST.easgd().init({k: torch.from_numpy(a) for k, a in x.items()},
+                             comm)["center"]
+    jcenter = JST.easgd().init({k: jnp.asarray(a) for k, a in x.items()},
+                               comm)["center"]
+    for k, a in x.items():
+        assert center[k].dtype == torch.float32
+        assert center[k].shape == a.shape
+        np.testing.assert_array_equal(center[k].numpy(), a.astype(np.float32))
+        np.testing.assert_array_equal(center[k].numpy(),
+                                      np.asarray(jcenter[k]))
+
+
 # ---------------------------------------------------------------------------
 # the no-mutation contract and downpour's events
 # ---------------------------------------------------------------------------
