@@ -41,9 +41,12 @@ then drives the main paths through their entry points:
 Each kernel's launches are counted from zero over the paths that run it,
 and each is timed against its bound, its plain version and one PyTorch
 call.  The paged kernel is checked at the edges of its split-K parts and
-timed at the qwen2-1.5b and gemma3-1b decode shapes; the build line
-counts the tensor-core instructions in each library's SASS (the bf16
-flash kernel runs on wgmma: HGMMA).  Each line of output is a JSON object, except the raw
+timed at the qwen2-1.5b and gemma3-1b decode shapes; the top-k kernels
+are checked bitwise on rows that drive both paths of their selection
+(ties, NaN and +-inf, +-0.0, 32 and 33 candidates), and their general
+path is timed at the timing size; the build line counts the tensor-core
+instructions in each library's SASS (the bf16 flash kernel runs on
+wgmma: HGMMA).  Each line of output is a JSON object, except the raw
 ``nvidia-smi --query-gpu=name,power.limit`` line just before the last;
 the last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises and the script exits non-zero without that line.  It needs one
@@ -120,6 +123,13 @@ def cuda_ms(fn, iters, flush=None):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def l2_flush():
+    """A call that evicts the 50 MB L2 cache (zeroes a 256 MB buffer), for
+    ``cuda_ms``: each timed call then starts cold."""
+    buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    return buf.zero_
 
 
 # ---------------------------------------------------------------------------
@@ -463,10 +473,7 @@ def time_kernel(pa, launches_per_step, smi):
     ``device_ms`` the profiler's sum of the call's two kernels.  The
     qwen2-1.5b shape's numbers are also the phase's top-level keys."""
     page = 16
-    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-
-    def flush():
-        flush_buf.zero_()  # 256 MB > the 50 MB L2: each call starts cold
+    flush = l2_flush()
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     saved = pa.paged_attention.launches
@@ -522,7 +529,7 @@ def time_kernel(pa, launches_per_step, smi):
             "bound_by": "bytes"}
         del q, kp, vp, bt, cl, ks, vs, lib_out
     pa.paged_attention.launches = saved  # timing launches are not the path's
-    del flush_buf
+    del flush
     torch.cuda.empty_cache()
     return {
         "phase": "kernel_timing", "name": "paged_attention",
@@ -902,10 +909,7 @@ def time_flash(fl, launches, smi):
     the prefill's tensors (model-layout views, bf16, B 1) at every shape
     the greedy_* prefills launch; the kernel's output is held against the
     plain version's on the same tensors.  L2 flushed before each launch."""
-    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-
-    def flush():
-        flush_buf.zero_()  # 256 MB > the 50 MB L2
+    flush = l2_flush()
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
@@ -948,7 +952,7 @@ def time_flash(fl, launches, smi):
             "tflops_achieved": flops / (ms / 1e3) / 1e12}
         del q, k, v, lib_out
     fl.flash_attention.launches = saved  # timing launches are not the path's
-    del flush_buf
+    del flush
     torch.cuda.empty_cache()
     return {"phase": "time_flash", "kernels": out,
             "launches_on_main_path": launches, "card": smi}
@@ -1181,10 +1185,7 @@ def time_mamba(ms, launches, smi):
     b, l, d, n = JAMBA_SCAN
     args = mamba_inputs(np.random.default_rng(9), b, l, d, n, torch.bfloat16,
                         dt_rank=JAMBA_DT_RANK)
-    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-
-    def flush():
-        flush_buf.zero_()  # 256 MB > the 50 MB L2
+    flush = l2_flush()
 
     saved = ms.mamba_scan.launches
     kernel_ms = cuda_ms(lambda: ms.mamba_scan(*args), 30, flush)
@@ -1196,7 +1197,7 @@ def time_mamba(ms, launches, smi):
               + b * d * n * 4)
     exps = b * l * d * n
     b_ms, o_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * exps / SFU_EXP_PER_S
-    del args, flush_buf
+    del args, flush
     torch.cuda.empty_cache()
     return {"phase": "time_mamba", "name": "mamba_scan",
             "shape": {"B": b, "L": l, "D": d, "N": n, "dtype": "bfloat16",
@@ -1273,20 +1274,90 @@ def check_onebit(ob):
             "tol": "packed exact; scale <= 1 bf16 ulp; r' exact vs own scale"}
 
 
+# (block, k) of the adversarial top-k rows: both paths of the selection
+TOPK_ADVERSARIAL = [(block, k) for block in (32, 64, 1024)
+                    for k in sorted({1, 10, 32, 33, block}) if k <= block]
+TOPK_ROW_KINDS = ("random", "all_equal", "all_zero", "fewer_than_k",
+                  "signed_zeros", "nan_inf", "32_candidates", "33_candidates",
+                  "small_ints")
+
+
+def adversarial_rows(block, k, vec, seed):
+    """(g, r) CUDA rows, one of each ``TOPK_ROW_KINDS``, for a kernel that
+    reads ``vec`` columns a 16-byte vector (vector v in lane v % 32): 32
+    and 33 equal magnitudes above the rest, one a lane in turn, are the
+    candidates of the fast path (32) and the general one (33); ties and
+    fewer than k nonzeros take the general path.  r is 0.1 N(0, 1) on the
+    random row and zero elsewhere."""
+    rng = np.random.default_rng(seed)
+    g = np.zeros((len(TOPK_ROW_KINDS), block), np.float32)
+    r = np.zeros_like(g)
+    g[0] = rng.standard_normal(block)
+    r[0] = 0.1 * rng.standard_normal(block)
+    g[1] = 0.75 * rng.choice([-1.0, 1.0], block)
+    g[3, rng.choice(block, size=k - 1, replace=False)] = \
+        rng.standard_normal(k - 1)
+    g[4] = rng.choice([-0.0, 0.0], block)
+    g[4, rng.choice(block, size=3, replace=False)] = [1.5, -1.5, 0.25]
+    g[5] = rng.standard_normal(block)
+    g[5, rng.choice(block, size=6, replace=False)] = [
+        np.nan, -np.nan, np.inf, -np.inf, np.inf, np.nan]
+    lanes = min(32, block // vec)
+    for row, n in ((6, 32), (7, 33)):
+        g[row] = rng.uniform(-1.0, 1.0, block)
+        for i in range(min(n, block)):
+            lane, j = i % lanes, i // lanes
+            g[row, vec * lane + 32 * vec * (j // vec) + j % vec] = \
+                rng.choice([-4.0, 4.0])
+    g[8] = rng.integers(-3, 4, block)
+    return torch.from_numpy(g).to("cuda"), torch.from_numpy(r).to("cuda")
+
+
+def sparse_rows(seed, nb, block, nnz):
+    """(nb, block) f32 CUDA rows of nnz random nonzeros each: with nnz < k
+    every row takes the top-k kernels' general path (its zeros tie)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.zeros(nb, block, device="cuda")
+    cols = torch.randint(0, block, (nb, nnz), device="cuda", generator=gen)
+    x.scatter_(1, cols, torch.randn(nb, nnz, device="cuda", generator=gen))
+    return x
+
+
+def encode_equal(tk, g, r, k, what):
+    """The encode kernel against its plain version, bitwise."""
+    got = tk.topk_encode_ef(g, r, k)
+    want = tk.topk_encode_ef_plain(g, r, k)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("vals", "idx", "r'"), got, want):
+        if not bitwise_equal(a, b):
+            raise AssertionError(f"topk_encode_ef {what}: {name} differ")
+
+
 def check_topk(tk):
-    """vals, idx and r' bitwise equal to the plain version's."""
+    """vals, idx and r' bitwise equal to the plain version's, on
+    ``code_rows``, the adversarial rows and, at the timing size, rows that
+    all take the general path (timed)."""
     cases = 0
     for block, k, nb in ((1024, 10, 5_003), (64, 5, 7_001)):
         g, r = code_rows(block + k, nb, block)
-        got = tk.topk_encode_ef(g, r, k)
-        want = tk.topk_encode_ef_plain(g, r, k)
-        torch.cuda.synchronize()
-        for name, a, b in zip(("vals", "idx", "r'"), got, want):
-            if not bitwise_equal(a, b):
-                raise AssertionError(f"topk block {block} k {k}: {name} "
-                                     "differ")
+        encode_equal(tk, g, r, k, f"block {block} k {k}")
         cases += 1
-    return {"phase": "kernel_check_topk", "cases": cases,
+    for block, k in TOPK_ADVERSARIAL:
+        g, r = adversarial_rows(block, k, 4, 100 * block + k)
+        encode_equal(tk, g, r, k, f"adversarial block {block} k {k}")
+        cases += 1
+    k, nb = 10, EMBED_ROWS // 4
+    g = sparse_rows(41, nb, 1024, k // 2)
+    r = torch.zeros_like(g)
+    encode_equal(tk, g, r, k, "general path, timing size")
+    ms = cuda_ms(lambda: tk.topk_encode_ef(g, r, k), 5, l2_flush())
+    del g, r
+    torch.cuda.empty_cache()
+    return {"phase": "kernel_check_topk", "cases": cases + 1,
+            "adversarial": {"block_k": TOPK_ADVERSARIAL,
+                            "rows": TOPK_ROW_KINDS},
+            "general_path": {"shape": [nb, 1024], "k": k,
+                             "nonzeros_a_row": k // 2, "ms": ms},
             "vals_idx_residual": "bitwise", "max_abs_err_vs_plain": 0.0,
             "tol": "bitwise"}
 
@@ -1388,14 +1459,32 @@ def check_onebit_unpacked(ob):
 
 
 def check_topk_sparsify(tk):
+    """vals, idx and dense bitwise equal to the plain version's, f32 and
+    bf16, on ``TOPK_SHAPES``, the adversarial rows and, at the timing size
+    in f32, rows that all take the general path (timed)."""
     for nb, block, k in TOPK_SHAPES:
         g, _ = card_rows(nb + block + k, nb, block)
         for dt in (torch.float32, torch.bfloat16):
             topk_equal(tk, g.to(dt), k, f"({nb}, {block}) k {k} {dt}")
         del g
+    for block, k in TOPK_ADVERSARIAL:
+        for dt, vec in ((torch.float32, 4), (torch.bfloat16, 8)):
+            g, _ = adversarial_rows(block, k, vec, 100 * block + k + vec)
+            topk_equal(tk, g.to(dt), k, f"adversarial block {block} k {k} "
+                                        f"{dt}")
+    k, nb = 10, EMBED_ROWS // 4
+    x = sparse_rows(43, nb, 1024, k // 2)
+    topk_equal(tk, x, k, "general path, timing size")
+    ms = cuda_ms(lambda: tk.topk_sparsify(x, k), 5, l2_flush())
+    del x
     torch.cuda.empty_cache()
     return {"phase": "kernel_check_topk_sparsify", "shapes": TOPK_SHAPES,
             "dtypes": ["float32", "bfloat16"],
+            "adversarial": {"block_k": TOPK_ADVERSARIAL,
+                            "rows": TOPK_ROW_KINDS},
+            "general_path": {"shape": [nb, 1024], "k": k,
+                             "nonzeros_a_row": k // 2, "dtype": "float32",
+                             "ms": ms},
             "vals_idx_dense": "bitwise", "max_abs_err_vs_plain": 0.0,
             "tol": "bitwise"}
 
@@ -1791,10 +1880,7 @@ def time_train_kernels(ob, tk, fa, launches, get_config, smi):
     exists."""
     cfg = get_config("qwen2-1.5b")
     n = TRAIN_W * cfg.vocab_size * cfg.d_model
-    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-
-    def flush():
-        flush_buf.zero_()  # 256 MB > the 50 MB L2
+    flush = l2_flush()
 
     def bound(nbytes, ops):
         b, o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
@@ -1877,10 +1963,7 @@ def time_codec_kernels(ob, tk, launches, get_config, smi):
     the timed inputs first."""
     cfg = get_config("qwen2-1.5b")
     n = TRAIN_W * cfg.vocab_size * cfg.d_model
-    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-
-    def flush():
-        flush_buf.zero_()  # 256 MB > the 50 MB L2
+    flush = l2_flush()
 
     def bound(nbytes, ops):
         b, o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
@@ -2118,7 +2201,9 @@ def main() -> int:
             "max_abs_err": checks[name]["max_abs_err_vs_plain"],
             "tol": checks[name]["tol"], "ms": tim["ms"],
             "plain_ms": tim["plain_ms"], "bound_ms": tim["bound_ms"],
-            "bound_by": tim["bound_by"], "library_ms": tim["library_ms"]})
+            "bound_by": tim["bound_by"], "library_ms": tim["library_ms"],
+            **({"general_path_ms": checks[name]["general_path"]["ms"]}
+               if "general_path" in checks[name] else {})})
 
     emit({"kernels": [{
         "name": "paged_attention", "route": "cuda",

@@ -12,12 +12,13 @@ of a flat f32 bucket folded into ``(nb, block)`` rows:
 
 The rounds give ``lax.top_k``'s order and stable tie-break, so a row with
 fewer than k nonzeros (the zero-padded tail block of a replica) takes its
-lowest free zero columns.  ``vals`` keeps t's sign, ``-0.0`` included, as
-the reference's jnp codec does (``take_along_axis``); the Pallas kernel
-reads a selected ``-0.0`` back as ``+0.0`` through a masked sum, the one
-corner where the two references differ.  ``new_r`` is computed literally
-as ``t − dense``, so a sent entry leaves ``+0.0`` and an unsent ``-0.0``
-stays ``-0.0``, bit for bit.
+lowest free zero columns.  They order |t| by its bit pattern, so a NaN
+sorts above +inf, as ``lax.top_k`` sorts it.  ``vals`` keeps t's sign,
+``-0.0`` included, as the reference's jnp codec does
+(``take_along_axis``); the Pallas kernel reads a selected ``-0.0`` back
+as ``+0.0`` through a masked sum, and takes no column for a NaN.
+``new_r`` is computed literally as ``t − dense``, so a sent entry leaves
+``+0.0`` and an unsent ``-0.0`` stays ``-0.0``, bit for bit.
 
 Port of ``repro/kernels/topk_sparsify.py::topk_sparsify``, one round of
 the leaf-wise codec (``core/compression.py``): for ``(nb, block)`` rows x
@@ -31,7 +32,8 @@ in f32 or bf16, the same k rounds over ``|x|`` in f32, then
 so a selected ``-0.0`` stays ``-0.0``.
 
 ``topk_encode_ef`` and ``topk_sparsify`` launch the CUDA kernels
-(``csrc/topk_sparsify.cu``) and count their launches in ``.launches``;
+(``csrc/topk_sparsify.cu``; rows read as 16-byte vectors, so the tensors
+start 16-byte aligned) and count their launches in ``.launches``;
 ``topk_encode_ef_plain`` and ``topk_sparsify_plain`` are the plain PyTorch
 versions.  ``kernels.ops`` picks between them by the tensors' device.
 """
@@ -42,37 +44,47 @@ import ctypes
 
 import torch
 
-NEG = -1.0
 MAX_BLOCK = 1024  # the kernel keeps a row in one warp's registers
 
 
-def _select(mag, k: int, name: str):
-    """The kernels' k rounds of masked argmax over (nb, block) f32
-    magnitudes: (idx (nb, k) int64 in selection order, taken mask)."""
-    nb, block = mag.shape
+def _select(t, k: int, name: str):
+    """The kernels' k rounds of masked argmax over (nb, block) f32 rows t:
+    (idx (nb, k) int64 in selection order, taken mask).  A column's key is
+    the int32 bit pattern of |t| (the sign bit cleared), under which
+    magnitudes order as numbers and a NaN above +inf, as ``lax.top_k``
+    orders them; the lowest column wins a tie."""
+    nb, block = t.shape
     if not 1 <= k <= block:
         raise ValueError(f"{name}: need 1 <= k <= block, got k={k}, "
                          f"block={block}")
-    taken = torch.zeros_like(mag, dtype=torch.bool)
+    key = t.contiguous().view(torch.int32) & 0x7FFFFFFF
+    taken = torch.zeros_like(t, dtype=torch.bool)
     cols = torch.arange(block, dtype=torch.int32,
-                        device=mag.device).expand(nb, block)
-    idx = torch.empty((nb, k), dtype=torch.int64, device=mag.device)
+                        device=t.device).expand(nb, block)
+    idx = torch.empty((nb, k), dtype=torch.int64, device=t.device)
     for i in range(k):
-        m = mag.amax(dim=-1, keepdim=True)
-        first = torch.where(mag == m, cols, block).amin(dim=-1)
+        m = key.amax(dim=-1, keepdim=True)
+        first = torch.where(key == m, cols, block).amin(dim=-1)
         idx[:, i] = first
         sel = cols == first[:, None]
         taken |= sel
-        mag = torch.where(sel, NEG, mag)
+        key = torch.where(sel, -1, key)
     return idx, taken
+
+
+def _take(x, idx):
+    """x at idx along its rows, bit for bit: gathered as integers, since a
+    gather of bf16 on the CPU returns every NaN as one pattern."""
+    ints = {4: torch.int32, 2: torch.int16}[x.element_size()]
+    return torch.gather(x.view(ints), 1, idx).view(x.dtype)
 
 
 def topk_encode_ef_plain(g, r, k: int):
     """g, r: (nb, block) f32 → (vals (nb, k) f32, idx (nb, k) int32,
     new_r (nb, block) f32), by the kernel's k rounds of masked argmax."""
     t = g.float() + r
-    idx, taken = _select(t.abs(), k, "topk_encode_ef")
-    vals = torch.gather(t, 1, idx)
+    idx, taken = _select(t, k, "topk_encode_ef")
+    vals = _take(t, idx)
     dense = torch.where(taken, t, 0.0)
     return vals, idx.to(torch.int32), t - dense
 
@@ -81,8 +93,8 @@ def topk_sparsify_plain(x, k: int):
     """x: (nb, block) f32 or bf16 → (vals (nb, k), idx (nb, k) int32,
     dense (nb, block)), vals and dense in x's dtype, by the kernel's k
     rounds of masked argmax over |x| in f32."""
-    idx, taken = _select(x.float().abs(), k, "topk_sparsify")
-    vals = torch.gather(x, 1, idx)
+    idx, taken = _select(x.float(), k, "topk_sparsify")
+    vals = _take(x, idx)
     dense = torch.where(taken, x, torch.zeros((), dtype=x.dtype))
     return vals, idx.to(torch.int32), dense
 
@@ -107,6 +119,9 @@ def _kernel_fn(name, argtypes):
 
 
 def _check_rows(name, x, k):
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel reads rows as 16-byte vectors; "
+                         f"got a tensor at address {x.data_ptr():#x}")
     nb, block = x.shape
     if nb < 1 or block % 32 or not 32 <= block <= MAX_BLOCK:
         raise ValueError(f"{name}: the kernel takes nb >= 1 and a block that "
@@ -129,6 +144,7 @@ def _check(g, r, k):
                          f"and r{tuple(r.shape)} on {r.device} must be one "
                          "(nb, block) shape on one device")
     _check_rows("topk_encode_ef", g, k)
+    _check_rows("topk_encode_ef", r, k)
 
 
 def topk_encode_ef(g, r, k: int):

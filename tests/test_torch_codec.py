@@ -136,6 +136,61 @@ def test_topk_sparsify_plain_keeps_a_taken_negative_zero():
     assert bits(dense)[0, 2] == 0x80000000 and dense[0, 9].item() == 3.0
 
 
+def _nan_inf_rows(seed, block=64):
+    """Rows with NaN, -NaN, +-inf, -0.0 and ties: random with specials;
+    zeros but NaN at 3, 2.0 at 5 and inf at 9; zeros and -0.0 with one
+    NaN and one inf; tied magnitudes with -inf."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((4, block)).astype(np.float32)
+    x[0, [2, 7, 11, 20, 33]] = [np.nan, -np.inf, np.inf, -np.nan, -0.0]
+    x[1] = 0.0
+    x[1, [3, 5, 9]] = [np.nan, 2.0, np.inf]
+    x[2] = rng.choice([-0.0, 0.0], block)
+    x[2, [6, 40]] = [np.inf, -np.nan]
+    x[3] = rng.choice([-1.0, 1.0], block)
+    x[3, [4, 50]] = -np.inf
+    return x
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_topk_sparsify_plain_orders_nan_and_inf_as_lax_top_k(dtype):
+    """idx, vals and dense bitwise equal to ``topk_sparsify_ref``
+    (``lax.top_k``: |NaN| above +inf, the lowest column on a tie)."""
+    jdt, tdt = DTYPES[dtype]
+    jx = jnp.asarray(_nan_inf_rows(1)).astype(jdt)
+    # one cast for both: torch and JAX round a NaN to bf16 as other bits
+    ints = np.array(jx).view(np.int32 if dtype == "float32" else np.int16)
+    x = torch.from_numpy(ints).view(tdt)
+    vals, idx, dense = tk.topk_sparsify_plain(x, 6)
+    rvals, ridx, rdense = topk_sparsify_ref(jx, 6)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ridx))
+    assert idx[1, :3].tolist() == [3, 9, 5]
+    _same_bits(vals, np.asarray(rvals, np.float32))
+    _same_bits(dense, np.asarray(rdense, np.float32))
+    # the reference's own difference: its Pallas kernel takes no column on
+    # a row with a NaN (idx = block every round); it agrees elsewhere
+    pidx = np.asarray(pallas_topk(jx, 6, interpret=True)[1])
+    assert (pidx[:3] == x.shape[1]).all()
+    np.testing.assert_array_equal(pidx[3], idx[3].numpy())
+
+
+def test_topk_encode_ef_plain_orders_nan_and_inf_as_lax_top_k():
+    """idx and vals bitwise equal to ``topk_sparsify_ref`` on t = g + r,
+    and the residual to t - its dense."""
+    g = _nan_inf_rows(2)
+    r = np.where(np.isfinite(g), 0.1 * np.random.default_rng(3)
+                 .standard_normal(g.shape), 0.0).astype(np.float32)
+    r[1:3] = 0.0  # keep the zeros and -0.0 of rows 1 and 2
+    vals, idx, new_r = tk.topk_encode_ef_plain(torch.from_numpy(g),
+                                               torch.from_numpy(r), 6)
+    t = jnp.asarray(g) + jnp.asarray(r)
+    rvals, ridx, rdense = topk_sparsify_ref(t, 6)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ridx))
+    assert idx[1, :3].tolist() == [3, 9, 5]
+    _same_bits(vals, np.asarray(rvals))
+    _same_bits(new_r, np.asarray(t - rdense))
+
+
 def test_new_ops_dispatch_cpu_to_plain_without_launch():
     g, r = (torch.from_numpy(a) for a in special_rows(0, 9, 256))
     before = (ob.onebit_quant.launches, tk.topk_sparsify.launches)

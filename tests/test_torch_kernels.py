@@ -381,3 +381,185 @@ def test_training_kernels_match_plain_on_the_card():
     torch.cuda.synchronize()
     for x, y in zip((a[0], a[2], a[3]), (p, m, v)):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the top-k kernels' selection (csrc/topk_sparsify.cu::select_topk),
+# emulated on the CPU with the kernel's lane map
+# ---------------------------------------------------------------------------
+def _topk_emulation(mag, k, vec):
+    """The kernel's selection over one row of ``mag`` (bits of |t| as f32,
+    sign cleared), a lane holding 16-byte vectors of ``vec`` columns:
+    vector v belongs to lane v % 32, so slot s = j vec + e of lane l is
+    column vec (l + 32 j) + e.  Keys are mag + 1.  Returns (columns in
+    pick order, taken columns, path, candidate count or None)."""
+    block = mag.size
+    nvec = block // vec
+    col = np.full((32, 32), -1, np.int64)
+    for lane in range(32):
+        for s in range(32):
+            j, e = divmod(s, vec)
+            if lane + 32 * j < nvec:
+                col[lane, s] = vec * (lane + 32 * j) + e
+    valid = col >= 0
+    key = np.where(valid, mag[np.maximum(col, 0)].astype(np.int64) + 1, 0)
+    taken = np.zeros((32, 32), bool)
+
+    def take(c):  # the owner lane's bit of column c
+        lane, s = (c // vec) % 32, (c // (32 * vec)) * vec + c % vec
+        assert col[lane, s] == c
+        taken[lane, s] = True
+
+    def columns_taken():
+        out = np.zeros(block, bool)
+        out[col[taken]] = True
+        return out
+
+    picks, count = [], None
+    if k <= 32:
+        cur = key.max(axis=1)  # each lane's largest key (0: no column)
+        seen = 0
+        while True:  # tau: the k-th largest lane maximum
+            tau = cur.max()
+            seen += int((cur == tau).sum())
+            if seen >= k:
+                break
+            cur = np.where(cur == tau, 0, cur)
+        # ballot compaction: slot by slot, lanes in order within a slot
+        cand = [(key[lane, s], col[lane, s]) for s in range(32)
+                for lane in range(32) if valid[lane, s] and key[lane, s] >= tau]
+        count = len(cand)
+        if count <= 32:
+            ckey = [c[0] for c in cand] + [0] * (32 - count)
+            ccol = [c[1] for c in cand] + [-1] * (32 - count)
+            for _ in range(k):
+                m = max(ckey)
+                assert m >= 1
+                c = min(cc for kk, cc in zip(ckey, ccol) if kk == m)
+                ckey[ccol.index(c)] = 0
+                take(c)
+                picks.append(int(c))
+            return picks, columns_taken(), "fast", count
+
+    def best(lane):  # the lane's best untaken key, lowest column on a tie
+        live = np.where(valid[lane] & ~taken[lane], key[lane], 0)
+        s = int(np.argmax(live))  # the first maximum: slots run by column
+        return int(live[s]), int(col[lane, s])
+
+    bests = [best(lane) for lane in range(32)]
+    for _ in range(k):
+        m = max(b for b, _ in bests)
+        assert m >= 1
+        c = min(cc for b, cc in bests if b == m)
+        take(c)
+        picks.append(c)
+        owner = (c // vec) % 32
+        bests[owner] = best(owner)
+    return picks, columns_taken(), "general", count
+
+
+TOPK_EMU_ROWS = ("random", "all_equal", "all_zero", "fewer_than_k",
+                 "signed_zeros", "nan_inf", "32_candidates",
+                 "33_candidates", "small_ints")
+
+
+def _topk_rows(block, k, vec, seed):
+    """(g, r) f32 rows, one of each ``TOPK_EMU_ROWS``; r is 0.1 N(0, 1) on
+    the random row and zero elsewhere, so t = g there."""
+    rng = np.random.default_rng(seed)
+    nb = len(TOPK_EMU_ROWS)
+    g = np.zeros((nb, block), np.float32)
+    r = np.zeros((nb, block), np.float32)
+    g[0] = rng.standard_normal(block)
+    r[0] = 0.1 * rng.standard_normal(block)
+    g[1] = 0.75 * rng.choice([-1.0, 1.0], block)
+    few = rng.choice(block, size=k - 1, replace=False)
+    g[3, few] = rng.standard_normal(k - 1)
+    g[4] = rng.choice([-0.0, 0.0], block)
+    g[4, rng.choice(block, size=3, replace=False)] = [1.5, -1.5, 0.25]
+    g[5] = rng.standard_normal(block)
+    g[5, rng.choice(block, size=6, replace=False)] = [
+        np.nan, -np.nan, np.inf, -np.inf, np.inf, np.nan]
+    # 32 and 33 equal magnitudes above the rest, one a lane in turn: every
+    # lane that holds one has it as its maximum, so they are the candidates
+    lanes = min(32, block // vec)
+    for row, n in ((6, 32), (7, 33)):
+        g[row] = rng.uniform(-1.0, 1.0, block)
+        for i in range(min(n, block)):
+            lane, j = i % lanes, i // lanes
+            g[row, vec * lane + 32 * vec * (j // vec) + j % vec] = \
+                rng.choice([-4.0, 4.0])
+    g[8] = rng.integers(-3, 4, block)
+    return g, r
+
+
+TOPK_EMU_CASES = [(block, k) for block in (32, 64, 1024)
+                  for k in sorted({1, 10, 32, 33, block}) if k <= block]
+
+
+def _emulate_rows(t, k, vec):
+    mag = (t.float().contiguous().view(torch.int32) & 0x7FFFFFFF).numpy()
+    return [_topk_emulation(row, k, vec) for row in mag]
+
+
+def _same_bits(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize("kernel", ["encode_ef", "sparsify_float32",
+                                    "sparsify_bfloat16"])
+@pytest.mark.parametrize("block,k", TOPK_EMU_CASES)
+def test_topk_selection_emulation_matches_plain(block, k, kernel):
+    """Both kernels' selection, emulated with their lane maps (4 f32 or 8
+    bf16 columns a 16-byte vector), bitwise against both plain versions
+    on adversarial rows; the fast path where its candidates fit in 32
+    lanes, the general path otherwise."""
+    from repro_torch.kernels import topk_sparsify as tk
+
+    dtype = torch.bfloat16 if kernel.endswith("bfloat16") else torch.float32
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    g, r = (torch.from_numpy(a) for a in _topk_rows(block, k, vec,
+                                                   block * 100 + k))
+    if kernel == "encode_ef":
+        t = g + r
+        vals, idx, new_r = tk.topk_encode_ef_plain(g, r, k)
+    else:
+        t = g.to(dtype)
+        vals, idx, dense = tk.topk_sparsify_plain(t, k)
+    emulated = _emulate_rows(t, k, vec)
+    for i, (picks, taken, _, _) in enumerate(emulated):
+        assert idx[i].tolist() == picks, TOPK_EMU_ROWS[i]
+        sel = torch.from_numpy(taken)
+        _same_bits(vals[i], t[i, picks])
+        if kernel == "encode_ef":
+            _same_bits(new_r[i], t[i] - torch.where(sel, t[i], 0.0))
+        else:
+            _same_bits(dense[i], torch.where(sel, t[i],
+                                             torch.zeros((), dtype=dtype)))
+    paths = {name: (path, count)
+             for name, (_, _, path, count) in zip(TOPK_EMU_ROWS, emulated)}
+    if k > 32:
+        assert {p for p, _ in paths.values()} == {"general"}
+    if block == 1024 and k <= 32:
+        assert paths["32_candidates"] == ("fast", 32)
+        assert paths["33_candidates"] == ("general", 33)
+        # ties at tau: every zero ties once a row has fewer than k nonzeros
+        for name in ("all_equal", "all_zero", "fewer_than_k") + \
+                (("signed_zeros",) if k > 3 else ()):
+            assert paths[name][0] == "general", name
+        if k == 10:
+            assert paths["random"][0] == "fast"
+
+
+def test_topk_gradient_rows_take_the_fast_path():
+    """Gradient-like rows at the path's shape (block 1024, k 10) take the
+    fast path with a handful of candidates over k."""
+    rng = np.random.default_rng(7)
+    t = torch.from_numpy(rng.standard_normal((64, 1024), np.float32)
+                         + 0.1 * rng.standard_normal((64, 1024), np.float32))
+    emulated = _emulate_rows(t, 10, 4)
+    assert {path for _, _, path, _ in emulated} == {"fast"}
+    counts = [count for *_, count in emulated]
+    assert min(counts) >= 10 and np.mean(counts) <= 20
