@@ -2,7 +2,7 @@
 """Drive the PyTorch port's paged serving, dense serving (attention and
 recurrent models) and data-parallel training paths on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--mamba-before PATH]
 
 Builds every CUDA kernel from ``src/repro_torch/kernels/csrc`` (into
 ``build/kernels/``), holds each kernel against its plain PyTorch version,
@@ -46,7 +46,12 @@ are checked bitwise on rows that drive both paths of their selection
 (ties, NaN and +-inf, +-0.0, 32 and 33 candidates), and their general
 path is timed at the timing size; the build line counts the tensor-core
 instructions in each library's SASS (the bf16 flash kernel runs on
-wgmma: HGMMA).  Each line of output is a JSON object, except the raw
+wgmma: HGMMA).  The scan kernel's h_last is held bitwise against its
+plain version, its library must build without spills, and
+``time_mamba`` reports the SASS of its loop (instructions a state-step,
+MUFU.EX2); ``--mamba-before PATH`` builds an earlier design's
+``mamba_scan.cu`` beside it and times both in the same run
+(``ms_before``).  Each line of output is a JSON object, except the raw
 ``nvidia-smi --query-gpu=name,power.limit`` line just before the last;
 the last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises and the script exits non-zero without that line.  It needs one
@@ -55,7 +60,9 @@ card and exits non-zero when ``torch.cuda.is_available()`` is false.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -88,15 +95,22 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def tensor_core_instructions(lib, nvcc):
-    """Counts of HGMMA (wgmma) and HMMA (mma.sync) in the SASS of a built
-    library, from the ``cuobjdump`` beside ``nvcc``; "not available"
-    where the toolkit has none."""
+def library_sass(lib, nvcc):
+    """The SASS of a built library, from the ``cuobjdump`` beside
+    ``nvcc``; None where the toolkit has none."""
     tool = Path(nvcc).with_name("cuobjdump")
     if not tool.is_file():
-        return "not available"
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+        return None
+    return subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
+
+
+def tensor_core_instructions(lib, nvcc):
+    """Counts of HGMMA (wgmma) and HMMA (mma.sync) in the SASS of a built
+    library; "not available" where the toolkit has no ``cuobjdump``."""
+    sass = library_sass(lib, nvcc)
+    if sass is None:
+        return "not available"
     return {op: len(re.findall(rf"\b{op}\b", sass))
             for op in ("HGMMA", "HMMA")}
 
@@ -975,16 +989,26 @@ MAMBA_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # long case whose D no block of 128 channels divides
 MAMBA_SHAPES = [(2, 32, 64, 8), (1, 16, 128, 16), (2, 24, 96, 4),
                 (2, 1000, 200, 16)]
+# (B, L, D, N, B/C columns or None for the model's): shapes that take the
+# kernel's narrow staging (``kVec`` false) in every piece width.  D 37,
+# 38, 36 give u/delta rows of 148/152/144 bytes in f32 (4-, 8-, 16-byte
+# pieces and y stores) and 74/76/72 in bf16 (2, 4, 8); B/C at columns 1
+# and N + 3 of a (B, L, 2N + 4) tensor give 4-byte f32 and 2-byte bf16
+# pieces, bf16 N 4 in the model's layout 8-byte C pieces
+MAMBA_RAGGED = [(1, 50, 37, 4, None), (1, 50, 37, 8, None),
+                (1, 50, 37, 16, None), (2, 40, 38, 16, (1, 19)),
+                (2, 40, 36, 8, (1, 11)), (2, 40, 64, 4, (1, 7))]
 # jamba-1.5-large's prefill scan: B 1, L 2048, d_inner 16384, N 16; B and
 # C are slices of x_proj's (B, L, dt_rank + 2N) output, dt_rank 512
 JAMBA_SCAN = (1, 2048, 16384, 16)
 JAMBA_DT_RANK = 8192 // 16
 
 
-def mamba_inputs(rng, b, l, d, n, dtype, dt_rank=0):
+def mamba_inputs(rng, b, l, d, n, dtype, dt_rank=0, bc_cols=None):
     """u, delta = softplus(.), a = -|.|, B, C and D as the reference's
     sweep draws them (seeded numpy), on the card; B and C are slices of one
-    (B, L, dt_rank + 2N) tensor, as the model passes them."""
+    (B, L, dt_rank + 2N) tensor, as the model passes them, or with
+    ``bc_cols`` (B's first column, C's) of a (B, L, 2N + 4) tensor."""
     def dev(shape, scale=1.0, dt=dtype):
         a = scale * rng.standard_normal(shape, dtype=np.float32)
         return torch.from_numpy(a).to("cuda").to(dt)
@@ -992,14 +1016,17 @@ def mamba_inputs(rng, b, l, d, n, dtype, dt_rank=0):
     u = dev((b, l, d), 0.5)
     delta = torch.nn.functional.softplus(dev((b, l, d), dt=torch.float32))
     a = -dev((d, n), dt=torch.float32).abs()
-    dbl = dev((b, l, dt_rank + 2 * n), 0.5)
-    return (u, delta.to(dtype), a, dbl[..., dt_rank:dt_rank + n],
-            dbl[..., dt_rank + n:], dev((d,)))
+    ob, oc = bc_cols or (dt_rank, dt_rank + n)
+    dbl = dev((b, l, 2 * n + (4 if bc_cols else dt_rank)), 0.5)
+    return (u, delta.to(dtype), a, dbl[..., ob:ob + n], dbl[..., oc:oc + n],
+            dev((d,)))
 
 
 def mamba_err(ms, args, what):
     """Max abs errors of y and h_last, kernel against plain; raises outside
-    MAMBA_TOL or on a wrong dtype or shape."""
+    MAMBA_TOL, when h_last is not bitwise the plain version's (the kernel
+    rounds each state update as the plain version does), or on a wrong
+    dtype or shape."""
     dt = args[0].dtype
     y, h = ms.mamba_scan(*args)
     yp, hp = ms.mamba_scan_plain(*args)
@@ -1018,22 +1045,28 @@ def mamba_err(ms, args, what):
                                  f"atol = rtol = {tol} (max abs err "
                                  f"{diff.max().item()})")
         errs.append(diff.max().item())
+    if not torch.equal(h, hp):
+        raise AssertionError(f"mamba_scan {dt} {what}: h_last is not bitwise "
+                             f"the plain version's (max abs err {errs[1]})")
     return errs
 
 
 def check_mamba(ms):
     """The scan kernel against its plain version on the card, f32 and bf16:
-    the reference's sweep shapes, a long case and jamba's prefill tensors
-    (B/C strided slices of the x_proj output)."""
+    the reference's sweep shapes, a long case, the narrow-staging shapes of
+    MAMBA_RAGGED and jamba's prefill tensors (B/C strided slices of the
+    x_proj output)."""
     err = {}
     cases = 0
     for dt in (torch.float32, torch.bfloat16):
-        shapes = [s + (0,) for s in MAMBA_SHAPES] \
-            + [JAMBA_SCAN + (JAMBA_DT_RANK,)]
-        for si, (b, l, d, n, r) in enumerate(shapes):
+        shapes = [s + (0, None) for s in MAMBA_SHAPES] \
+            + [JAMBA_SCAN + (JAMBA_DT_RANK, None)] \
+            + [s[:4] + (0, s[4]) for s in MAMBA_RAGGED]
+        for si, (b, l, d, n, r, cols) in enumerate(shapes):
             args = mamba_inputs(np.random.default_rng(40 + si), b, l, d, n,
-                                dt, dt_rank=r)
-            what = f"B={b} L={l} D={d} N={n}" + (" model layout" if r else "")
+                                dt, dt_rank=r, bc_cols=cols)
+            what = f"B={b} L={l} D={d} N={n}" + (" model layout" if r else "") \
+                + (f" B/C at columns {cols}" if cols else "")
             ey, eh = mamba_err(ms, args, what)
             err[f"{str(dt)[6:]} {what}"] = {"y": ey, "h_last": eh}
             cases += 1
@@ -1049,7 +1082,9 @@ def check_mamba(ms):
             "max_abs_err_bf16": worst["bfloat16"],
             "tol_bf16": MAMBA_TOL[torch.bfloat16],
             "tol_h_last": MAMBA_TOL[torch.float32],
-            "tol_note": "atol = rtol; bf16 y: one bf16 rounding",
+            "h_last_bitwise": True,
+            "tol_note": "atol = rtol; bf16 y: one bf16 rounding; h_last "
+                        "also bitwise (torch.equal)",
             "max_abs_err_per_case": err}
 
 
@@ -1080,7 +1115,7 @@ def scan_on_path(T, params, cfg, prompt):
         "u": list(args[0].shape), "dtype": str(args[0].dtype)[6:],
         "b_strides": list(args[3].stride()),
         "max_abs_err_y": ey, "max_abs_err_h_last": eh,
-        "tol": MAMBA_TOL[args[0].dtype]}}
+        "h_last_bitwise": True, "tol": MAMBA_TOL[args[0].dtype]}}
 
 
 def contractive_slstm(params, cfg):
@@ -1178,19 +1213,189 @@ def recurrent_card_vs_cpu(T, E, get_config):
     return out
 
 
-def time_mamba(ms, launches, smi):
+def build_scan_before(src):
+    """An earlier design's ``mamba_scan.cu``, built with the port's nvcc
+    flags into ``build/kernels/scan-before/``: (library, ptxas log)."""
+    from repro_torch.kernels import _build
+
+    out = _build.BUILD_ROOT / "scan-before"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libmamba_scan.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                           str(src)], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True, timeout=900)
+    if proc.returncode:
+        raise RuntimeError(f"build of {src}: nvcc exited {proc.returncode}"
+                           f"\n{proc.stdout}")
+    return lib, proc.stdout
+
+
+@contextlib.contextmanager
+def scan_kernel(ms, lib):
+    """``ms.mamba_scan`` (its checks, outputs and count) launching the
+    ``mamba_scan_fwd`` of the library ``lib``."""
+    fn = ctypes.CDLL(str(lib)).mamba_scan_fwd
+    fn.argtypes = ms._ARGTYPES
+    fn.restype = ctypes.c_int
+    saved = ms._kernel_fn
+    ms._kernel_fn = lambda: fn
+    try:
+        yield
+    finally:
+        ms._kernel_fn = saved
+
+
+def ptxas_functions(log):
+    """{entry function: {"registers", "spill_bytes"}} from a ``-Xptxas -v``
+    build log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": None, "spill_bytes": 0}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name]["spill_bytes"] += int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def scan_function(names):
+    """The bf16, N = 16 scan kernel among mangled names: jamba's (its
+    16-byte staging instance, ``kVec`` true, where the design has one)."""
+    cands = [n for n in names if "mamba_scan_kernel" in n
+             and "__nv_bfloat16" in n and "Li16E" in n]
+    vec = [n for n in cands if "Lb1E" in n]
+    return (vec or cands or [None])[0]
+
+
+def sass_scan_loop(lib, nvcc):
+    """The scan loop of the bf16, N = 16 kernel in a library's SASS (from
+    the ``cuobjdump`` beside ``nvcc``): the innermost loop that holds
+    MUFU.EX2, its static instruction count, its MUFU.EX2 count (one
+    exponential a state-step) and their ratio, the instructions a lane
+    issues a state-step, the loop's own overheads included.  Returns
+    (stats, the loop's SASS text), or ("not available", "")."""
+    sass = library_sass(lib, nvcc)
+    if sass is None:
+        return "not available", ""
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and name:
+            funcs[name].append((int(m.group(1), 16), m.group(2)))
+    name = scan_function(funcs)
+    if name is None:
+        return "not available", ""
+    ins = funcs[name]
+    loops = []
+    for addr, text in ins:
+        m = re.search(r"\bBRA\b[^;]*?0x([0-9a-f]+)", text)
+        if m and int(m.group(1), 16) < addr:
+            body = [(a, t) for a, t in ins if int(m.group(1), 16) <= a <= addr]
+            mufu = sum("MUFU.EX2" in t for _, t in body)
+            if mufu:
+                loops.append((len(body), mufu, body))
+    if not loops:
+        return "not available", ""
+    n, mufu, body = min(loops, key=lambda x: x[0])
+    return ({"function": name, "loop_instructions": n, "mufu_ex2": mufu,
+             "instructions_per_state_step": n / mufu,
+             "mufu_ex2_in_function": sum("MUFU.EX2" in t for _, t in ins),
+             "instructions_in_function": len(ins)},
+            "\n".join(f"/*{a:04x}*/ {t}" for a, t in body))
+
+
+def scan_build_stats(lib, log, nvcc):
+    """Registers and spills (ptxas) of jamba's scan kernel and of the
+    whole library, and its scan loop's SASS counts."""
+    funcs = ptxas_functions(log)
+    name = scan_function(funcs)
+    sass, _ = sass_scan_loop(lib, nvcc)
+    return {"registers": funcs[name]["registers"] if name else None,
+            "spill_bytes": funcs[name]["spill_bytes"] if name else None,
+            "max_registers": max((f["registers"] or 0
+                                  for f in funcs.values()), default=None),
+            "spill_bytes_library": sum(f["spill_bytes"]
+                                       for f in funcs.values()),
+            "sass": sass}
+
+
+# the most two timing turns of one kernel may differ, as max / min - 1
+TURN_SPREAD = 0.2
+
+
+def turn_spread(times):
+    return max(times) / min(times) - 1
+
+
+def time_mamba(ms, launches, smi, before=None):
     """The kernel, its plain version and its bound at jamba's prefill scan
     (bf16, B/C slices of the x_proj output), L2 flushed before each
-    launch; the kernel's output is held against the plain version's."""
+    launch; the kernel's output is held against the plain version's
+    (h_last bitwise).  ``before``: the source of an earlier design of the
+    kernel, built beside it and timed in the same call, in turns (plain,
+    this, before, this); without it ``ms_before`` is null.  Each turn is
+    timed with events around the call (``ms``) and by the profiler's
+    device time of the kernel alone (``device_ms``), which leaves out any
+    wait for the host.  The kernel's turns must agree within TURN_SPREAD
+    by the device time (by events where the profiler saw no kernel); turns
+    whose events disagree while their device times agree held a wait for
+    the host, and are flagged so (``events_held_host_wait``)."""
+    from repro_torch.kernels import _build
+
     b, l, d, n = JAMBA_SCAN
     args = mamba_inputs(np.random.default_rng(9), b, l, d, n, torch.bfloat16,
                         dt_rank=JAMBA_DT_RANK)
     flush = l2_flush()
+    lib = _build.build_all()["mamba_scan"]
+    stats = {"this": scan_build_stats(lib, lib.with_suffix(".log")
+                                      .read_text(), _build._nvcc())}
+    old = None
+    if before is not None:
+        old, blog = build_scan_before(Path(before))
+        stats["before"] = scan_build_stats(old, blog, _build._nvcc())
+
+    def turn():
+        def call():
+            return ms.mamba_scan(*args)
+        dev = profiled_ms(call, 10, flush, "mamba_scan_kernel")
+        return (cuda_ms(call, 30, flush),
+                sum(dev.values()) if dev else None)
 
     saved = ms.mamba_scan.launches
-    kernel_ms = cuda_ms(lambda: ms.mamba_scan(*args), 30, flush)
     plain_ms = cuda_ms(lambda: ms.mamba_scan_plain(*args), 2, flush)
+    runs = [turn()]
+    before_run, same_h = (None, None), None
+    if old is not None:
+        with scan_kernel(ms, old):
+            before_run = turn()
+            _, h_old = ms.mamba_scan(*args)
+    runs.append(turn())
+    kernel_ms = statistics.mean(r[0] for r in runs)
+    device = [r[1] for r in runs if r[1] is not None]
+    spread = {"events": turn_spread([r[0] for r in runs]),
+              "device": turn_spread(device) if len(device) == len(runs)
+              else None}
+    judged = "device" if spread["device"] is not None else "events"
+    if spread[judged] > TURN_SPREAD:
+        raise AssertionError(f"mamba_scan: the timing turns disagree by "
+                             f"{spread[judged]:.1%} ((events, device) ms: "
+                             f"{runs}), more than "
+                             f"{TURN_SPREAD:.0%}")
     ey, eh = mamba_err(ms, args, "jamba prefill shape (time_mamba)")
+    if old is not None:
+        same_h = torch.equal(h_old, ms.mamba_scan(*args)[1])
     ms.mamba_scan.launches = saved  # timing launches are not the path's
     # read u, delta (bf16), A (f32), B, C, D (bf16); write y (bf16), h_last
     nbytes = (3 * b * l * d * 2 + 2 * b * l * n * 2 + d * n * 4 + d * 2
@@ -1202,8 +1407,18 @@ def time_mamba(ms, launches, smi):
     return {"phase": "time_mamba", "name": "mamba_scan",
             "shape": {"B": b, "L": l, "D": d, "N": n, "dtype": "bfloat16",
                       "b_c": "slices of a (B, L, dt_rank + 2N) tensor"},
-            "ms": kernel_ms, "plain_ms": plain_ms,
+            "ms": kernel_ms, "ms_runs": [r[0] for r in runs],
+            "device_ms": statistics.mean(device) if device else None,
+            "device_ms_runs": [r[1] for r in runs], "plain_ms": plain_ms,
+            "turn_spread": spread, "turn_spread_limit": TURN_SPREAD,
+            "events_held_host_wait": spread["events"] > TURN_SPREAD,
+            "ms_before": before_run[0], "device_ms_before": before_run[1],
+            "before": str(before) if before is not None else
+            "not measured: pass --mamba-before with an earlier design's "
+            "source",
+            "h_last_equal_before": same_h,
             "max_abs_err_y": ey, "max_abs_err_h_last": eh,
+            "h_last_bitwise": True,
             "tol": MAMBA_TOL[torch.bfloat16],
             "library_ms": None,
             "library_note": "no single PyTorch call computes a selective "
@@ -1212,6 +1427,7 @@ def time_mamba(ms, launches, smi):
             "bound_by": "operations" if o_ms >= b_ms else "bytes",
             "bytes_ms": b_ms, "exps_ms": o_ms,
             "exps_per_s_achieved": exps / (kernel_ms / 1e3),
+            "build": stats,
             "launches_on_main_path": launches, "card": smi}
 
 
@@ -2010,7 +2226,12 @@ def time_codec_kernels(ob, tk, launches, get_config, smi):
 
 
 # ---------------------------------------------------------------------------
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--mamba-before", type=Path, default=None,
+                        help="an earlier design's csrc/mamba_scan.cu, built "
+                             "and timed beside this one (ms_before)")
+    opts = parser.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2042,12 +2263,13 @@ def main() -> int:
     per_lib = {}
     for name, path in sorted(libs.items()):
         log = path.with_suffix(".log")
-        text = log.read_text() if log.exists() else ""
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
-        spills = [int(s) for s in re.findall(r"(\d+) bytes spill", text)]
-        per_lib[name] = {"kernels": len(regs),
-                         "max_registers": max(regs, default=None),
-                         "spill_bytes": sum(spills),
+        funcs = ptxas_functions(log.read_text() if log.exists() else "")
+        per_lib[name] = {"kernels": len(funcs),
+                         "max_registers": max((f["registers"] or 0
+                                               for f in funcs.values()),
+                                              default=None),
+                         "spill_bytes": sum(f["spill_bytes"]
+                                            for f in funcs.values()),
                          "tensor_core_instructions":
                              tensor_core_instructions(path, _build._nvcc())}
     emit({"phase": "build", "libs": sorted(libs),
@@ -2057,6 +2279,9 @@ def main() -> int:
                                 for v in per_lib.values()), default=None),
           "spill_bytes": sum(v["spill_bytes"] for v in per_lib.values()),
           "per_library": per_lib})
+    if per_lib["mamba_scan"]["spill_bytes"]:
+        raise AssertionError("the scan library spills: "
+                             f"{per_lib['mamba_scan']}")
     tc = per_lib["flash_attention"]["tensor_core_instructions"]
     if isinstance(tc, dict) and not tc["HGMMA"] + tc["HMMA"]:
         raise AssertionError("the flash library's SASS holds no tensor-core "
@@ -2177,7 +2402,8 @@ def main() -> int:
     emit(codec_timing)
     flash_timing = time_flash(fl, flash_launches, smi)
     emit(flash_timing)
-    mamba_timing = time_mamba(ms, mamba_launches, smi)
+    mamba_timing = time_mamba(ms, mamba_launches, smi,
+                              before=opts.mamba_before)
     emit(mamba_timing)
 
     sources = {"onebit_quant_packed": ("onebit_quant.cu",
@@ -2258,7 +2484,14 @@ def main() -> int:
         "max_abs_err_bf16": check_ms["max_abs_err_bf16"],
         "tol_bf16": check_ms["tol_bf16"],
         **{k: mamba_timing[k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")},
+                                        "bound_by", "library_ms",
+                                        "ms_before", "device_ms",
+                                        "device_ms_before",
+                                        "h_last_bitwise")},
+        "registers": mamba_timing["build"]["this"]["registers"],
+        "spill_bytes": mamba_timing["build"]["this"]["spill_bytes"],
+        "sass": mamba_timing["build"]["this"]["sass"],
+        "sass_before": mamba_timing["build"].get("before", {}).get("sass"),
     }], "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

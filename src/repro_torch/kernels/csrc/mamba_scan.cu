@@ -18,184 +18,453 @@
 // Guide, arithmetic-instruction throughput, compute capability 9.0), 4.2e12
 // a second on 132 SMs at 1.98 GHz.  At jamba's prefill shape (B 1, L 2048,
 // D 16384, N 16) that is 537 M exps, 0.13 ms, against 203 MB of u, delta, y,
-// A, B, C, D and h_last, 0.061 ms at 3.35 TB/s.
+// A, B, C, D and h_last, 0.061 ms at 3.35 TB/s.  With the exact `expf` a
+// state-step costs ~13 instructions (the product dt * a, ~8 for expf, two
+// products and a sum, the FFMA of y; 15.7 in the built loop with its
+// staging and y), so instruction issue, 4 warp instructions a clock per
+// SM, bounds this design near 0.21-0.26 ms.
 //
-// Design (simple and right first).  The TPU kernel gives each grid cell a
-// (d_block, N) state tile in VMEM and walks time with fori_loop.  Here a
-// group of N / 4 neighbouring lanes owns one (b, d) channel, each lane 4 of
-// its N states and their 4 values of A, in registers; a block of 128
-// threads walks time in tiles of kTile steps:
-//   * one thread per channel would be only 16384 threads at jamba's shape,
-//     a single warp per scheduler, with nothing to hide the latency of
-//     each step's exponentials; 4 lanes per channel give 16 warps an SM;
-//   * the tile's u and delta are read into registers (the lanes of a
-//     channel read the same element), and the next tile's loads are issued
-//     before this tile is computed, so memory latency hides behind a tile
-//     of exponentials;
-//   * the tile's B_t and C_t, shared by every channel of the batch row, are
-//     read into registers at the same time and staged in shared memory
-//     (double-buffered, one barrier per tile) after the tile is computed;
-//   * y_t is each lane's 4-term dot product, summed over the channel's
-//     lanes with butterfly shuffles, plus D * u_t;
-//   * exp(delta * A) is expf of the same f32 product the plain version
-//     forms, and the state update is rounded as the plain version rounds
-//     it (a product, a product, a sum: no FMA contraction), so h follows
-//     the plain version step for step.  Over L steps of a channel whose
-//     A is near 0 nothing decays, and a less exact exponential (exp2f of
-//     a prescaled argument) drifts from it by more than the f32
-//     tolerance at L = 2048.
-// Channels past D (no block size divides every D) take part in the staging,
-// the shuffles and the barriers but read and write nothing.
+// Design.  The TPU kernel gives each grid cell a (d_block, N) state tile in
+// VMEM and walks time with fori_loop.  Here a group of N / kStates
+// neighbouring lanes owns one (b, d) channel, each lane kStates of its
+// states and their values of A, in registers; every warp is a pipeline of
+// its own (no barrier spans warps):
+//   1. Rounding.  For each state and step the kernel forms
+//        du = dt * u,  abar = expf(dt * a),  h = abar * h + du * b
+//      with __fmul_rn / __fadd_rn (a product, a product, a sum: no FMA
+//      contraction) and the exact expf, which is what the plain version
+//      computes, so h_last is bitwise the plain version's on the card.
+//      Over L steps of a channel whose A is near 0 nothing decays, and a
+//      less exact exponential (exp2f of a prescaled argument) drifted from
+//      it by more than the f32 tolerance at L = 2048.  Only the order of
+//      y's sum over n differs.
+//   2. No branch and no store in the tile.  Steps past L are staged as
+//      dt = 0, u = -0, B = C = 0: expf(0) = 1 and 1 * h = h, du * b = -0
+//      and h + -0 = h for every h, so they leave h bitwise unchanged; only
+//      the y store is masked.  The exponentials of a tile do not depend on
+//      h; with no exit and no shared-memory store in the unrolled tile
+//      (its y terms stay in registers until its last step), the compiler
+//      runs the next steps' loads and exponentials beside this step's
+//      recurrence.  A store of each step's terms kept every step behind
+//      the one before (0.398 against 0.358 ms, PERF.md).
+//   3. A ring of kStages tiles in shared memory per warp.  A tile is kTile
+//      steps of u and delta for the warp's channels and of B and C, filled
+//      by cp.async in 16-byte pieces and waited for with cp.async.wait_group
+//      and __syncwarp: no block barrier, no register prefetch.  The lanes
+//      of a channel read u and delta from shared memory as a broadcast; a
+//      bf16 tile's B and C are widened to f32 once a tile, not in every
+//      lane.  Where a pointer, stride or row is not a multiple of 16 bytes
+//      (B/C slices of N = 4, a ragged D), the same kernel stages 8-, 4- or
+//      2-byte pieces (`kVec` false).
+//   4. Coalesced y.  After the tile each lane writes its states' terms of
+//      y_t to shared memory; the warp sums a channel's lanes, adds D * u
+//      once a channel, and writes the tile's rows as 16-byte stores.
+//   5. The lane map, chosen on the card (PERF.md, mamba_scan): 8 states a
+//      lane (2 lanes a channel at N 16: 8 warps an SM at jamba's D), 16
+//      steps a tile, 4 warps a block, 3 stages.  One lane a channel leaves
+//      a scheduler one warp, 4 lanes repeat a channel's u, delta and du in
+//      each, 32-step tiles make a loop of 4,000 instructions: all were
+//      slower.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;  // threads per block
-constexpr int kStates = 4;     // states per thread
-constexpr int kTile = 8;       // time steps per tile
+constexpr int kLaneStates = 8;  // states a lane holds (all N where N is less)
+constexpr int kTile = 16;       // steps a stage of the ring holds
+constexpr int kWarps = 4;       // warps a block
+constexpr int kStages = 3;      // stages of a warp's ring
+static_assert(kTile % 8 == 0 && kStages >= 2 && kWarps >= 1, "ring shape");
+// blocks an SM must hold for 16 warps: ptxas then gives a thread at most
+// 128 registers (unbounded, some instances took 255 and spilled)
+constexpr int kMinBlocks = kWarps < 16 ? 16 / kWarps : 1;
 
-__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
+template <int N>
+struct LaneMap {
+  static constexpr int kStates = N < kLaneStates ? N : kLaneStates;
+  static constexpr int kLanes = N / kStates;     // lanes a channel
+  static constexpr int kChannels = 32 / kLanes;  // channels a warp
+  static_assert(kStates % 4 == 0 && N % kStates == 0 && kLanes <= 32,
+                "states a lane");
+};
+
+// a warp's stage: kTile steps of its channels' u and delta, and of B and C
+template <typename T, int N>
+struct alignas(16) Stage {
+  T u[kTile][LaneMap<N>::kChannels];
+  T dt[kTile][LaneMap<N>::kChannels];
+  T b[kTile][N];
+  T c[kTile][N];
+};
+
+template <typename T, int N>
+struct alignas(16) WarpSmem {
+  Stage<T, N> ring[kStages];
+  float bc[2][kTile][N];  // bf16: the tile's B and C widened to f32
+  float part[kTile][32];  // lane l's terms of y_t (its states' h . C)
+  float dskip[LaneMap<N>::kChannels];
+};
+
+struct Pieces {  // bytes a staging copy or a y store moves at once
+  int ud, b, c, y;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// values of a tile's B (and of its C) each thread stages
-template <int N>
-constexpr int kPerThread = (kTile * N + kThreads - 1) / kThreads;
+template <int kBytes>
+struct Word;
+template <>
+struct Word<16> { using type = uint4; };
+template <>
+struct Word<8> { using type = uint2; };
+template <>
+struct Word<4> { using type = unsigned; };
+template <>
+struct Word<2> { using type = unsigned short; };
 
-// Issue the loads of the tile that starts at t0: u and delta of this
-// thread's channel and its share of the tile's B and C.  Out-of-range
-// steps and dead channels read 0.
-template <typename T, int N>
-__device__ __forceinline__ void fetch(
-    int t0, int length, long long dim, bool live, const T* up, const T* dp,
-    const T* bp, long long b_sl, const T* cp, long long c_sl,
-    float (&fu)[kTile], float (&fd)[kTile], float (&fb)[kPerThread<N>],
-    float (&fc)[kPerThread<N>]) {
-#pragma unroll
-  for (int i = 0; i < kTile; ++i) {
-    const int t = t0 + i;
-    const bool ok = live && t < length;
-    fu[i] = ok ? load(up + t * dim) : 0.f;
-    fd[i] = ok ? load(dp + t * dim) : 0.f;
-  }
-#pragma unroll
-  for (int j = 0; j < kPerThread<N>; ++j) {
-    const int idx = threadIdx.x + j * kThreads;
-    const int t = t0 + idx / N;
-    const bool ok = idx < kTile * N && t < length;
-    fb[j] = ok ? load(bp + t * b_sl + idx % N) : 0.f;
-    fc[j] = ok ? load(cp + t * c_sl + idx % N) : 0.f;
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+template <int kBytes>
+__device__ __forceinline__ void copy_piece(void* dst, const void* src) {
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src)
+                 : "memory");
+  } else if constexpr (kBytes >= 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "n"(kBytes)
+                 : "memory");
+  } else {  // bf16 at an odd element offset: a plain copy
+    *static_cast<unsigned short*>(dst) =
+        __ldg(static_cast<const unsigned short*>(src));
   }
 }
 
-template <int N>
-__device__ __forceinline__ void stage(float (&sb)[kTile][N],
-                                      float (&sc)[kTile][N],
-                                      const float (&fb)[kPerThread<N>],
-                                      const float (&fc)[kPerThread<N>]) {
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// `body(j)` for j in [0, n): unrolled in the 16-byte instance (one or two
+// pieces a lane), a loop in the others, whose unrolled pieces for every
+// width ran the address arithmetic out of registers.
+template <bool kUnroll, int n, typename F>
+__device__ __forceinline__ void for_pieces(F&& body) {
+  if constexpr (kUnroll) {
 #pragma unroll
-  for (int j = 0; j < kPerThread<N>; ++j) {
-    const int idx = threadIdx.x + j * kThreads;
-    if (idx < kTile * N) {
-      sb[idx / N][idx % N] = fb[j];
-      sc[idx / N][idx % N] = fc[j];
+    for (int j = 0; j < n; ++j) body(j);
+  } else {
+#pragma unroll 1
+    for (int j = 0; j < n; ++j) body(j);
+  }
+}
+
+// Rows [t0, t0 + kTile) of a matrix whose row t starts at src + t * ld
+// (elements) into dst[kTile][W], in pieces of kBytes; rows at or past
+// `length` and columns at or past `cols` take `pad` instead.
+template <int kBytes, int W, bool kVec, typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src, long long ld,
+                                      int t0, int length, int cols, T pad,
+                                      int lane) {
+  constexpr int kPer = kBytes / static_cast<int>(sizeof(T));
+  if constexpr (kPer >= 1 && W % kPer == 0) {
+    constexpr int kRow = W / kPer;  // pieces a row
+    constexpr int kAll = kTile * kRow;
+    for_pieces<kVec, (kAll + 31) / 32>([&](int j) {
+      const int p = lane + 32 * j;
+      if (kAll % 32 == 0 || p < kAll) {
+        const int r = p / kRow, col = p % kRow * kPer;
+        T* d = dst + r * W + col;
+        if (t0 + r < length && col < cols) {
+          copy_piece<kBytes>(d, src + static_cast<long long>(t0 + r) * ld
+                                    + col);
+        } else {
+#pragma unroll
+          for (int e = 0; e < kPer; ++e) d[e] = pad;
+        }
+      }
+    });
+  } else {
+    __trap();  // the host never picks a piece wider than the row
+  }
+}
+
+template <bool kVec, int W, typename T>
+__device__ __forceinline__ void stage_tile(int bytes, T* dst, const T* src,
+                                           long long ld, int t0, int length,
+                                           int cols, T pad, int lane) {
+  if constexpr (kVec) {
+    stage<16, W, true>(dst, src, ld, t0, length, cols, pad, lane);
+  } else {
+    switch (bytes) {
+      case 16:
+        stage<16, W, false>(dst, src, ld, t0, length, cols, pad, lane);
+        break;
+      case 8:
+        stage<8, W, false>(dst, src, ld, t0, length, cols, pad, lane);
+        break;
+      case 4:
+        stage<4, W, false>(dst, src, ld, t0, length, cols, pad, lane);
+        break;
+      default:
+        stage<2, W, false>(dst, src, ld, t0, length, cols, pad, lane);
     }
   }
 }
 
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads) mamba_scan_kernel(
-    const T* __restrict__ u, const T* __restrict__ delta,
-    const float* __restrict__ a, const T* __restrict__ bmat,
-    const T* __restrict__ cmat, const float* __restrict__ dskip,
-    T* __restrict__ y, float* __restrict__ hlast, int length, int dim,
-    long long b_sb, long long b_sl, long long c_sb, long long c_sl) {
-  constexpr int kLanes = N / kStates;  // lanes per channel: 1, 2 or 4
-  constexpr int kBC = kPerThread<N>;
-  __shared__ __align__(16) float s_b[2][kTile][N];
-  __shared__ __align__(16) float s_c[2][kTile][N];
+// A bf16 tile's B and C as f32: one 16-byte vector (8 values) a piece.
+template <int N>
+__device__ __forceinline__ void widen(float (&bc)[2][kTile][N],
+                                      const Stage<__nv_bfloat16, N>& st,
+                                      int lane) {
+  constexpr int kVecs = kTile * N / 8;  // vectors of one matrix
+#pragma unroll
+  for (int j = 0; j < (2 * kVecs + 31) / 32; ++j) {
+    const int p = lane + 32 * j;
+    if ((2 * kVecs) % 32 == 0 || p < 2 * kVecs) {
+      const int which = p / kVecs, v = p % kVecs;
+      const __nv_bfloat16* src = which ? &st.c[0][0] : &st.b[0][0];
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + v * 8);
+      const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+      float* dst = &bc[which][0][0] + v * 8;
+#pragma unroll
+      for (int q = 0; q < 2; ++q)  // bf16 -> f32 is the top half of the bits
+        *reinterpret_cast<float4*>(dst + 4 * q) = make_float4(
+            __uint_as_float(w[2 * q] << 16),
+            __uint_as_float(w[2 * q] & 0xffff0000u),
+            __uint_as_float(w[2 * q + 1] << 16),
+            __uint_as_float(w[2 * q + 1] & 0xffff0000u));
+    }
+  }
+}
 
+// kN values of shared memory at p; as 16-byte reads where they fill whole
+// ones (p is then 16-byte aligned: every caller's offset is a multiple of
+// the run's length).
+template <int kN, typename T>
+__device__ __forceinline__ void load_run(T (&out)[kN], const T* p) {
+  constexpr int kBytes = kN * static_cast<int>(sizeof(T));
+  if constexpr (kBytes % 16 == 0) {
+#pragma unroll
+    for (int q = 0; q < kBytes / 16; ++q)
+      reinterpret_cast<uint4*>(out)[q] = reinterpret_cast<const uint4*>(p)[q];
+  } else {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) out[e] = p[e];
+  }
+}
+
+// The tile's y: rows [0, rows) and channels [0, cols) of the warp's
+// columns, in stores of kBytes; y = (sum of the channel's lanes' terms)
+// + D * u.
+template <int kBytes, bool kVec, typename T, int N>
+__device__ __forceinline__ void write_y(const WarpSmem<T, N>& w,
+                                        const Stage<T, N>& st, T* y,
+                                        long long ld, int rows, int cols,
+                                        int lane) {
+  using M = LaneMap<N>;
+  constexpr int kV = kBytes / static_cast<int>(sizeof(T));
+  constexpr int C = M::kChannels;
+  constexpr int kL = M::kLanes;
+  if constexpr (kV >= 1 && C % kV == 0) {
+    constexpr int kRow = C / kV;  // stores a row
+    constexpr int kAll = kTile * kRow;
+    for_pieces<kVec, (kAll + 31) / 32>([&](int j) {
+      const int p = lane + 32 * j;
+      if (kAll % 32 == 0 || p < kAll) {
+        const int r = p / kRow, col = p % kRow * kV;
+        if (r < rows && col < cols) {
+          alignas(16) float terms[kV * kL];
+          alignas(16) float ds[kV];
+          alignas(16) T ut[kV];
+          alignas(16) T out[kV];
+          load_run(terms, &w.part[r][col * kL]);
+          load_run(ds, &w.dskip[col]);
+          load_run(ut, &st.u[r][col]);
+#pragma unroll
+          for (int e = 0; e < kV; ++e) {
+            float s = terms[e * kL];
+#pragma unroll
+            for (int q = 1; q < kL; ++q) s = __fadd_rn(s, terms[e * kL + q]);
+            put(out + e, __fadd_rn(s, __fmul_rn(ds[e], to_f32(ut[e]))));
+          }
+          using V = typename Word<kBytes>::type;
+          *reinterpret_cast<V*>(y + r * ld + col) =
+              *reinterpret_cast<const V*>(out);
+        }
+      }
+    });
+  } else {
+    __trap();
+  }
+}
+
+template <bool kVec, typename T, int N>
+__device__ __forceinline__ void write_y_tile(int bytes,
+                                             const WarpSmem<T, N>& w,
+                                             const Stage<T, N>& st, T* y,
+                                             long long ld, int rows,
+                                             int cols, int lane) {
+  if constexpr (kVec) {
+    write_y<16, true>(w, st, y, ld, rows, cols, lane);
+  } else {
+    switch (bytes) {
+      case 16: write_y<16, false>(w, st, y, ld, rows, cols, lane); break;
+      case 8: write_y<8, false>(w, st, y, ld, rows, cols, lane); break;
+      case 4: write_y<4, false>(w, st, y, ld, rows, cols, lane); break;
+      default: write_y<2, false>(w, st, y, ld, rows, cols, lane);
+    }
+  }
+}
+
+template <typename T, int N, bool kVec>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+    mamba_scan_kernel(const T* __restrict__ u, const T* __restrict__ delta,
+                      const float* __restrict__ a,
+                      const T* __restrict__ bmat, const T* __restrict__ cmat,
+                      const float* __restrict__ dskip, T* __restrict__ y,
+                      float* __restrict__ hlast, int length, int dim,
+                      long long b_sb, long long b_sl, long long c_sb,
+                      long long c_sl, Pieces pc) {
+  using M = LaneMap<N>;
+  constexpr int S = M::kStates;
+  constexpr int C = M::kChannels;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int d0 = (blockIdx.x * kWarps + warp) * C;
+  if (d0 >= dim) return;  // no barrier spans warps
+  WarpSmem<T, N>& w = reinterpret_cast<WarpSmem<T, N>*>(smem_raw)[warp];
   const int bi = blockIdx.y;
-  const int d = blockIdx.x * (kThreads / kLanes) + threadIdx.x / kLanes;
-  const int n0 = (threadIdx.x % kLanes) * kStates;  // this lane's states
-  const bool live = d < dim;
+  const int cols = min(C, dim - d0);  // this warp's channels inside D
+  const int ch = lane / M::kLanes;
+  const int n0 = lane % M::kLanes * S;  // this lane's states
+  const bool live = ch < cols;
   const long long ld = dim;
-  const long long base = static_cast<long long>(bi) * length * ld + d;
-  const T* up = u + base;
-  const T* dp = delta + base;
-  T* yp = y + base;
+  const long long row0 = static_cast<long long>(bi) * length * ld + d0;
+  const T* up = u + row0;
+  const T* dp = delta + row0;
+  T* yp = y + row0;
   const T* bp = bmat + bi * b_sb;
   const T* cp = cmat + bi * c_sb;
-  const bool writer = live && n0 == 0;
 
-  float ar[kStates], h[kStates];
+  float ar[S], h[S];
 #pragma unroll
-  for (int k = 0; k < kStates; ++k) {
-    ar[k] = live ? a[static_cast<long long>(d) * N + n0 + k] : 0.f;
+  for (int k = 0; k < S; ++k) {
+    ar[k] = live ? a[static_cast<long long>(d0 + ch) * N + n0 + k] : 0.f;
     h[k] = 0.f;
   }
-  const float dsk = live ? dskip[d] : 0.f;
+  if (lane < C) w.dskip[lane] = lane < cols ? dskip[d0 + lane] : 0.f;
 
-  float cu[kTile], cd[kTile], rb[kBC], rc[kBC];
-  fetch<T, N>(0, length, ld, live, up, dp, bp, b_sl, cp, c_sl, cu, cd, rb,
-              rc);
-  stage<N>(s_b[0], s_c[0], rb, rc);
-  __syncthreads();
-  int buf = 0;
-  for (int t0 = 0; t0 < length; t0 += kTile, buf ^= 1) {
-    const int t1 = t0 + kTile;
-    float nu[kTile], nd[kTile];
-    if (t1 < length)  // in flight while this tile is computed
-      fetch<T, N>(t1, length, ld, live, up, dp, bp, b_sl, cp, c_sl, nu, nd,
-                  rb, rc);
+  T zero, neg_zero;
+  put(&zero, 0.f);
+  put(&neg_zero, -0.f);
+  const int tiles = (length + kTile - 1) / kTile;
+  auto issue = [&](int k) {  // tile k's copies into its stage
+    Stage<T, N>& st = w.ring[k % kStages];
+    const int t0 = k * kTile;
+    stage_tile<kVec, C>(pc.ud, &st.u[0][0], up, ld, t0, length, cols,
+                        neg_zero, lane);
+    stage_tile<kVec, C>(pc.ud, &st.dt[0][0], dp, ld, t0, length, cols, zero,
+                        lane);
+    stage_tile<kVec, N>(pc.b, &st.b[0][0], bp, b_sl, t0, length, N, zero,
+                        lane);
+    stage_tile<kVec, N>(pc.c, &st.c[0][0], cp, c_sl, t0, length, N, zero,
+                        lane);
+  };
+
+#pragma unroll 1
+  for (int k = 0; k < kStages - 1; ++k) {
+    if (k < tiles) issue(k);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int k = 0; k < tiles; ++k) {
+    if (k + kStages - 1 < tiles) issue(k + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();  // tile k has landed (this lane's part)
+    __syncwarp();                  // ... and every lane's
+    const Stage<T, N>& st = w.ring[k % kStages];
+    const float* bt;
+    const float* ct;
+    if constexpr (sizeof(T) == 2) {
+      widen<N>(w.bc, st, lane);
+      __syncwarp();
+      bt = &w.bc[0][0][0];
+      ct = &w.bc[1][0][0];
+    } else {
+      bt = &st.b[0][0];
+      ct = &st.c[0][0];
+    }
+    // the tile's terms stay in registers until its last step: a store to
+    // shared memory inside the tile would keep each step's loads, and so
+    // its exponentials, behind the step before
+    float acc[kTile];
 #pragma unroll
     for (int i = 0; i < kTile; ++i) {
-      const int t = t0 + i;
-      if (t >= length) break;  // the same for the whole block
-      const float dt = cd[i];
-      const float ut = cu[i];
+      const float ut = to_f32(st.u[i][ch]);
+      const float dt = to_f32(st.dt[i][ch]);
       const float du = __fmul_rn(dt, ut);
-      // this lane's 4 values of B_t and C_t: one 16-byte read each
-      const float4 b4 = *reinterpret_cast<const float4*>(&s_b[buf][i][n0]);
-      const float4 c4 = *reinterpret_cast<const float4*>(&s_c[buf][i][n0]);
-      const float bt[kStates] = {b4.x, b4.y, b4.z, b4.w};
-      const float ct[kStates] = {c4.x, c4.y, c4.z, c4.w};
-      float acc = 0.f;
+      acc[i] = 0.f;
 #pragma unroll
-      for (int k = 0; k < kStates; ++k) {
-        const float abar = expf(__fmul_rn(dt, ar[k]));
-        h[k] = __fadd_rn(__fmul_rn(abar, h[k]), __fmul_rn(du, bt[k]));
-        acc = fmaf(h[k], ct[k], acc);
-      }
+      for (int k4 = 0; k4 < S; k4 += 4) {
+        const float4 b4 = *reinterpret_cast<const float4*>(bt + i * N + n0
+                                                           + k4);
+        const float4 c4 = *reinterpret_cast<const float4*>(ct + i * N + n0
+                                                           + k4);
+        const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
+        const float cc[4] = {c4.x, c4.y, c4.z, c4.w};
 #pragma unroll
-      for (int off = 1; off < kLanes; off <<= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (writer) store(yp + t * ld, __fadd_rn(acc, __fmul_rn(dsk, ut)));
-    }
-    if (t1 < length) stage<N>(s_b[buf ^ 1], s_c[buf ^ 1], rb, rc);
-    // buf ^ 1 is complete, and every thread is done with buf before the
-    // tile after next overwrites it
-    __syncthreads();
-    if (t1 < length) {
-#pragma unroll
-      for (int i = 0; i < kTile; ++i) {
-        cu[i] = nu[i];
-        cd[i] = nd[i];
+        for (int e = 0; e < 4; ++e) {
+          const int s = k4 + e;
+          const float abar = expf(__fmul_rn(dt, ar[s]));
+          h[s] = __fadd_rn(__fmul_rn(abar, h[s]), __fmul_rn(du, bb[e]));
+          acc[i] = fmaf(h[s], cc[e], acc[i]);
+        }
       }
     }
+#pragma unroll
+    for (int i = 0; i < kTile; ++i) w.part[i][lane] = acc[i];
+    __syncwarp();
+    const int t0 = k * kTile;
+    write_y_tile<kVec>(pc.y, w, st, yp + t0 * ld, ld, min(kTile, length - t0),
+                       cols, lane);
+    __syncwarp();  // the stage and the terms are free again
   }
   if (live) {
-    float* hp = hlast + (static_cast<long long>(bi) * ld + d) * N + n0;
+    float* hp = hlast + (static_cast<long long>(bi) * ld + d0 + ch) * N + n0;
 #pragma unroll
-    for (int k = 0; k < kStates; ++k) hp[k] = h[k];
+    for (int k4 = 0; k4 < S; k4 += 4)
+      *reinterpret_cast<float4*>(hp + k4) =
+          make_float4(h[k4], h[k4 + 1], h[k4 + 2], h[k4 + 3]);
   }
+}
+
+// The widest of 16, 8, 4 (and 2 for bf16) bytes that divides every value.
+int widest(int esize, const long long* v, int n) {
+  for (int w = 16; w > esize; w >>= 1) {
+    bool ok = true;
+    for (int i = 0; i < n; ++i) ok = ok && (v[i] < 0 ? -v[i] : v[i]) % w == 0;
+    if (ok) return w;
+  }
+  return esize;
 }
 
 template <typename T, int N>
@@ -203,12 +472,32 @@ int launch(const void* u, const void* delta, const float* a, const void* b,
            const void* c, const float* dskip, void* y, float* hlast,
            int batch, int length, int dim, long long b_sb, long long b_sl,
            long long c_sb, long long c_sl, cudaStream_t stream) {
-  constexpr int kChannels = kThreads / (N / kStates);  // per block
-  const dim3 grid((dim + kChannels - 1) / kChannels, batch);
-  mamba_scan_kernel<T, N><<<grid, kThreads, 0, stream>>>(
+  constexpr int C = LaneMap<N>::kChannels;
+  constexpr long long es = sizeof(T);
+  auto addr = [](const void* p) {
+    return static_cast<long long>(reinterpret_cast<uintptr_t>(p));
+  };
+  const long long ud[] = {addr(u), addr(delta), dim * es, C * es};
+  const long long bv[] = {addr(b), b_sb * es, b_sl * es, N * es};
+  const long long cv[] = {addr(c), c_sb * es, c_sl * es, N * es};
+  const long long yv[] = {addr(y), dim * es, C * es};
+  const Pieces pc = {widest(es, ud, 4), widest(es, bv, 4), widest(es, cv, 4),
+                     widest(es, yv, 3)};
+  const bool vec = pc.ud == 16 && pc.b == 16 && pc.c == 16 && pc.y == 16;
+  const int smem = kWarps * static_cast<int>(sizeof(WarpSmem<T, N>));
+  auto kernel = vec ? mamba_scan_kernel<T, N, true>
+                    : mamba_scan_kernel<T, N, false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int warps = (dim + C - 1) / C;
+  const dim3 grid((warps + kWarps - 1) / kWarps, batch);
+  kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(delta), a,
       static_cast<const T*>(b), static_cast<const T*>(c), dskip,
-      static_cast<T*>(y), hlast, length, dim, b_sb, b_sl, c_sb, c_sl);
+      static_cast<T*>(y), hlast, length, dim, b_sb, b_sl, c_sb, c_sl, pc);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_ssm import SWEEP as SCAN_SWEEP
 
 from repro.kernels.paged_attention import paged_attention as pallas_paged
 from repro.kernels.ref import paged_attention_ref
@@ -563,3 +564,208 @@ def test_topk_gradient_rows_take_the_fast_path():
     assert {path for _, _, path, _ in emulated} == {"fast"}
     counts = [count for *_, count in emulated]
     assert min(counts) >= 10 and np.mean(counts) <= 20
+
+
+# ---------------------------------------------------------------------------
+# the scan kernel's schedule (csrc/mamba_scan.cu), emulated on the CPU
+# ---------------------------------------------------------------------------
+def _scan_constant(name):
+    """A lane-map constant of csrc/mamba_scan.cu (``constexpr int``)."""
+    src = (Path(pa.__file__).parent / "csrc" / "mamba_scan.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _widest(esize, values):
+    """csrc/mamba_scan.cu::widest: the widest of 16, 8, 4 (and 2 for bf16)
+    bytes that divides every value."""
+    w = 16
+    while w > esize:
+        if all(v % w == 0 for v in values):
+            return w
+        w //= 2
+    return esize
+
+
+def _scan_stage(flat, starts, width, cols, piece, esize, pad):
+    """The kernel's ``stage`` for rows beginning at element ``starts`` of
+    ``flat`` (-1: a row past L): each row of ``width`` elements in pieces
+    of ``piece`` bytes, every piece aligned to its width (the pointer
+    starts 256-byte aligned), columns at or past ``cols`` and rows past L
+    set to ``pad``."""
+    per = piece // esize
+    assert per >= 1 and width % per == 0
+    col = torch.arange(width)
+    live = (starts[..., None] >= 0) & (col < cols)
+    addr = starts[..., None] + col
+    piece_start = addr[..., ::per][live[..., ::per]]
+    assert ((piece_start * esize) % piece == 0).all()
+    # a piece is all inside D or all outside it
+    assert (live[..., ::per].repeat_interleave(per, -1) == live).all()
+    read = torch.where(live, addr, 0)  # nothing outside is read
+    return torch.where(live, flat[read], torch.tensor(pad))
+
+
+def _scan_emulation(u, delta, a, b, c, d_skip):
+    """csrc/mamba_scan.cu's schedule in torch f32 on the CPU.  N / S
+    lanes own a channel (S = min(kLaneStates, N) states a lane),
+    32 / (N / S) channels a warp; a warp stages tiles of kTile
+    steps of u, delta (its channels) and B, C through ``_scan_stage`` in
+    the pieces ``widest`` picks, rows past L as dt = 0, u = -0, B = C = 0
+    and channels past D likewise; each lane sums its states' terms of y_t
+    in state order (one rounding each, as FFMA); after the tile a
+    channel's lanes are summed in lane order, D * u is added once, and y
+    is stored in vectors of the y piece's width, rows past L and channels
+    past D masked.  The exponentials are the plain version's expression
+    on its own shapes (padded steps and channels take exp(0) = 1).
+    Returns (y, h_last, pieces, count of stores to each y element)."""
+    states, tile = _scan_constant("kLaneStates"), _scan_constant("kTile")
+    bsz, l, d = u.shape
+    n = a.shape[1]
+    s = min(states, n)
+    lanes = n // s
+    ch = 32 // lanes
+    warps = -(-d // ch)
+    es = u.element_size()
+    pieces = {"ud": _widest(es, [u.storage_offset() * es,
+                                 delta.storage_offset() * es, d * es,
+                                 ch * es]),
+              "y": _widest(es, [0, d * es, ch * es])}
+    for name, t in (("b", b), ("c", c)):
+        pieces[name] = _widest(es, [t.storage_offset() * es,
+                                    t.stride(0) * es, t.stride(1) * es,
+                                    n * es])
+    flat = {name: t.as_strided((t.untyped_storage().nbytes() // es,), (1,),
+                               0).float()
+            for name, t in (("u", u), ("dt", delta), ("b", b), ("c", c))}
+    af = a.float()
+    h = torch.zeros((bsz, warps * ch, n))
+    dead = torch.zeros((bsz, warps * ch - d, n))
+    y = torch.zeros((bsz, l, d))
+    stores = torch.zeros((bsz, l, d), dtype=torch.int32)
+    ds = torch.zeros(warps * ch)
+    ds[:d] = d_skip.float()
+    for t0 in range(0, l, tile):
+        rows = torch.arange(t0, t0 + tile)
+        inside = rows < l
+        bi = torch.arange(bsz)[:, None, None]
+        w0 = torch.arange(warps)[None, :, None] * ch
+        ud_start = torch.where(inside, (bi * l + rows) * d, -1) \
+            + u.storage_offset()
+        ud_start = torch.where(inside, ud_start + w0, -1)  # (B, W, T)
+        cols = (d - w0).clamp_max(ch)[..., None]
+        st = {}
+        for name, pad in (("u", -0.0), ("dt", 0.0)):
+            off = delta.storage_offset() - u.storage_offset() \
+                if name == "dt" else 0
+            st[name] = _scan_stage(flat[name], torch.where(
+                ud_start >= 0, ud_start + off, -1), ch, cols,
+                pieces["ud"], es, pad)  # (B, W, T, C)
+        for name, t in (("b", b), ("c", c)):
+            start = torch.where(inside, t.storage_offset()
+                                + bi[..., 0] * t.stride(0)
+                                + rows * t.stride(1), -1)  # (B, T)
+            st[name] = _scan_stage(flat[name], start, n, n, pieces[name], es,
+                                   0.0)  # (B, T, N)
+        us = st["u"].permute(0, 2, 1, 3).reshape(bsz, tile, -1)
+        dts = st["dt"].permute(0, 2, 1, 3).reshape(bsz, tile, -1)
+        part = torch.empty((bsz, tile, warps * ch, lanes))
+        for i in range(tile):
+            t = t0 + i
+            if t < l:  # the plain version's expression on its own shape
+                live = torch.exp(delta.float()[:, t, :, None] * af)
+            else:
+                live = torch.exp(dts[:, i, :d, None] * af)
+            abar = torch.cat([live, torch.exp(dts[:, i, d:, None] * dead)],
+                             1)
+            du = dts[:, i] * us[:, i]
+            h = abar * h + du[..., None] * st["b"][:, i, None, :]
+            hl = h.view(bsz, -1, lanes, s).double()
+            cl = st["c"][:, i].view(bsz, 1, lanes, s).double()
+            acc = torch.zeros((bsz, warps * ch, lanes), dtype=torch.float64)
+            for e in range(s):
+                acc = (hl[..., e] * cl[..., e] + acc).float().double()
+            part[:, i] = acc.float()
+        ysum = part[..., 0]
+        for q in range(1, lanes):
+            ysum = ysum + part[..., q]
+        yt = ysum + ds * us  # (B, T, W * C)
+        per = pieces["y"] // es
+        for w in range(warps):
+            for col in range(0, ch, per):
+                d1 = w * ch + col
+                if d1 >= d:
+                    continue
+                assert d1 + per <= d  # a store is all inside D
+                r = min(tile, l - t0)
+                y[:, t0:t0 + r, d1:d1 + per] = yt[:, :r, d1:d1 + per]
+                stores[:, t0:t0 + r, d1:d1 + per] += 1
+    return y.to(u.dtype), h[:, :d], pieces, stores
+
+
+def _scan_case_inputs(seed, bsz, l, d, n, layout):
+    """The reference sweep's distributions; B and C as slices of one
+    wider tensor: "model" as the model passes them (B at column 0, C at
+    N), "offset" at odd columns (1 and N + 3: not 16-byte aligned)."""
+    rng = np.random.default_rng(seed)
+    u = torch.from_numpy(0.5 * rng.standard_normal((bsz, l, d), np.float32))
+    delta = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((bsz, l, d), np.float32)))
+    a = -torch.from_numpy(rng.standard_normal((d, n), np.float32)).abs()
+    ob, oc = (0, n) if layout == "model" else (1, n + 3)
+    wide = torch.from_numpy(0.5 * rng.standard_normal((bsz, l, 2 * n + 4),
+                                                      np.float32))
+    ds = torch.from_numpy(rng.standard_normal(d, np.float32))
+    return u, delta, a, wide[..., ob:ob + n], wide[..., oc:oc + n], ds
+
+
+# (B, L, D, N, B/C layout)
+SCAN_EMU_CASES = (
+    [s + ("model",) for s in SCAN_SWEEP]          # the reference's sweep
+    + [(1, 1000, 64, 16, "model"), (2, 33, 32, 8, "model")]  # L % tile
+    + [(1, 40, 200, 16, "model"), (2, 20, 96, 16, "model")]  # D % block
+    + [(1, 50, 37, n, "model") for n in (4, 8, 16)]  # N, odd D
+    + [(2, 40, 64, 16, "offset"), (2, 40, 64, 4, "offset")])
+
+
+@pytest.mark.parametrize("case", SCAN_EMU_CASES,
+                         ids=["-".join(map(str, c)) for c in SCAN_EMU_CASES])
+def test_scan_schedule_emulation_matches_plain(case):
+    """The kernel's lane map, tiles with their padded tail, per-lane
+    terms and staged y rows against ``mamba_scan_plain``: h_last bitwise,
+    y within 1e-6, every y element stored once."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    bsz, l, d, n, layout = case
+    args = _scan_case_inputs(bsz * l + d + n, bsz, l, d, n, layout)
+    y, h, pieces, stores = _scan_emulation(*args)
+    yp, hp = ms.mamba_scan_plain(*args)
+    assert torch.equal(h.view(torch.int32), hp.view(torch.int32))
+    torch.testing.assert_close(y, yp, atol=1e-6, rtol=1e-6)
+    assert (stores == 1).all()
+    if layout == "offset":
+        assert pieces["b"] == pieces["c"] == 4  # f32 pieces, one element
+    elif d % 2:
+        assert pieces["ud"] == pieces["y"] == 4  # a row of odd length
+    elif n == 16 and d % 16 == 0:
+        assert set(pieces.values()) == {16}  # the 16-byte instance
+
+
+def test_scan_padded_step_leaves_state_bitwise_unchanged():
+    """A step past L (dt = 0, u = -0, B = C = 0) is the identity on h for
+    every value, -0.0 included: exp(0) = 1, 1 * h = h, du * b = -0 and
+    h + -0 = h; staged as u = +0 it would turn -0.0 into +0.0."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    u, delta, a, b, c, ds = _scan_case_inputs(3, 2, 40, 32, 16, "model")
+    u = -u.abs()  # u < 0 throughout the real steps
+    _, h = ms.mamba_scan_plain(u, delta, a, b, c, ds)
+    h = h.clone()
+    h[0, 0, :4] = torch.tensor([-0.0, 0.0, float("inf"), -float("inf")])
+    zero = torch.zeros((2, 32))
+    for pad_u, same in ((-0.0, True), (0.0, False)):
+        abar = torch.exp(zero[..., None] * a)
+        du = zero * torch.full((2, 32), pad_u)
+        after = abar * h + du[..., None] * torch.zeros((2, 1, 16))
+        assert torch.equal(after.view(torch.int32),
+                           h.view(torch.int32)) == same
+
