@@ -16,9 +16,12 @@ for ``sm_90a`` (``kernels/csrc/``):
     → ``kernels.ops.mamba_scan``) and xLSTM (``models.ssm.mlstm``,
     ``slstm``); ``DecodeEngine`` zeroes a slot's recurrent state when it
     admits a request;
-  * data-parallel training: ``launch.train`` → ``train.loop`` → ``sync`` →
+  * data-parallel training: ``launch.train`` → ``train.loop`` (microbatch
+    accumulation, the bf16 precision policies with loss scaling and
+    skip-step) → the strategies of the spectrum →
     ``core.fabric.Fabric.exchange`` (``kernels.ops.onebit_quant_packed``,
-    ``topk_encode_ef``) → ``optim.adam`` (``kernels.ops.fused_adam``).
+    ``topk_encode_ef``) → ``optim.adam`` (``kernels.ops.fused_adam``, f32
+    or bf16 params).
 
 Every entry point takes an explicit ``device``, defaulting to ``"cuda"``.
 With no card a ``"cuda"`` default raises; nothing moves quietly to the

@@ -99,9 +99,11 @@ def _ring_to_stack(buf):
 
 def train_state_from_numpy(state, device="cuda"):
     """A train state of the JAX package after ``np.asarray`` (stacked
-    ``params``, ``opt_state``, the strategy's ``comm_state``, ``step``) →
-    the port's, on ``device``; ``step`` becomes an int32 scalar tensor and
-    an ``ssp`` ring a tuple of s trees."""
+    ``params``, ``opt_state``, the strategy's ``comm_state``, ``step``,
+    and under a precision policy the f32 ``master`` and ``loss_scale``
+    {"scale" f32, "good_steps" int32}) → the port's, on ``device``, every
+    leaf in its dtype; ``step`` becomes an int32 scalar tensor and an
+    ``ssp`` ring a tuple of s trees."""
     out = params_from_numpy({k: v for k, v in state.items() if k != "step"},
                             device)
     if "comm_state" in out:

@@ -331,6 +331,7 @@ def _ensure_loaded():
         return
     _LOADED = True
     # the other configs of the JAX package arrive with their model families
-    # (MoE, encoder-decoder, vision) and deepseek-67b in later slices
-    from repro_torch.configs import (gemma3_1b, jamba_15_large,  # noqa: F401
-                                     qwen2_15b, qwen25_14b, xlstm_125m)
+    # (MoE, encoder-decoder, vision) in later slices
+    from repro_torch.configs import (deepseek_67b,  # noqa: F401
+                                     gemma3_1b, jamba_15_large, qwen2_15b,
+                                     qwen25_14b, xlstm_125m)

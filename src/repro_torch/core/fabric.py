@@ -17,9 +17,12 @@ through flattening, and every per-replica decode runs replica by replica
 Besides the all-mean exchange it ports the ring shift (``ppermute``), the
 error-feedback compression without a collective that buffering strategies
 use (``compress``) and the exchange with DGC momentum correction
-(``exchange_dgc``).  The wire is f32: the partitioned (ZeRO) layout, the
-narrow bf16 wire of the precision policy, the microbatch accumulator and
-the ``ShardComm`` branches are later slices of the port.
+(``exchange_dgc``), the wire dtype of the precision policy (uncompressed
+buckets rounded to bf16 before the axis reduction, which accumulates in
+f32, and counted at 2 bytes an element) and the microbatch accumulator
+(``init_accum``, ``accumulate``).  The partitioned (ZeRO) layout and the
+``ShardComm`` branches, the narrow sharded wire among them, are later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 from repro_torch.core import tree as T
 from repro_torch.core.compression import (Compressor, _narrow_wire, _pack,
                                           _unpack, packed_nbytes)
+from repro_torch.core.precision import torch_dtype
 
 DEFAULT_BUCKET_BYTES = 4 << 20  # 4 MiB of f32 per bucket
 
@@ -135,9 +139,14 @@ class BucketLayout:
 # ---------------------------------------------------------------------------
 # wire accounting (the codec itself lives in core/compression.py)
 # ---------------------------------------------------------------------------
-def wire_nbytes(compressor: Optional[Compressor], n: int) -> int:
+def wire_nbytes(compressor: Optional[Compressor], n: int,
+                wire_dtype=torch.float32) -> int:
     """Exact packed-wire size (bytes) to ship ``n`` f32 elements once: raw
-    f32 uncompressed, else the compressor's packed format."""
+    ``wire_dtype`` buckets uncompressed (2 bytes an element under the bf16
+    policy), else the compressor's packed format, which ignores
+    ``wire_dtype``."""
+    if compressor is None or compressor.name == "none":
+        return wire_dtype.itemsize * n
     return packed_nbytes(compressor, n)
 
 
@@ -150,12 +159,25 @@ class Fabric:
     param-shaped f32 trees."""
 
     def __init__(self, comm, bucket_bytes: int = DEFAULT_BUCKET_BYTES,
-                 fused: bool = True):
+                 wire_dtype=None, fused: bool = True):
         self.comm = comm
         self.bucket_bytes = bucket_bytes
+        # dtype of the UNCOMPRESSED wire (PrecisionPolicy.wire_dtype):
+        # buckets are rounded to it before every collective; f32 (the
+        # default) leaves every path bit for bit unchanged
+        self.wire_dtype = (torch.float32 if wire_dtype is None
+                           else torch_dtype(wire_dtype))
         # compressed exchanges go through the compressor's fused encode
         # (kernels/ops.py) when it has one; bitwise identical to the codec
         self.fused = fused
+
+    def _wire_cast(self, buckets):
+        """Round flat f32 buckets to the wire dtype and back to f32, so the
+        axis reduction accumulates in f32: a bf16 wire with f32 ring
+        accumulation, as the reference's stacked simulator computes it."""
+        if self.wire_dtype == torch.float32:
+            return buckets
+        return [b.to(self.wire_dtype).float() for b in buckets]
 
     def layout(self, tree) -> BucketLayout:
         return BucketLayout.build(tree, self.bucket_bytes,
@@ -173,7 +195,7 @@ class Fabric:
         if lay.n_leaves == 0:
             return tree
         op = self.comm.all_mean if mean else self.comm.all_sum
-        return lay.debucketize(op(lay.bucketize(tree)))
+        return lay.debucketize(op(self._wire_cast(lay.bucketize(tree))))
 
     def ppermute(self, tree, shift: int = 1):
         """Ring shift of every bucket: worker w receives worker
@@ -181,20 +203,24 @@ class Fabric:
         lay = self.layout(tree)
         if lay.n_leaves == 0:
             return tree
-        return lay.debucketize(self.comm.ppermute(lay.bucketize(tree), shift))
+        return lay.debucketize(self.comm.ppermute(
+            self._wire_cast(lay.bucketize(tree)), shift))
 
     # -- wire accounting ----------------------------------------------------
     def flat_bytes(self, tree_or_layout) -> float:
-        """Uncompressed f32 bytes to ship the tree once (all replicas)."""
+        """Uncompressed wire-dtype bytes to ship the tree once (all
+        replicas): halves under a bf16 wire."""
         lay = tree_or_layout if isinstance(tree_or_layout, BucketLayout) \
             else self.layout(tree_or_layout)
-        return float(4 * lay.total_elements * _prod(lay.lead_shape))
+        return float(self.wire_dtype.itemsize * lay.total_elements
+                     * _prod(lay.lead_shape))
 
     def wire_bytes(self, tree_or_layout, compressor=None) -> float:
         """Packed bytes to ship the tree once (all replicas)."""
         lay = tree_or_layout if isinstance(tree_or_layout, BucketLayout) \
             else self.layout(tree_or_layout)
-        per = sum(wire_nbytes(compressor, n) for n in lay.bucket_sizes)
+        per = sum(wire_nbytes(compressor, n, self.wire_dtype)
+                  for n in lay.bucket_sizes)
         return float(per * _prod(lay.lead_shape))
 
     def metrics(self, nbytes, events=1.0):
@@ -272,6 +298,37 @@ class Fabric:
         (mean,) = self.comm.all_mean([dec_self])
         return mean, dec_self, new_r
 
+    # -- flat-bucket gradient accumulation ----------------------------------
+    # The microbatched train step (train/loop.py) keeps its gradient
+    # accumulator in bucket space, and the boundary exchange consumes the
+    # accumulated sum: compression, error feedback and the collective all
+    # run at the boundary only.
+
+    def init_accum(self, lay: BucketLayout, device=None):
+        """Zeroed flat f32 accumulator buckets on ``device``.  They own
+        their storage: a one-leaf bucket of ``bucketize`` is a view of the
+        leaf, and an add into such a view would write into a microbatch's
+        gradient."""
+        return [torch.zeros(lay.lead_shape + (n,), dtype=torch.float32,
+                            device=device) for n in lay.bucket_sizes]
+
+    def accumulate(self, acc, tree, lay: BucketLayout, replica=None):
+        """acc + bucketize(tree), IN PLACE on the accumulator's buckets
+        (the reference's donated scan carry): elementwise f32 adds.  With
+        ``replica`` (an index on the leading replica axis) ``tree`` is that
+        one replica's tree and is added into its rows only: the same adds,
+        without a stacked tree.  Returns ``acc``."""
+        if replica is None:
+            for a, g in zip(acc, lay.bucketize(tree)):
+                a.add_(g)
+            return acc
+        for i, x in enumerate(T.leaves(tree)):
+            row = acc[lay.bucket_of[i]][replica]
+            off = lay.offsets[i]
+            row[..., off:off + lay.sizes[i]].add_(
+                x.reshape(tuple(row.shape[:-1]) + (-1,)))
+        return acc
+
     # -- fused exchanges ----------------------------------------------------
     def exchange(self, grads, residual=None, compressor=None, events=1.0):
         """Fused all-mean of ``grads`` with optional compression and error
@@ -287,7 +344,8 @@ class Fabric:
         instead of a tree; one collective per bucket.  Returns (mean_tree,
         new_residual_tree, metrics)."""
         if compressor is None or compressor.name == "none":
-            return (lay.debucketize(self.comm.all_mean(buckets)), residual,
+            out = self.comm.all_mean(self._wire_cast(buckets))
+            return (lay.debucketize(out), residual,
                     self.metrics(self.flat_bytes(lay), events))
         rb = lay.bucketize(residual)
         g_out, r_out = [], []

@@ -27,9 +27,13 @@ Differences from the reference, none of which changes a result:
     (s, W, ...) array: a step builds a new tuple that holds the fresh
     gradient in its slot, so the ring is neither copied nor mutated
     (``bridge.py`` converts to and from the reference's layout);
-  * the precision policy (``policy=``), the ZeRO strategies and the unused
-    ``compressor`` arguments of ``local_sgd`` and ``gossip`` are not
-    ported.
+  * the ZeRO strategies and the unused ``compressor`` arguments of
+    ``local_sgd`` and ``gossip`` are not ported.
+
+Every strategy takes the precision policy (``policy=``, ``core/precision.py``):
+its Fabric rounds the uncompressed exchanges (``all_mean``, ``all_sum``,
+``ppermute``) to the policy's wire dtype and counts their bytes at that
+width; the compressors keep their own packed format.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import torch
 from repro_torch.core import tree as T
 from repro_torch.core.compression import Compressor, dgc_init, ef_init
 from repro_torch.core.fabric import DEFAULT_BUCKET_BYTES, Fabric
+from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.optim.optimizers import Optimizer
 
 
@@ -73,16 +78,24 @@ class Strategy:
     # FRESH mapping: callers re-step from saved state.
 
 
+def _fab(comm, bucket_bytes: int,
+         policy: Optional[PrecisionPolicy]) -> Fabric:
+    """Fabric with the policy's wire dtype (f32 when no policy)."""
+    return Fabric(comm, bucket_bytes,
+                  wire_dtype=policy.wire_dt if policy is not None else None)
+
+
 # ---------------------------------------------------------------------------
 # 1. synchronous — large mini-batch all-reduce (bucket-fused)
 # ---------------------------------------------------------------------------
 def sync(compressor: Optional[Compressor] = None,
-         bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> Strategy:
+         bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+         policy: Optional[PrecisionPolicy] = None) -> Strategy:
     def init(params, comm):
         return {"residual": ef_init(params)} if compressor else {}
 
     def update(params, grads, opt_state, cstate, t, opt, comm):
-        fab = Fabric(comm, bucket_bytes)
+        fab = _fab(comm, bucket_bytes, policy)
         g, new_res, m = fab.exchange(grads, cstate.get("residual"), compressor)
         if compressor:
             cstate = {"residual": new_res}
@@ -97,12 +110,13 @@ def sync(compressor: Optional[Compressor] = None,
 # +. local SGD / model averaging (paper §2.2.3)
 # ---------------------------------------------------------------------------
 def local_sgd(sync_every: int = 8,
-              bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> Strategy:
+              bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+              policy: Optional[PrecisionPolicy] = None) -> Strategy:
     def init(params, comm):
         return {}
 
     def update(params, grads, opt_state, cstate, t, opt, comm):
-        fab = Fabric(comm, bucket_bytes)
+        fab = _fab(comm, bucket_bytes, policy)
         params, opt_state = opt.update(grads, opt_state, params, t)
         do_avg = (t + 1) % sync_every == 0
         if do_avg:
@@ -122,7 +136,8 @@ def local_sgd(sync_every: int = 8,
 # 1b. sync + Deep Gradient Compression (momentum correction)
 # ---------------------------------------------------------------------------
 def sync_dgc(compressor: Compressor, momentum: float = 0.9,
-             bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> Strategy:
+             bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+             policy: Optional[PrecisionPolicy] = None) -> Strategy:
     """Synchronous exchange of momentum-corrected compressed gradients:
     velocity (not the raw gradient) accumulates into the residual, so the
     updates compression left out keep their momentum.  Runs on the flat
@@ -132,7 +147,7 @@ def sync_dgc(compressor: Compressor, momentum: float = 0.9,
         return {"dgc": dgc_init(params)}
 
     def update(params, grads, opt_state, cstate, t, opt, comm):
-        fab = Fabric(comm, bucket_bytes)
+        fab = _fab(comm, bucket_bytes, policy)
         g, new_dgc, m = fab.exchange_dgc(grads, cstate["dgc"], compressor,
                                          momentum)
         params, opt_state = opt.update(g, opt_state, params, t)
@@ -146,7 +161,8 @@ def sync_dgc(compressor: Compressor, momentum: float = 0.9,
 # +. elastic averaging SGD (paper §2.2.3)
 # ---------------------------------------------------------------------------
 def easgd(alpha: float = 0.1, sync_every: int = 4,
-          bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> Strategy:
+          bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+          policy: Optional[PrecisionPolicy] = None) -> Strategy:
     """Workers are elastically attracted to a (replicated) center variable;
     the center moves toward the worker average."""
 
@@ -163,7 +179,7 @@ def easgd(alpha: float = 0.1, sync_every: int = 4,
         return {"center": T.tree_map(center, params)}
 
     def update(params, grads, opt_state, cstate, t, opt, comm):
-        fab = Fabric(comm, bucket_bytes)
+        fab = _fab(comm, bucket_bytes, policy)
         params, opt_state = opt.update(grads, opt_state, params, t)
         do = (t + 1) % sync_every == 0
         center = cstate["center"]
@@ -187,7 +203,8 @@ def easgd(alpha: float = 0.1, sync_every: int = 4,
 # ---------------------------------------------------------------------------
 def ssp(staleness: int = 4, compressor: Optional[Compressor] = None,
         staleness_aware_lr: bool = False,
-        bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> Strategy:
+        bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+        policy: Optional[PrecisionPolicy] = None) -> Strategy:
     """Each worker applies its own fresh gradient and the others' from s
     steps ago.  ``staleness_aware_lr`` (Zhang et al.) scales the stale
     contributions by 1/s."""
@@ -202,7 +219,7 @@ def ssp(staleness: int = 4, compressor: Optional[Compressor] = None,
         return st
 
     def update(params, grads, opt_state, cstate, t, opt, comm):
-        fab = Fabric(comm, bucket_bytes)
+        fab = _fab(comm, bucket_bytes, policy)
         new_c = dict(cstate)
         if compressor:
             grads, new_c["residual"], nbytes = fab.compress(
@@ -233,7 +250,8 @@ def ssp(staleness: int = 4, compressor: Optional[Compressor] = None,
 # ---------------------------------------------------------------------------
 def downpour(push_every: int = 4,
              compressor: Optional[Compressor] = None,
-             bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> Strategy:
+             bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+             policy: Optional[PrecisionPolicy] = None) -> Strategy:
     """Decentralized Downpour: workers accumulate locally and push on
     staggered schedules; every update is eventually delivered everywhere
     (complete)."""
@@ -246,7 +264,7 @@ def downpour(push_every: int = 4,
         return st
 
     def update(params, grads, opt_state, cstate, t, opt, comm):
-        fab = Fabric(comm, bucket_bytes)
+        fab = _fab(comm, bucket_bytes, policy)
         new_c = dict(cstate)
         if compressor:
             grads, new_c["residual"], nbytes = fab.compress(
@@ -288,7 +306,8 @@ def downpour(push_every: int = 4,
 # 4. gossip — PARTIAL communication (ring mixing)
 # ---------------------------------------------------------------------------
 def gossip(mix_every: int = 1, symmetric: bool = True,
-           bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> Strategy:
+           bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+           policy: Optional[PrecisionPolicy] = None) -> Strategy:
     """Ring gossip on the weights after the local step.  A worker only ever
     hears from its ring neighbors: updates from the others are never
     delivered directly (point 4: model consistency is given up)."""
@@ -297,7 +316,7 @@ def gossip(mix_every: int = 1, symmetric: bool = True,
         return {}
 
     def update(params, grads, opt_state, cstate, t, opt, comm):
-        fab = Fabric(comm, bucket_bytes)
+        fab = _fab(comm, bucket_bytes, policy)
         params, opt_state = opt.update(grads, opt_state, params, t)
         do_mix = (t + 1) % mix_every == 0
         if do_mix:

@@ -9,12 +9,18 @@ reproduced and need not be (the parity tests feed the JAX package's
 batches to the port).  A batch is a few KB, so the host draws it and one
 non-blocking copy moves it to the card.
 
-``prefetch_batches`` and ``microbatch_stack`` (the device double buffer
-and microbatch accumulation) are later slices of the port.
+``microbatch_stack`` stacks the microbatches of one accumulation boundary
+(microbatch j of optimizer step T is plain step ``T*accum_steps + j``),
+and ``prefetch_batches`` keeps ``depth`` batches in flight: on the card
+batch t+1 is drawn on the host and its pinned copy enqueued on a side
+stream before step t is dispatched, and the consumer's stream waits for
+that stream when it takes the batch.  The values are the same at every
+depth.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 
 import numpy as np
@@ -46,11 +52,8 @@ def _generator(cfg: DataConfig, step: int) -> torch.Generator:
         (cfg.seed * 1_000_003 + int(step)) % (1 << 63))
 
 
-def worker_batches(cfg: DataConfig, n_workers: int, step: int,
-                   device="cuda"):
-    """Stacked (W, batch_per_worker, seq_len) int32 tokens of ``step``,
-    deterministic in (seed, step), on ``device``."""
-    dev = resolve_device(device)
+def _host_batches(cfg: DataConfig, n_workers: int, step: int):
+    """(W, batch_per_worker, seq_len) int32 tokens of ``step`` on the host."""
     gen = _generator(cfg, step)
     w, b, l, v = n_workers, cfg.batch_per_worker, cfg.seq_len, cfg.v_act
     start = torch.randint(0, v, (w, b), generator=gen, dtype=torch.int64)
@@ -61,9 +64,78 @@ def worker_batches(cfg: DataConfig, n_workers: int, step: int,
     for i in range(l):
         x = torch.where(coin[..., i], (cfg.a * x + cfg.b) % v, noise[..., i])
         toks[..., i] = x
+    return toks
+
+
+def _host_stack(cfg, n_workers, opt_step, accum_steps):
+    steps = range(opt_step * accum_steps, (opt_step + 1) * accum_steps)
+    return torch.stack([_host_batches(cfg, n_workers, s) for s in steps])
+
+
+def _to_device(toks, dev):
     if dev.type == "cuda":
         return toks.pin_memory().to(dev, non_blocking=True)
     return toks.to(dev)
+
+
+def worker_batches(cfg: DataConfig, n_workers: int, step: int,
+                   device="cuda"):
+    """Stacked (W, batch_per_worker, seq_len) int32 tokens of ``step``,
+    deterministic in (seed, step), on ``device``."""
+    dev = resolve_device(device)
+    return _to_device(_host_batches(cfg, n_workers, step), dev)
+
+
+def microbatch_stack(cfg: DataConfig, n_workers: int, opt_step: int,
+                     accum_steps: int, device="cuda"):
+    """(accum_steps, W, batch_per_worker, seq_len): the microbatches of one
+    accumulation boundary.  Microbatch j of optimizer step T draws the data
+    of plain step ``T*accum_steps + j``, so the token stream is the one of
+    ``accum_steps`` unaccumulated steps."""
+    dev = resolve_device(device)
+    return _to_device(_host_stack(cfg, n_workers, opt_step, accum_steps),
+                      dev)
+
+
+def prefetch_batches(cfg: DataConfig, n_workers: int, steps: int,
+                     accum_steps: int = 1, depth: int = 2, device="cuda"):
+    """Yields ``(t, batch)`` for ``steps`` optimizer steps in order, keeping
+    up to ``depth`` batches in flight (``depth=1`` is synchronous).
+
+    A batch is ``worker_batches`` of step t, or ``microbatch_stack`` of
+    boundary t when ``accum_steps > 1``.  On a CUDA device each batch is
+    drawn on the host, pinned, and copied on a side stream; when the
+    consumer takes it, its current stream waits for the side stream and
+    the batch is recorded on the consumer's stream, so the caching
+    allocator does not reuse it early."""
+    dev = resolve_device(device)
+    depth = max(1, depth)
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    q = deque()
+
+    def synth(t):
+        host = (_host_stack(cfg, n_workers, t, accum_steps) if accum_steps > 1
+                else _host_batches(cfg, n_workers, t))
+        if side is None:
+            return host.to(dev)
+        host = host.pin_memory()
+        with torch.cuda.stream(side):
+            return host.to(dev, non_blocking=True)
+
+    def take():
+        t, b = q.popleft()
+        if side is not None:
+            cur = torch.cuda.current_stream(dev)
+            cur.wait_stream(side)
+            b.record_stream(cur)
+        return t, b
+
+    for t in range(steps):
+        q.append((t, synth(t)))
+        while len(q) >= depth:
+            yield take()
+    while q:
+        yield take()
 
 
 def bayes_entropy(cfg: DataConfig) -> float:

@@ -49,7 +49,7 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(0)
     params = comm.replicate(T.init_model(gen, cfg, device=dev))
     state = init_train_state(params, opt, strategy, comm)
-    lf = make_loss_fn(cfg)
+    lf = make_loss_fn(cfg, remat=False)
     step = make_replica_train_step(
         lambda p, toks: lf(p, {"tokens": toks, "labels": toks}),
         opt, strategy, comm)

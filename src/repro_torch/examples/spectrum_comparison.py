@@ -47,7 +47,7 @@ def main(argv=None):
     comm = LocalComm(W)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
                       batch_per_worker=4)
-    lf = make_loss_fn(cfg)
+    lf = make_loss_fn(cfg, remat=False)
 
     def loss_fn(p, toks):
         return lf(p, {"tokens": toks, "labels": toks})

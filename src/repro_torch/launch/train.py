@@ -6,16 +6,20 @@ Port of ``repro/launch/train.py`` (its replica-simulator mode), with the
 reference's flags, printed fields, ``--out`` JSON and exit-2 messages, and
 one more flag, ``--device`` (default ``cuda``).  As in the reference,
 ``--compressor`` goes to ``sync``, ``ssp``, ``downpour`` and ``sync_dgc``
-(which needs one).  Flags whose machinery is a later slice of the port
-exit 2 with a one-line message that names it: ``--zero-stage`` and the
-``sync_zero*`` strategies, ``--precision`` other than f32,
-``--accum-steps`` above 1, ``--ckpt-dir`` and ``--resume``.
-``--prefetch-depth`` is accepted and has no effect yet.
+(which needs one); ``--precision bf16|bf16-pure`` trains under that
+precision policy (bf16 weights, compute and uncompressed wire; ``bf16``
+keeps an f32 master and scales the loss, skipping a step that
+overflows); ``--accum-steps K`` accumulates K microbatches an optimizer
+step (one exchange a boundary, global batch W × B × K); and
+``--prefetch-depth D`` keeps D batches in flight (``1`` is synchronous).
+Flags whose machinery is a later slice of the port exit 2 with a
+one-line message that names it: ``--zero-stage`` and the ``sync_zero*``
+strategies, ``--ckpt-dir`` and ``--resume``.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
-      --reduced --device cpu --strategy downpour --compressor onebit \\
-      --fused-adam --steps 20
+      --reduced --device cpu --strategy sync --compressor onebit \\
+      --precision bf16 --accum-steps 2 --fused-adam --steps 20
 """
 
 from __future__ import annotations
@@ -32,15 +36,17 @@ from repro_torch.configs import get_config, list_configs
 from repro_torch.core import tree as T
 from repro_torch.core.comm import LocalComm
 from repro_torch.core.compression import get_compressor
+from repro_torch.core.precision import apply_policy, get_policy
 from repro_torch.core.strategies import REGISTRY, get_strategy
-from repro_torch.data.pipeline import DataConfig, bayes_entropy, worker_batches
+from repro_torch.data.pipeline import (DataConfig, bayes_entropy,
+                                       prefetch_batches)
 from repro_torch.models import transformer as TM
 from repro_torch.optim import adam, sgd, warmup_cosine
 from repro_torch.train.loop import (init_train_state, make_loss_fn,
                                     make_replica_train_step)
 
-# the reference's strategy and precision names, so that a flag of a later
-# slice parses and then exits 2 with a message naming what it needs
+# the reference's strategy and precision names, so that a strategy of a
+# later slice parses and then exits 2 with a message naming what it needs
 REFERENCE_STRATEGIES = ("downpour", "easgd", "gossip", "local_sgd", "ssp",
                         "sync", "sync_dgc", "sync_zero1", "sync_zero2",
                         "sync_zero3")
@@ -58,16 +64,20 @@ def build_argparser():
     ap.add_argument("--compressor", default="none",
                     choices=["none", "onebit", "int8", "topk"])
     ap.add_argument("--precision", default="f32", choices=REFERENCE_PRECISIONS,
-                    help="precision policy (a later slice: only f32)")
+                    help="precision policy (core/precision.py): f32 | bf16 "
+                         "(bf16 compute/wire, f32 master, dynamic loss "
+                         "scaling) | bf16-pure")
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--steps", type=int, default=100,
-                    help="OPTIMIZER steps")
+                    help="OPTIMIZER steps (accumulation boundaries)")
     ap.add_argument("--batch-per-worker", type=int, default=4)
     ap.add_argument("--accum-steps", type=int, default=1,
-                    help="microbatches per optimizer step (a later slice: "
-                         "only 1)")
+                    help="microbatches accumulated per optimizer step: the "
+                         "exchange fires once per boundary; global batch = "
+                         "workers x batch-per-worker x accum-steps")
     ap.add_argument("--prefetch-depth", type=int, default=2,
-                    help="accepted; the device prefetch is a later slice")
+                    help="batches kept in flight by the device prefetch "
+                         "(1 = synchronous)")
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--optimizer", default="adam", choices=["adam", "sgd"])
@@ -98,12 +108,6 @@ def check_ported(args):
     if args.strategy not in REGISTRY:
         _exit2(f"--strategy {args.strategy}: ZeRO partitioning is a later "
                f"slice of the port; ported: {', '.join(sorted(REGISTRY))}")
-    if args.precision != "f32":
-        _exit2(f"--precision {args.precision}: precision policies are a "
-               "later slice of the port")
-    if args.accum_steps != 1:
-        _exit2(f"--accum-steps {args.accum_steps}: microbatch accumulation "
-               "is a later slice of the port")
     if args.ckpt_dir or args.resume:
         _exit2("--ckpt-dir/--resume: checkpoints are a later slice of the "
                "port")
@@ -123,7 +127,7 @@ def resolve_config(args):
     return cfg
 
 
-def strategy_from_args(args):
+def strategy_from_args(args, policy=None):
     comp = None
     if args.compressor != "none":
         comp = get_compressor(args.compressor) if args.compressor != "topk" \
@@ -135,6 +139,8 @@ def strategy_from_args(args):
         if comp is None:
             _exit2("sync_dgc needs --compressor (onebit | int8 | topk)")
         kw["compressor"] = comp
+    if policy is not None:
+        kw["policy"] = policy
     return get_strategy(args.strategy, **kw)
 
 
@@ -142,7 +148,12 @@ def train(args, cfg, on_step=None):
     """The CLI's body for a resolved config: prints the reference's fields
     and returns the logged history.  ``on_step(t, state, metrics)``, when
     given, runs after every step."""
-    strategy = strategy_from_args(args)
+    policy = get_policy(args.precision)
+    if policy.is_noop:
+        policy = None  # f32: the policy-less path, bitwise
+    else:
+        cfg = apply_policy(cfg, policy)
+    strategy = strategy_from_args(args, policy)
     dev = resolve_device(args.device)
     comm = LocalComm(args.workers)
     sched = warmup_cosine(args.lr, warmup=max(1, args.steps // 20),
@@ -154,19 +165,23 @@ def train(args, cfg, on_step=None):
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = comm.replicate(TM.init_model(gen, cfg, device=dev))
-    state = init_train_state(params, opt, strategy, comm)
+    state = init_train_state(params, opt, strategy, comm, policy=policy)
     del params
 
-    loss_fn_single = make_loss_fn(cfg)
+    loss_fn_single = make_loss_fn(cfg, remat=False)
 
     def loss_fn(p, toks):
         return loss_fn_single(p, {"tokens": toks, "labels": toks})
 
-    step_fn = make_replica_train_step(loss_fn, opt, strategy, comm)
+    step_fn = make_replica_train_step(loss_fn, opt, strategy, comm,
+                                      policy=policy,
+                                      accum_steps=args.accum_steps)
 
     n_params = sum(x.numel() for x in T.leaves(state["params"])) \
         // args.workers
-    samples_per_step = args.workers * args.batch_per_worker
+    # one optimizer step consumes accum_steps microbatches of workers x
+    # batch_per_worker samples each, but ships the bytes of ONE exchange
+    samples_per_step = args.workers * args.batch_per_worker * args.accum_steps
     print(f"arch={cfg.name} params={n_params:,} strategy={strategy.name} "
           f"precision={args.precision} workers={args.workers} "
           f"accum_steps={args.accum_steps} "
@@ -176,8 +191,9 @@ def train(args, cfg, on_step=None):
 
     history = []
     t0 = time.time()
-    for t in range(args.steps):
-        batches = worker_batches(dcfg, args.workers, t, device=dev)
+    for t, batches in prefetch_batches(dcfg, args.workers, args.steps,
+                                       accum_steps=args.accum_steps,
+                                       depth=args.prefetch_depth, device=dev):
         state, m = step_fn(state, batches)
         if on_step is not None:
             on_step(t, state, m)
@@ -188,6 +204,8 @@ def train(args, cfg, on_step=None):
                    "wire_bytes_per_sample":
                        float(m["wire_bytes"]) / samples_per_step,
                    "elapsed_s": round(time.time() - t0, 2)}
+            if "loss_scale" in m:
+                rec["loss_scale"] = float(m["loss_scale"])
             history.append(rec)
             print(f"step {t:5d} loss {rec['loss']:.4f} "
                   f"div {rec['divergence']:.2e} wireB {rec['wire_bytes']:.0f}"

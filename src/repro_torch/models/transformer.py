@@ -28,7 +28,7 @@ port casts once when the engine is built.  The numerics are the same.
 
 Public API:
     init_model(gen, cfg, device)                          → params
-    forward(params, cfg, tokens, positions=None)          → (logits, aux)
+    forward(params, cfg, tokens, positions=None, remat=False) → (logits, aux)
     init_paged_cache(cfg, num_pages, page_size, dtype, device) → cache
     decode_step_paged(params, cfg, token, pos, cache, block_tables) → logits
     prefill_chunk_paged(params, cfg, tokens, positions, cache, block_tables,
@@ -46,6 +46,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -147,11 +148,15 @@ def cast_compute(params, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # stack traversal
 # ---------------------------------------------------------------------------
-def _run_stack(params, cfg: ModelConfig, h, attend, recur=None):
+def _run_stack(params, cfg: ModelConfig, h, attend, recur=None,
+               remat: bool = False):
     """The layer stack: pre-norm residual (mixer → MLP) layers, the
     reference's ``_apply_layer`` per layer.  The reference's ``lax.scan``
-    over the repeat axis is a loop here; there is no rematerialisation (the
-    trainer CLI runs with ``remat=False``).
+    over the repeat axis is a loop here.  ``remat=True`` runs each
+    super-block's body (one layer of a dense stack) under
+    ``torch.utils.checkpoint``, where the reference wraps its scan body in
+    ``jax.checkpoint``: its activations are recomputed in the backward
+    pass instead of kept, with the same values.
 
     ``attend(p_attn, x, window, theta, key, r)`` is the attention of layer
     ``key`` of super-block ``r`` (its window and RoPE theta from
@@ -163,7 +168,8 @@ def _run_stack(params, cfg: ModelConfig, h, attend, recur=None):
     no MLP."""
     specs, repeat = cfg.superblock()
     windows, thetas = cfg.layer_windows()  # (repeat, S) numpy arrays
-    for r in range(repeat):
+
+    def superblock(h, r):
         for i, spec in enumerate(specs):
             key = str(i)
             p = _index(params["stack"][key], r)
@@ -176,6 +182,11 @@ def _run_stack(params, cfg: ModelConfig, h, attend, recur=None):
             if spec.ffn != "none":
                 x = L.rms_norm(h, p["ffn_norm"], cfg.norm_eps)
                 h = h + L.mlp(p["mlp"], cfg, x)
+        return h
+
+    for r in range(repeat):
+        h = (checkpoint(superblock, h, r, use_reentrant=False) if remat
+             else superblock(h, r))
     return h
 
 
@@ -197,9 +208,12 @@ def _embed(params, cfg, tokens):
     return h
 
 
-def forward(params, cfg: ModelConfig, tokens, positions=None):
+def forward(params, cfg: ModelConfig, tokens, positions=None,
+            remat: bool = False):
     """Training forward pass over (B, L) tokens.  Returns (logits (B, L, V)
-    f32, aux loss); aux is 0 for the dense stacks ported so far."""
+    f32, aux loss); aux is 0 for the dense stacks ported so far.
+    ``remat=True`` recomputes each super-block's activations in the
+    backward pass (``_run_stack``)."""
     _check_stack(cfg, ("the training forward",
                        "training the recurrent families is a later slice"))
     params = cast_compute(params, cfg)
@@ -214,7 +228,7 @@ def forward(params, cfg: ModelConfig, tokens, positions=None):
         return L.attention(p, cfg, x, positions, window, theta,
                            static_window=static)
 
-    h = _run_stack(params, cfg, h, attend)
+    h = _run_stack(params, cfg, h, attend, remat=remat)
     return _logits(params, cfg, h), torch.zeros((), dtype=torch.float32,
                                                 device=h.device)
 

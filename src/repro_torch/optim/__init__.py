@@ -1,4 +1,5 @@
 from repro_torch.optim.optimizers import (  # noqa: F401
-    Optimizer, adam, constant_schedule, cosine_schedule, momentum, sgd,
+    Optimizer, adam, constant_schedule, cosine_schedule, delay_compensated_sgd,
+    momentum, sgd,
     state_template, warmup_cosine,
 )

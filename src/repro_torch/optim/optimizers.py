@@ -11,8 +11,8 @@ device synchronisation per step.
 ``kernels.ops.fused_adam`` (the CUDA kernel for CUDA tensors, its plain
 version for CPU tensors), IN PLACE on the params and the optimizer state,
 as a donated JAX step reuses their buffers; the unfused update returns new
-tensors.  ``delay_compensated_sgd`` belongs to the asynchronous strategies,
-a later slice.
+tensors.  ``delay_compensated_sgd`` (DC-ASGD) keeps the weight snapshot its
+gradients were computed against in its state.
 """
 
 from __future__ import annotations
@@ -176,3 +176,31 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return params, state
 
     return Optimizer(init, update_fused if fused else update, state_floats=2)
+
+
+def delay_compensated_sgd(lr, lam: float = 0.04) -> Optimizer:
+    """DC-ASGD (Zheng et al. 2016): g̃ = g + λ · g ⊙ g ⊙ (w − w_bak).
+
+    ``w_bak`` is the weight snapshot the gradient was computed against;
+    the optimizer state carries it (f32) and the update refreshes it to
+    the new weights.  An asynchronous caller that ships a gradient may
+    overwrite ``state["w_bak"]``."""
+    lr = _as_sched(lr)
+
+    def init(params):
+        return {"w_bak": T.tree_map(lambda p: p.to(torch.float32, copy=True),
+                                    params)}
+
+    def update(grads, state, params, t):
+        step = lr(_step_tensor(t, params))
+
+        def comp(p, g, wb):
+            gf = g.float()
+            corr = gf + lam * gf * gf * (p.float() - wb)
+            return (p.float() - step * corr).to(p.dtype)
+
+        new = T.tree_map(comp, params, grads, state["w_bak"])
+        new_bak = T.tree_map(lambda p: p.to(torch.float32, copy=True), new)
+        return new, {"w_bak": new_bak}
+
+    return Optimizer(init, update, state_floats=1)

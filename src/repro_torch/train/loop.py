@@ -24,89 +24,223 @@ pushes) decides on the host with no device read-back a step.  The int is
 read back from the tensor only for a state this step did not make (the
 first step, a state from ``bridge``).
 
-This slice ports the f32 step (the reference's ``policy=None``) at
-``accum_steps=1`` for the strategies of ``core/strategies.py``; precision
-policies, microbatch accumulation and the ZeRO strategies are later
-slices.
+``accum_steps > 1`` makes the step a microbatched boundary step: batches
+carry a leading ``(accum_steps, W, ...)`` axis, each replica's gradient of
+each microbatch is added straight into its rows of flat f32 accumulator
+buckets (``Fabric.accumulate``, in microbatch order), the sum is divided
+once at the boundary, and the strategy, hence the exchange and any
+compression or error-feedback state, runs once a boundary.
+``state["step"]`` counts optimizer steps, so the schedules of the
+local-step strategies are those of an unaccumulated run.
+
+A precision ``policy`` (``core/precision.py``) other than f32 makes the
+step cast-params → forward (scaled loss) → unscale → skip-or-apply: the
+strategy and optimizer run on the f32 master where the policy keeps one,
+the forward on its bf16 image, the fabric ships wire-dtype buckets, and a
+boundary whose gradients hold an inf or a nan leaves params, master,
+optimizer state and comm state untouched while the loss scale backs off.
+The reference applies the update and then selects the old tree; the
+port's fused Adam and the codec write in place, so the port decides first:
+it reads the one finite flag back to the host (a synchronisation a step,
+only for a policy that scales) and on an overflow runs no exchange and no
+update at all (``wire_bytes`` and ``comm_events`` 0 that step; the
+reference reports the bytes of the exchange it discards).  The f32 policy
+(``policy=None``) scales nothing, keeps no master and casts nothing, so
+the same step computes the policy-less update bitwise.
+
+The ZeRO strategies and the sharded production step are later slices.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.core import precision as PR
 from repro_torch.core import tree as T
+from repro_torch.core.comm import HierComm
+from repro_torch.core.fabric import DEFAULT_BUCKET_BYTES, Fabric
+from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.strategies import Strategy
 from repro_torch.models import transformer as TM
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.train.losses import lm_loss
 
 
-def make_loss_fn(cfg):
+def make_loss_fn(cfg, remat: bool = True):
     """loss_fn(params, batch) -> scalar for ONE replica of a decoder-only
-    model; ``batch`` holds "tokens" and "labels"."""
+    model; ``batch`` holds "tokens" and "labels".  ``remat`` recomputes
+    each super-block's activations in the backward pass (the reference's
+    default; the trainer CLI passes ``remat=False``)."""
     def loss_fn(params, batch):
-        logits, aux = TM.forward(params, cfg, tokens=batch["tokens"])
+        logits, aux = TM.forward(params, cfg, tokens=batch["tokens"],
+                                 remat=remat)
         return lm_loss(logits, batch["labels"], aux)
 
     return loss_fn
 
 
 def init_train_state(params, optimizer: Optimizer, strategy: Strategy,
-                     comm):
+                     comm, policy: Optional[PrecisionPolicy] = None):
     """Stacked ``params`` → {params, opt_state, comm_state, step}; the step
-    counter is an int32 tensor on the params' device."""
+    counter is an int32 tensor on the params' device.  A policy that
+    scales adds ``loss_scale`` ({"scale", "good_steps"}); one whose master
+    is wider than its params adds ``master``, a copy of the params in the
+    master dtype."""
     device = T.leaves(params)[0].device
-    return {
+    state = {
         "params": params,
         "opt_state": optimizer.init(params),
         "comm_state": strategy.init(params, comm),
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
+    policy = PR.get_policy(policy)
+    if policy.uses_scaling:
+        state["loss_scale"] = PR.init_scale_state(policy, device)
+    if policy.keeps_master:
+        # its own storage: the optimizer may update it in place
+        state["master"] = T.tree_map(
+            lambda x: x.to(policy.master_dt, copy=True)
+            if x.is_floating_point() else x, params)
+    return state
 
 
-def _replica_grads(loss_fn, params, batches, size):
-    """Per-replica (losses (W,), stacked grads) of ``loss_fn`` for the
-    stacked ``params`` and per-worker ``batches``, replica by replica."""
+def _replica(batches, w):
+    return T.tree_map(lambda b: b[w], batches)
+
+
+def _replica_grads(loss_fn, params, batches, add=None):
+    """Per-replica (losses, stacked grads) of ``loss_fn`` for the stacked
+    ``params`` and per-replica ``batches``, replica by replica over axis
+    0.  ``add(w, grads_w)``, when given, takes each replica's gradient
+    tree instead, and no stacked tree is made."""
     leaves, tdef = T.flatten(params)
-    grads = [torch.empty_like(x) for x in leaves]
+    grads = None if add else [torch.empty_like(x) for x in leaves]
     losses = []
-    for w in range(size):
+    for w in range(leaves[0].shape[0]):
         pw = [x[w].detach().requires_grad_() for x in leaves]
-        loss = loss_fn(T.unflatten(tdef, pw), batches[w])
-        for out, gw in zip(grads, torch.autograd.grad(loss, pw)):
-            out[w].copy_(gw)
+        loss = loss_fn(T.unflatten(tdef, pw), _replica(batches, w))
+        gws = torch.autograd.grad(loss, pw)
+        if add:
+            add(w, T.unflatten(tdef, list(gws)))
+        else:
+            for out, gw in zip(grads, gws):
+                out[w].copy_(gw)
+        del gws
         losses.append(loss.detach())
-    return torch.stack(losses), T.unflatten(tdef, grads)
+    return torch.stack(losses), (None if add else T.unflatten(tdef, grads))
 
 
 def make_replica_train_step(loss_fn, optimizer: Optimizer, strategy: Strategy,
-                            comm):
+                            comm, policy: Optional[PrecisionPolicy] = None,
+                            accum_steps: int = 1,
+                            bucket_bytes: int = DEFAULT_BUCKET_BYTES):
     """loss_fn(params, batch) -> scalar, defined for ONE replica.
 
     The returned step takes the stacked state (leading dim W on every leaf
-    of params and opt_state) and per-worker batches (leading dim W), and
-    returns (new_state, metrics) with the metrics ``wire_bytes``,
-    ``comm_events``, ``loss`` (mean over replicas) and
-    ``replica_divergence``."""
-
+    of params and opt_state) and per-worker batches (leading dim W; with
+    ``accum_steps > 1`` a leading ``(accum_steps, W)``), and returns
+    (new_state, metrics) with the metrics ``wire_bytes``, ``comm_events``,
+    ``loss`` (mean over replicas and microbatches) and
+    ``replica_divergence``, and under a policy that scales ``loss_scale``
+    (the scale this step used) and ``overflow``."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    policy = PR.get_policy(policy)
     host = {"tensor": None, "t": 0}  # the last step tensor made, its value
+    # the accumulator only needs the replica-axis layout, which a two-tier
+    # HierComm takes from its inner comm (both tiers declare lead_axes)
+    acc_fab = Fabric(comm.inner if isinstance(comm, HierComm) else comm,
+                     bucket_bytes)
 
-    def step(state, batches):
-        src = state["params"]
-        t = host["t"] if state["step"] is host["tensor"] \
+    def accum_grads(lfn, src, batches):
+        """Sum of the microbatches' gradients in flat f32 buckets, in
+        microbatch order, and the sum of their replica-mean losses: no
+        collective runs in here."""
+        lay = acc_fab.layout(src)
+        dev = T.leaves(src)[0].device
+        acc = acc_fab.init_accum(lay, dev)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        def add(w, grads_w):
+            acc_fab.accumulate(acc, grads_w, lay, replica=w)
+
+        for j in range(accum_steps):
+            loss, _ = _replica_grads(lfn, src, _replica(batches, j), add)
+            loss_sum = loss_sum + loss.mean()
+        return acc, lay, loss_sum
+
+    def divisor(x, dev):
+        # a device tensor, never a host scalar: CUDA divides by a host
+        # scalar through its reciprocal, which rounds differently
+        return torch.as_tensor(x, dtype=torch.float32).to(dev)
+
+    def next_t(state):
+        return host["t"] if state["step"] is host["tensor"] \
             else int(state["step"])
-        loss, grads = _replica_grads(loss_fn, src, batches, comm.size)
-        params, opt_state, comm_state, metrics = strategy.update(
-            src, grads, state["opt_state"], state["comm_state"], t,
-            optimizer, comm)
-        del grads
-        new_state = {"params": params, "opt_state": opt_state,
-                     "comm_state": comm_state, "step": state["step"] + 1}
+
+    def finish(new_state, t, metrics, loss):
         host.update(tensor=new_state["step"], t=t + 1)
         metrics = dict(metrics)
-        metrics["loss"] = loss.mean()
-        metrics["replica_divergence"] = _stack_divergence(params)
+        metrics["loss"] = loss
+        metrics["replica_divergence"] = _stack_divergence(
+            new_state["params"])
         return new_state, metrics
+
+    def step(state, batches):
+        sstate = state.get("loss_scale")
+        src = state.get("master", state["params"])
+        t = next_t(state)
+
+        def policy_loss(p_src, batch):
+            # the forward consumes the param-dtype image of the (possibly
+            # wider) source of truth; the backward runs through that cast
+            loss = loss_fn(policy.cast_to_param(p_src), batch)
+            return loss * sstate["scale"] if sstate is not None else loss
+
+        if accum_steps == 1:
+            loss, grads = _replica_grads(policy_loss, src, batches)
+            grads = (PR.unscale_grads(grads, sstate["scale"])
+                     if sstate is not None
+                     else PR.cast_floats(grads, torch.float32))
+            mean_loss = loss.mean()
+        else:
+            acc, lay, loss_sum = accum_grads(policy_loss, src, batches)
+            # one division at the boundary: microbatch mean AND unscale
+            k = divisor(accum_steps, loss_sum.device)
+            ks = k * sstate["scale"] if sstate is not None else k
+            grads = lay.debucketize([a.div_(ks) for a in acc], cast=False)
+            del acc
+            mean_loss = loss_sum / k
+        finite = PR.tree_finite(grads) if sstate is not None else None
+        # the skip is decided before anything is written: the update
+        # writes params, master, m, v and the codec residuals in place
+        apply = finite is None or bool(finite)
+        if apply:
+            new_src, opt_state, comm_state, metrics = strategy.update(
+                src, grads, state["opt_state"], state["comm_state"], t,
+                optimizer, comm)
+        else:  # nothing shipped, nothing updated
+            new_src, opt_state, comm_state = (src, state["opt_state"],
+                                              state["comm_state"])
+            metrics = acc_fab.metrics(0.0, events=0.0)
+        del grads
+        new_state = {"opt_state": opt_state, "comm_state": comm_state,
+                     "step": state["step"] + 1}
+        if "master" in state:
+            new_state["master"] = new_src
+            new_state["params"] = (policy.cast_to_param(new_src) if apply
+                                   else state["params"])
+        else:
+            new_state["params"] = new_src
+        metrics = dict(metrics)
+        if sstate is not None:
+            new_state["loss_scale"] = PR.next_scale_state(policy, sstate,
+                                                          finite)
+            metrics["loss_scale"] = sstate["scale"]
+            metrics["overflow"] = 1.0 - finite.float()
+            mean_loss = mean_loss / sstate["scale"]
+        return finish(new_state, t, metrics, mean_loss)
 
     return step
 

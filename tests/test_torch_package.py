@@ -103,7 +103,8 @@ def test_build_targets_sm90a_and_every_source():
 
 
 @pytest.mark.parametrize("name", ["qwen2-1.5b", "gemma3-1b", "qwen2.5-14b",
-                                  "jamba-1.5-large-398b", "xlstm-125m"])
+                                  "jamba-1.5-large-398b", "xlstm-125m",
+                                  "deepseek-67b"])
 def test_configs_copy_the_reference_field_for_field(name):
     ours, ref = get_config(name), jax_config(name)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
@@ -122,8 +123,9 @@ def test_configs_copy_the_reference_field_for_field(name):
 
 
 def test_config_registry_and_dtype_check():
-    assert list_configs() == ["gemma3-1b", "jamba-1.5-large-398b",
-                              "qwen2-1.5b", "qwen2.5-14b", "xlstm-125m"]
+    assert list_configs() == ["deepseek-67b", "gemma3-1b",
+                              "jamba-1.5-large-398b", "qwen2-1.5b",
+                              "qwen2.5-14b", "xlstm-125m"]
     with pytest.raises(KeyError):
         get_config("llama-7b")
     with pytest.raises(ValueError, match="supported precision"):
@@ -151,3 +153,40 @@ def test_qwen25_14b_reduced_tree_round_trips_bitwise():
     for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def test_deepseek_67b_reduced_tree_round_trips_bitwise():
+    """deepseek-67b (untied lm_head, GQA 64:8; 4:4 once reduced) in the
+    reference's tree layout, through the bridge and back."""
+    import jax
+
+    from repro.models import transformer as JT
+    from repro_torch.bridge import params_to_numpy
+
+    cfg = get_config("deepseek-67b").reduced()
+    ours = TT.init_model(torch.Generator().manual_seed(1), cfg, "cpu")
+    shapes = jax.eval_shape(lambda k: JT.init_model(k, jax_config(
+        "deepseek-67b").reduced()), jax.random.PRNGKey(0))
+    tree = params_to_numpy(ours)
+    assert jax.tree.structure(tree) == jax.tree.structure(shapes)
+    for a, s in zip(jax.tree.leaves(tree), jax.tree.leaves(shapes)):
+        assert a.shape == s.shape and a.dtype == s.dtype
+    assert "lm_head" in tree
+    back = params_to_numpy(params_from_numpy(tree, "cpu"))
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+@pytest.mark.parametrize("module", ["consistency", "staleness"])
+def test_numpy_copies_import_nothing_of_repro(module):
+    """The port's copies of the reference's numpy-only modules import
+    numpy and the standard library only."""
+    tree = ast.parse((PORT / "core" / f"{module}.py").read_text())
+    tops = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            tops |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            tops.add(node.module.split(".")[0])
+    assert tops <= {"__future__", "dataclasses", "typing", "numpy"}, tops

@@ -420,7 +420,7 @@ def test_cli_history_matches_jax(strategy, comp, monkeypatch):
     jstate = JLOOP.init_train_state(params, jopt, jstrat, jcomm)
     tstate = train_state_from_numpy(jax.tree.map(np.asarray, jstate), "cpu")
     jloss = JLOOP.make_loss_fn(jcfg, remat=False)
-    tloss = TLOOP.make_loss_fn(tcfg)
+    tloss = TLOOP.make_loss_fn(tcfg, remat=False)
     jstep = JLOOP.make_replica_train_step(
         lambda p, x: jloss(p, {"tokens": x, "labels": x}), jopt, jstrat,
         jcomm)

@@ -76,7 +76,8 @@ def batch_np(cfg, b=2, l=32, seed=0):
 # path; unrolled (scan_layers=False) at L=32 layer 0 takes the banded one.
 MODEL_CASES = [("qwen2-1.5b", {}), ("gemma3-1b", {}),
                ("gemma3-1b", {"scan_layers": False}),
-               ("qwen2-1.5b", {"scan_layers": False})]
+               ("qwen2-1.5b", {"scan_layers": False}),
+               ("deepseek-67b", {})]
 
 
 @pytest.mark.parametrize("arch,over", MODEL_CASES)
@@ -85,7 +86,7 @@ def test_forward_loss_and_grads_match_jax(arch, over):
     params = np_params(jcfg, seed=1)
     toks = batch_np(jcfg)
     jloss_fn = JLOOP.make_loss_fn(jcfg, remat=False)
-    tloss_fn = TLOOP.make_loss_fn(tcfg)
+    tloss_fn = TLOOP.make_loss_fn(tcfg, remat=False)
     jbatch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)}
     tbatch = {"tokens": torch.from_numpy(toks),
               "labels": torch.from_numpy(toks)}
@@ -112,6 +113,28 @@ def test_forward_loss_and_grads_match_jax(arch, over):
     for a, b in zip(tg, jleaves):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
                                    atol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma3-1b"])
+def test_remat_gradients_equal_no_remat(arch):
+    """``make_loss_fn(cfg, remat=True)`` (each layer under
+    ``torch.utils.checkpoint``) recomputes the same activations: loss and
+    gradients bitwise those of ``remat=False``, on a 2-layer cut."""
+    _, tcfg = cfgs(arch)
+    params = params_from_numpy(np_params(cfgs(arch)[0], seed=3), "cpu")
+    toks = torch.from_numpy(batch_np(tcfg))
+    batch = {"tokens": toks, "labels": toks}
+    leaves = TT.leaves(params)
+    for x in leaves:
+        x.requires_grad_()
+    out = {}
+    for remat in (False, True):
+        loss = TLOOP.make_loss_fn(tcfg, remat=remat)(params, batch)
+        out[remat] = (loss.detach(), torch.autograd.grad(loss, leaves))
+    assert tcfg.num_layers == 2
+    assert torch.equal(out[True][0], out[False][0])
+    for a, b in zip(out[True][1], out[False][1]):
+        assert torch.equal(a, b)
 
 
 def test_banded_path_is_taken_only_when_the_window_is_static():
@@ -237,7 +260,7 @@ def test_train_history_matches_jax(comp, fused_adam, monkeypatch):
         jax.tree.map(np.asarray, jstate), "cpu")
 
     jloss = JLOOP.make_loss_fn(jcfg, remat=False)
-    tloss = TLOOP.make_loss_fn(tcfg)
+    tloss = TLOOP.make_loss_fn(tcfg, remat=False)
     jstep = JLOOP.make_replica_train_step(
         lambda p, x: jloss(p, {"tokens": x, "labels": x}), jopt, jstrat,
         jcomm)
@@ -269,7 +292,7 @@ def test_step_mutates_fused_state_like_a_donated_step():
     opt = TO.adam(1e-3, fused=True)
     state = TLOOP.init_train_state(params, opt, sync(), comm)
     before = state["params"]["embed"].clone()
-    loss = TLOOP.make_loss_fn(tcfg)
+    loss = TLOOP.make_loss_fn(tcfg, remat=False)
     step = TLOOP.make_replica_train_step(
         lambda p, x: loss(p, {"tokens": x, "labels": x}), opt, sync(), comm)
     new, m = step(state, torch.zeros((2, 2, 8), dtype=torch.int32))
@@ -286,6 +309,34 @@ def test_strategy_registry_holds_what_is_ported():
     assert get_strategy("gossip").name == "gossip"
     with pytest.raises(KeyError):
         get_strategy("sync_zero1")  # ZeRO is a later slice
+
+
+def test_bridge_round_trips_a_bf16_train_state_with_master_and_scale():
+    """A train state of the JAX package under the bf16 policy (bf16
+    params, f32 master, loss scale {"scale" f32, "good_steps" int32})
+    through the bridge and back, bitwise."""
+    from repro.core.precision import get_policy as jget_policy
+
+    jcfg, _ = cfgs("qwen2-1.5b")
+    jcomm, pol = JLocalComm(2), jget_policy("bf16")
+    opt = JO.adam(1e-3)
+    strat = jsync(compressor=jget_compressor("onebit"), policy=pol)
+    state = JLOOP.init_train_state(
+        jcomm.replicate(pol.cast_to_param(to_jax(np_params(jcfg)))), opt,
+        strat, jcomm, policy=pol)
+    np_state = jax.tree.map(np.asarray, state)
+    np_state["loss_scale"]["good_steps"] = np.asarray(7, np.int32)
+    tstate = train_state_from_numpy(np_state, "cpu")
+    assert tstate["params"]["embed"].dtype == torch.bfloat16
+    assert tstate["master"]["embed"].dtype == torch.float32
+    assert tstate["loss_scale"]["scale"].dtype == torch.float32
+    assert tstate["loss_scale"]["good_steps"].dtype == torch.int32
+    back = train_state_to_numpy(tstate)
+    assert jax.tree.structure(back) == jax.tree.structure(np_state)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(np_state)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a.reshape(-1).view(np.uint8),
+                                      b.reshape(-1).view(np.uint8))
 
 
 def test_bridge_round_trips_a_train_state():
@@ -326,8 +377,6 @@ def test_worker_batches_are_reproducible_affine_streams():
     (["--arch", "bogus"], "unknown arch 'bogus'"),
     (["--zero-stage", "1"], "ZeRO"),
     (["--strategy", "sync_zero2"], "ZeRO partitioning is a later slice"),
-    (["--precision", "bf16"], "precision"),
-    (["--accum-steps", "2"], "accumulation"),
     (["--ckpt-dir", "x"], "checkpoints"),
     (["--resume", "auto"], "checkpoints"),
 ])
@@ -337,6 +386,27 @@ def test_cli_exit_2_paths(argv, msg, capsys):
     assert e.value.code == 2
     err = capsys.readouterr().err.strip()
     assert msg in err and len(err.splitlines()) == 1
+
+
+@pytest.mark.parametrize("argv,fields", [
+    (["--precision", "bf16"], "precision=bf16 workers=2 accum_steps=1 "
+                              "global_batch=4 prefetch_depth=2"),
+    (["--accum-steps", "2", "--prefetch-depth", "1"],
+     "precision=f32 workers=2 accum_steps=2 global_batch=8 "
+     "prefetch_depth=1"),
+])
+def test_cli_runs_precision_and_accum_flags_on_cpu(argv, fields, capsys):
+    """The flags that exited 2 before this slice now train."""
+    hist = CLI.main(["--reduced", "--device", "cpu", "--steps", "2",
+                     "--log-every", "1", "--workers", "2",
+                     "--batch-per-worker", "2", "--seq-len", "16"] + argv)
+    text = capsys.readouterr().out
+    assert fields in text and len(hist) == 2
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    assert ("loss_scale" in hist[-1]) == ("bf16" in argv)
+    if "bf16" in argv:
+        assert hist[-1]["loss_scale"] == 2.0 ** 15
+        assert hist[-1]["wire_bytes"] == 2 * 2 * 1_313_024  # 2 B, W = 2
 
 
 def test_cli_flag_choices_are_the_reference_names():
