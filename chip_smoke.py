@@ -43,11 +43,27 @@ then drives the main paths through their entry points:
     gradient with and without remat at 8 x 2048 tokens; and the card's
     losses and replica divergence against the CPU's on a two-layer, W = 2
     cut under ``sync`` (1-bit; and at ``--accum-steps 2``, f32 and bf16
-    with a skipped boundary), ``downpour`` (1-bit) and ``ssp``.
+    with a skipped boundary), ``downpour`` (1-bit) and ``ssp``;
+  * ZeRO and checkpoints on that trainer: ``sync_zero1``, ``sync_zero2``
+    (``--accum-steps 2``), ``sync_zero3`` and ``sync_zero1`` under
+    ``--precision bf16 --accum-steps 2`` on the same cut, ``fused_adam``
+    once a shard bucket; every leaf of ZeRO-1/2/3's params, m and v
+    ``torch.equal`` to ``sync``'s after 3 steps, with each one's peak
+    memory, and ZeRO-2 at ``--accum-steps 2`` against ``sync`` at 2: SGD
+    params within 2e-6, Adam's gradients within the two sums' rounding
+    bound and its params within Adam's predicted response to them, with a
+    doubled-microbatch control that must fail (``zero_vs_sync``); a forced
+    overflow under ``sync_zero1`` (``skip_step_zero1``); and on
+    ``qwen2-1.5b --reduced`` a resume from a checkpoint bitwise an
+    uninterrupted run (ZeRO-1 bf16, ZeRO-3), a re-shard from W = 4 to
+    W = 2 and ``--ckpt-dir``/``--resume auto`` through the CLI
+    (``ckpt_resume``).
 
 Each kernel's launches are counted from zero over the paths that run it,
 and each is timed against its bound, its plain version and one PyTorch
-call.  The paged kernel is checked at the edges of its split-K parts and
+call (``fused_adam`` also on one ZeRO shard bucket of the training path:
+the embedding bucket's 4 x 58.3 M elements).  The paged kernel is
+checked at the edges of its split-K parts and
 timed at the qwen2-1.5b and gemma3-1b decode shapes; the top-k kernels
 are checked bitwise on rows that drive both paths of their selection
 (ties, NaN and +-inf, +-0.0, 32 and 33 candidates), and their general
@@ -74,6 +90,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1888,6 +1905,33 @@ def codec_path(ob, tk, get_config, smi):
 TRAIN_W, TRAIN_B, TRAIN_L, TRAIN_LAYERS, TRAIN_STEPS = 4, 4, 64, 4, 10
 
 
+ZERO_STRATEGIES = ("sync_zero1", "sync_zero2", "sync_zero3")
+
+
+def meta_partition(get_config, layers, w=TRAIN_W):
+    """The ``PartitionedLayout`` of the stacked qwen2-1.5b cut at full width,
+    built over meta tensors: shapes only, nothing allocated."""
+    from repro_torch.core.comm import LocalComm
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=layers)
+    comm = LocalComm(w)
+    return Fabric(comm).partitioned_layout(comm.replicate(
+        T.init_model(torch.Generator(), cfg, device="meta")))
+
+
+def zero2_wire(flat, accum):
+    """(wire bytes, comm events) of a ZeRO-2 boundary, in the train step's
+    f32 order: the all-gather half plus the sum of ``accum``
+    reduce-scatter halves."""
+    half = np.float32(flat / 2)
+    rs = np.float32(0.0)
+    for _ in range(accum):
+        rs = np.float32(rs + half)
+    return float(np.float32(half + rs)), float(accum + 1)
+
+
 # comm_events a step under the CLI's defaults (local_sgd averages every 8
 # steps, easgd every 4, gossip mixes both ways every step, downpour pushes
 # one replica in 4 a step)
@@ -1905,8 +1949,10 @@ def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
                layers=TRAIN_LAYERS, precision="f32", accum=1, depth=2,
                steps=TRAIN_STEPS, phase=None, profile=True):
     """The trainer CLI's body at full width, depth cut, on the card: each
-    kernel's launch count set to 0 just before and read just after.
-    Returns (result, the profiled last step's summary or None)."""
+    kernel's launch count set to 0 just before and read just after.  Under
+    the ZeRO strategies ``fused_adam`` runs once a shard bucket, on
+    ``(W, chunk)`` buckets.  Returns (result, the profiled last step's
+    summary or None)."""
     from repro_torch.core.comm import LocalComm
     from repro_torch.core.compression import get_compressor
     from repro_torch.core.fabric import Fabric
@@ -1923,8 +1969,9 @@ def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
             "--precision", precision, "--accum-steps", str(accum),
             "--prefetch-depth", str(depth), "--device", "cuda"]
     args = CLI.build_argparser().parse_args(argv)
-    CLI.check_ported(args)
     cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=layers)
+    zero = strategy in ZERO_STRATEGIES
+    play = meta_partition(get_config, layers)
     comp = None if compressor == "none" else (
         get_compressor("topk", ratio=0.01) if compressor == "topk"
         else get_compressor(compressor))
@@ -1951,14 +1998,17 @@ def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
             # the closed form: the f32 layout's bytes; a narrow wire halves
             # the uncompressed exchange, the compressors keep their format
             fab = Fabric(LocalComm(TRAIN_W))
-            lay = fab.layout(state["params"])
+            lay = play.layout
             f32 = fab.wire_bytes(lay, comp) if comp else fab.flat_bytes(lay)
             narrow = Fabric(LocalComm(TRAIN_W), wire_dtype=torch.bfloat16)
+            params = state["params"]
             rec["lay"] = (lay.n_buckets, lay.n_leaves, f32,
                           f32 / 2 if precision != "f32" and comp is None
                           else f32,
                           narrow.flat_bytes(lay) if comp is None else None,
-                          str(state["params"]["embed"].dtype))
+                          str(params["embed"].dtype) if isinstance(
+                              params, dict) else
+                          f"shard buckets {params[0].dtype}")
         if profile and t == steps - 2:  # the last step runs profiled
             prof["p"] = torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
@@ -1969,11 +2019,13 @@ def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
         mark["t"] = time.perf_counter()
 
     adam_dtypes = set()  # the dtype of p at each fused_adam call
+    adam_sizes = set()  # and its element count
     orig_adam = ops.fused_adam
     leaf = {}  # one real leaf of a bf16 p held against the plain version
 
     def adam_spy(p, g, m, v, consts, **k):
         adam_dtypes.add(str(p.dtype))
+        adam_sizes.add(p.numel())
         if p.dtype != torch.bfloat16 or leaf \
                 or not 2 ** 20 <= p.numel() <= 2 ** 28:
             return orig_adam(p, g, m, v, consts, **k)
@@ -2011,7 +2063,12 @@ def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
 
     n_buckets, n_leaves, f32_send, per_send, narrow_flat, pdtype = rec["lay"]
     applied = [o == 0.0 for o in rec["overflow"]]
-    expect = {"fused_adam": n_leaves * sum(applied)}
+    expect = {"fused_adam": (n_buckets if zero else n_leaves) * sum(applied)}
+    shard_sizes = {TRAIN_W * c for c in play.shard_sizes}
+    if zero and adam_sizes != shard_sizes:
+        raise AssertionError(f"{phase}: fused_adam ran on {adam_sizes} "
+                             f"elements, not the shard buckets "
+                             f"{shard_sizes}")
     if comp is not None:  # sync, sync_dgc, downpour: one encode a bucket
         expect["onebit_quant_packed" if compressor == "onebit"
                else "topk_encode_ef"] = n_buckets * sum(applied)
@@ -2033,7 +2090,8 @@ def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
                              f"half the f32 wire {f32_send}")
     if not all(math.isfinite(x) for x in rec["loss"]):
         raise AssertionError(f"{phase}: loss {rec['loss']}")
-    zero_div = range(steps) if strategy in ("sync", "sync_dgc") else \
+    zero_div = range(steps) \
+        if strategy in ("sync", "sync_dgc") + ZERO_STRATEGIES else \
         [t for t in range(steps) if strategy == "local_sgd"
          and events_closed_form(strategy, t)]
     if any(rec["div"][t] != 0.0 for t in zero_div):
@@ -2044,6 +2102,10 @@ def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
               for t in range(steps)]
     wire_closed = [float(np.float32(per_send) * np.float32(e))
                    for e in events]
+    if strategy == "sync_zero2" and accum > 1:
+        # a reduce-scatter a microbatch, an all-gather a boundary (f32)
+        wire2, events2 = zero2_wire(f32_send, accum)
+        wire_closed, events = [wire2] * steps, [events2] * steps
     if rec["events"] != events or rec["wire"] != wire_closed:
         raise AssertionError(f"{phase}: wire_bytes {rec['wire']}, events "
                              f"{rec['events']} != closed form "
@@ -2055,6 +2117,7 @@ def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
         "arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
         "precision": precision, "params_dtype": pdtype,
         "fused_adam_p_dtypes": sorted(adam_dtypes),
+        "fused_adam_p_elements": sorted(adam_sizes),
         **({"fused_adam_bf16_leaf_vs_plain": leaf} if leaf else {}),
         "workers": TRAIN_W, "batch_per_worker": TRAIN_B,
         "seq_len": TRAIN_L, "accum_steps": accum, "prefetch_depth": depth,
@@ -2074,6 +2137,9 @@ def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
         "wire_bytes_f32_closed_form": f32_send,
         "replica_divergence": rec["div"],
         "replica_divergence_max": max(rec["div"]),
+        # ZeRO's params are one storage behind a broadcast view: 0 then
+        # holds by construction and is no evidence of agreement
+        "replica_divergence_by_construction": zero,
         "peak_mem_gb": peak, "peak_mem_gb_by_step": rec["peak"],
         "mem_before_gb": before, "wall_s": wall,
         "cli_lines": out.getvalue().splitlines()[:3], "card": smi,
@@ -2083,19 +2149,20 @@ def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
     return result, summary
 
 
-def skip_step(get_config, kernels, smi):
+def skip_step(get_config, kernels, smi, strategy="sync"):
     """One boundary forced to overflow on the card: qwen2-1.5b at full
-    width, 2 layers, W = 2, ``--precision bf16 --accum-steps 2``, sync with
-    1-bit, fused Adam.  A good step, then a step whose loss is multiplied
-    by inf (its gradients inf or nan), then a good one.  The overflow step
-    must leave params, master, m, v and the 1-bit residual ``torch.equal``
-    to their values before it, launch neither ``fused_adam`` nor the
-    encode, ship nothing and halve the scale."""
+    width, 2 layers, W = 2, ``--precision bf16 --accum-steps 2``, fused
+    Adam, ``sync`` with 1-bit or ``sync_zero1`` (no compressor; the f32
+    master shards ride ``opt_state``).  A good step, then a step whose
+    loss is multiplied by inf (its gradients inf or nan), then a good one.
+    The overflow step must leave params, master, m, v and the 1-bit
+    residual ``torch.equal`` to their values before it, launch neither
+    ``fused_adam`` nor the encode, ship nothing and halve the scale."""
     from repro_torch.core import tree as TT
     from repro_torch.core.comm import LocalComm
     from repro_torch.core.compression import get_compressor
     from repro_torch.core.precision import apply_policy, get_policy
-    from repro_torch.core.strategies import sync
+    from repro_torch.core.strategies import sync, sync_zero1
     from repro_torch.data.pipeline import DataConfig, microbatch_stack
     from repro_torch.models import transformer as T
     from repro_torch.optim import adam, warmup_cosine
@@ -2107,7 +2174,8 @@ def skip_step(get_config, kernels, smi):
     cfg = apply_policy(dataclasses.replace(get_config("qwen2-1.5b"),
                                            num_layers=2), pol)
     comm = LocalComm(w)
-    strat = sync(get_compressor("onebit"), policy=pol)
+    strat = sync(get_compressor("onebit"), policy=pol) \
+        if strategy == "sync" else sync_zero1(policy=pol)
     opt = adam(warmup_cosine(1e-3, 1, 3), fused=True)
     lf = make_loss_fn(cfg, remat=False)
     boom = {"on": False}
@@ -2127,8 +2195,9 @@ def skip_step(get_config, kernels, smi):
     for fn in kernels.values():
         fn.launches = 0
     rec = []
-    keys = ("params", "master", "opt_state", "comm_state")
-    checked = {}
+    keys = [k for k in ("params", "master", "opt_state", "comm_state")
+            if k in state]
+    checked = {"state_keys": keys}
     for t in range(3):
         batch = microbatch_stack(dcfg, w, t, accum, device="cuda")
         if t == 1:
@@ -2153,7 +2222,7 @@ def skip_step(get_config, kernels, smi):
                                  kernels.items()}})
         if t == 1:
             now = TT.leaves({k: state[k] for k in keys})
-            checked = {
+            checked.update({
                 "untouched_bitwise": len(now) == len(snap) and all(
                     torch.equal(a, b) for a, b in zip(now, snap)),
                 "leaves_compared": len(snap),
@@ -2161,9 +2230,13 @@ def skip_step(get_config, kernels, smi):
                                    for k, fn in kernels.items()},
                 "scale_before": scale0,
                 "scale_after": state["loss_scale"]["scale"].item(),
-                "good_steps_after": int(state["loss_scale"]["good_steps"])}
+                "good_steps_after": int(state["loss_scale"]["good_steps"])})
             del snap, now
     overflow = [r["overflow"] for r in rec]
+    if strategy == "sync_zero1" and ("master" in keys or set(
+            state["opt_state"]) != {"opt", "master"}):
+        raise AssertionError(f"skip_step {strategy}: the f32 master must "
+                             f"ride opt_state, state keys {keys}")
     if overflow != [0.0, 1.0, 0.0] or not checked["untouched_bitwise"] \
             or any(checked["launches_moved"].values()) \
             or checked["scale_after"] != checked["scale_before"] / 2 \
@@ -2171,12 +2244,15 @@ def skip_step(get_config, kernels, smi):
             or rec[1]["wire_bytes"] != 0.0 or rec[1]["comm_events"] != 0.0 \
             or rec[2]["launches"]["fused_adam"] \
             <= rec[1]["launches"]["fused_adam"]:
-        raise AssertionError(f"skip_step: {checked} {rec}")
+        raise AssertionError(f"skip_step {strategy}: {checked} {rec}")
     del state
     torch.cuda.empty_cache()
-    return {"phase": "skip_step", "arch": cfg.name, "layers": 2,
-            "workers": w, "precision": "bf16", "accum_steps": accum,
-            "compressor": "onebit", "fused_adam": True,
+    return {"phase": "skip_step" if strategy == "sync"
+            else "skip_step_zero1", "strategy": strategy, "arch": cfg.name,
+            "layers": 2, "workers": w, "precision": "bf16",
+            "accum_steps": accum,
+            "compressor": "onebit" if strategy == "sync" else "none",
+            "fused_adam": True,
             "forced": "loss times inf on step 1", **checked, "steps": rec,
             "card": smi}
 
@@ -2348,6 +2424,424 @@ def prefetch(kernels, get_config, smi):
         times.append(1e3 * (time.perf_counter() - t0))
     out["host_synth_ms_median"] = statistics.median(times)
     out["host_synth_shape"] = [2, TRAIN_W, TRAIN_B, TRAIN_L]
+    return out
+
+
+def zero_vs_sync(get_config, smi, steps=3):
+    """``sync`` and ZeRO-1/2/3 through the trainer CLI's body on the
+    training cut (qwen2-1.5b full width, 4 layers, W = 4, f32, fused
+    Adam), ``steps`` steps from one seed.  At ``--accum-steps 1`` every
+    leaf of the final params, and of m and v after ``unpartition``, must
+    be ``torch.equal`` to ``sync``'s (the reference's contract: the
+    reduce-scatter mean is the all-reduce's f32 reduction, Adam is
+    elementwise).  Under ZeRO the W rows of the params (and of m and v
+    after ``unpartition``) are one storage behind a broadcast view, so
+    their equality holds by construction: it is recorded, and gated on
+    ``sync``'s stacked copies only.  Each run's peak memory beside
+    ``sync``'s.
+
+    ZeRO-2 at ``--accum-steps 2`` against ``sync`` at 2 sums the same
+    eight f32 terms a gradient element (W replicas × 2 microbatches) in
+    another order: ZeRO-2 the microbatches' means, ``sync`` each
+    replica's microbatches, then the mean.  Under ``--optimizer sgd``
+    (``steps`` steps) the params must be within 2e-6, the reference's
+    bound.  Under fused Adam, one boundary: each element's gradient, read
+    from m = (1 - b1) g, must be within the two sums' rounding bound
+    2 γ7 Σ|terms| / 8 (γ7 = 7u / (1 - 7u), u = 2^-24; Σ|terms| recorded
+    from the replica gradients as ``sync`` accumulates them); and each
+    param's difference must be Adam's own response to the two gradients,
+    predicted in float64 from each run's m and v with the kernel's
+    constants, within f32 rounding.  A control run of ZeRO-2 fed a
+    doubled microbatch (the second microbatch replaced by the first)
+    must fail the SGD param gate and the gradient gate."""
+    from repro_torch.core import tree as TT
+    from repro_torch.core.comm import LocalComm
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as CLI
+
+    play = meta_partition(get_config, TRAIN_LAYERS)
+    fab = Fabric(LocalComm(TRAIN_W))
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                              num_layers=TRAIN_LAYERS)
+
+    def run(strategy, accum, optimizer="adam", n_steps=steps,
+            doubled=False, abs_sum=False):
+        """Replica 0 of the final params, m and v, the peak GB and the
+        losses; ``abs_sum``: Σ|terms| of each gradient element, summed
+        over the replicas' microbatch gradients; ``doubled``: the second
+        microbatch of each boundary replaced by the first."""
+        args = CLI.build_argparser().parse_args([
+            "--arch", "qwen2-1.5b", "--strategy", strategy, "--fused-adam",
+            "--optimizer", optimizer,
+            "--workers", str(TRAIN_W), "--batch-per-worker", str(TRAIN_B),
+            "--seq-len", str(TRAIN_L), "--steps", str(n_steps),
+            "--accum-steps", str(accum), "--log-every", "1",
+            "--device", "cuda"])
+        out = {"peak": [], "loss": [], "consts": []}
+
+        def on_step(t, state, m):
+            torch.cuda.synchronize()
+            # the run's own peak: what the earlier runs keep is not its
+            out["peak"].append(torch.cuda.max_memory_allocated() / 1e9
+                               - before)
+            out["loss"].append(float(m["loss"]))
+            if t < n_steps - 1:
+                return
+            params, opt = state["params"], state["opt_state"]
+            if isinstance(params, list):  # ZeRO-3's shard buckets
+                params = fab.unpartition(params, play)
+            trees = {"params": params}
+            for key in ("m", "v") if optimizer == "adam" else ():
+                trees[key] = opt[key] if strategy == "sync" \
+                    else fab.unpartition(opt[key], play)
+            leaves = [x for tree in trees.values() for x in TT.leaves(tree)]
+            out["rows_equal"] = all(torch.equal(x[i], x[0]) for x in leaves
+                                    for i in range(1, x.shape[0]))
+            out["one_storage"] = all(x.stride()[0] == 0 for x in leaves)
+            out["tree"] = {k: TT.tree_map(lambda x: x[0].clone(), tree)
+                           for k, tree in trees.items()}
+
+        orig_adam, orig_acc = ops.fused_adam, Fabric.accumulate
+        orig_stack = pipeline._host_stack
+
+        def adam_spy(p, g, m, v, consts, **k):
+            if not out["consts"]:
+                out["consts"] = consts.double().tolist()
+                out["adam_kw"] = dict(k)
+            return orig_adam(p, g, m, v, consts, **k)
+
+        def acc_spy(self, acc, tree, lay, replica=None):
+            if replica is not None:  # one replica's microbatch gradient
+                xs = TT.leaves(tree)
+                if "abs" not in out:
+                    out["abs"] = [torch.zeros_like(x) for x in xs]
+                for s, x in zip(out["abs"], xs):
+                    s.add_(x.abs())
+            return orig_acc(self, acc, tree, lay, replica=replica)
+
+        def doubled_stack(*a):
+            toks = orig_stack(*a)
+            toks[1] = toks[0]
+            return toks
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        ops.fused_adam = adam_spy
+        if abs_sum:
+            Fabric.accumulate = acc_spy
+        if doubled:
+            pipeline._host_stack = doubled_stack
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                CLI.train(args, cfg, on_step=on_step)
+        finally:
+            ops.fused_adam, Fabric.accumulate = orig_adam, orig_acc
+            pipeline._host_stack = orig_stack
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    ref = run("sync", 1)
+    result = {"phase": "zero_vs_sync", "arch": cfg.name,
+              "layers": TRAIN_LAYERS, "workers": TRAIN_W, "steps": steps,
+              "precision": "f32", "fused_adam": True,
+              "peak_gb": {"sync": max(ref["peak"])},
+              "loss": {"sync": ref["loss"]}, "bitwise": {},
+              "sync_rows_equal": ref["rows_equal"]}
+    if not ref["rows_equal"]:
+        raise AssertionError(f"zero_vs_sync: sync's rows differ: {result}")
+    names = [".".join(map(str, k)) for k in _paths(ref["tree"]["params"])]
+    for strategy in ZERO_STRATEGIES:
+        got = run(strategy, 1)
+        result["peak_gb"][strategy] = max(got["peak"])
+        result["loss"][strategy] = got["loss"]
+        differ = [f"{key}.{name}" for key in ("params", "m", "v")
+                  for name, a, b in zip(names,
+                                        TT.leaves(got["tree"][key]),
+                                        TT.leaves(ref["tree"][key]))
+                  if not torch.equal(a, b)]
+        result["bitwise"][strategy] = {
+            "leaves_compared": 3 * len(names), "leaves_not_equal": differ,
+            # W rows of one storage: equal by construction, not a check
+            "rows_one_storage": got["one_storage"]}
+        del got
+        if differ:
+            raise AssertionError(f"zero_vs_sync {strategy}: {result}")
+    del ref
+    result["accum2"] = zero2_accum_check(run, fab, play, steps)
+    result["card"] = smi
+    return result
+
+
+def zero2_accum_check(run, fab, play, steps, tol=2e-6):
+    """ZeRO-2 against ``sync`` at ``--accum-steps 2`` (``zero_vs_sync``'s
+    docstring): SGD params within ``tol`` after ``steps`` steps; under
+    fused Adam, after one boundary, the gradient gate and Adam's predicted
+    response; a doubled-microbatch control that both SGD and the
+    gradient gate must fail.  Returns the record; raises on a failure."""
+    from repro_torch.core import tree as TT
+
+    def worst(a, b, key):
+        return max((x - y).abs().max().item() for x, y in zip(
+            TT.leaves(a["tree"][key]), TT.leaves(b["tree"][key])))
+
+    rec = {"tol": tol, "sgd": {}}
+    ref = run("sync", 2, "sgd")
+    for name, doubled in (("sync_zero2", False), ("control", True)):
+        got = run("sync_zero2", 2, "sgd", doubled=doubled)
+        rec["sgd"][name] = {"steps": steps,
+                            "params_max_abs_diff": worst(got, ref, "params")}
+        del got
+    del ref
+    if not (rec["sgd"]["sync_zero2"]["params_max_abs_diff"] <= tol
+            < rec["sgd"]["control"]["params_max_abs_diff"]):
+        raise AssertionError(f"zero_vs_sync accum 2 sgd: {rec}")
+
+    ref = run("sync", 2, "adam", n_steps=1, abs_sum=True)
+    u = 2.0 ** -24
+    gamma7 = 7 * u / (1 - 7 * u)
+    lr, bc1, bc2 = ref["consts"]
+    b1 = ref["adam_kw"].get("b1", 0.9)
+    eps = ref["adam_kw"].get("eps", 1e-8)
+    # m = fl(c1 g) from m = 0, with c1 = 1 - b1 in f32 as the kernel has it
+    c1 = float(np.float32(1) - np.float32(b1))
+    n_terms = TRAIN_W * 2
+
+    def update(m, v):
+        """Adam's step in float64 from an f32 m and v."""
+        m, v = m.double(), v.double()
+        return lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+
+    def ulp(x):
+        """The f32 ulp of each element of ``x`` (float64)."""
+        _, e = torch.frexp(x.float())
+        return torch.ldexp(torch.ones_like(x, dtype=torch.float64),
+                           (e - 24).clamp_min(-149))
+
+    names = [".".join(map(str, k)) for k in _paths(ref["tree"]["params"])]
+
+    def check(got):
+        """Counts of the elements failing the gradient gate and Adam's
+        predicted response, and the five largest param differences with
+        their gradients, the gradients' rounding bound and the updates."""
+        out = {"grad_gate_failures": 0, "update_rule_failures": 0,
+               "params_above_tol": 0}
+        cand = []
+        for name, ps, pz, ms, mz, vs, vz, sa in zip(names, *(
+                TT.leaves(r["tree"][k]) for k in ("params", "m", "v")
+                for r in (ref, got)), ref["abs"]):
+            # the gradient gate: |g_z - g_s| <= 2 γ7 Σ|terms|/8, read
+            # through m = fl(c1 g) (its rounding: one ulp of the larger);
+            # Σ|terms| was itself summed in f32 (8 terms: 1 + 2^-20)
+            gbound = 2 * gamma7 * sa.double() / n_terms * (1 + 2.0 ** -20)
+            dm = (mz.double() - ms.double()).abs()
+            mbound = c1 * gbound + ulp(torch.maximum(ms.abs(), mz.abs()))
+            out["grad_gate_failures"] += int((dm > mbound).sum())
+            # Adam's response: the param difference is the difference of
+            # the two updates, within the f32 rounding of p and of u
+            us, uz = update(ms, vs), update(mz, vz)
+            obs = pz.double() - ps.double()
+            miss = (obs + (uz - us)).abs() - (
+                ulp(torch.maximum(ps.abs(), pz.abs()))
+                + 8 * ulp(torch.maximum(us.abs(), uz.abs())))
+            out["update_rule_failures"] += int((miss > 0).sum())
+            out["params_above_tol"] += int((obs.abs() > tol).sum())
+            top = obs.abs().flatten().topk(min(5, obs.numel())).indices
+            for i in top.tolist():
+                f = lambda x: x.flatten()[i].item()  # noqa: E731
+                cand.append({"leaf": name, "index": i, "dp": f(obs),
+                             "dp_predicted": -(f(uz) - f(us)),
+                             "g_sync": f(ms) / c1, "g_zero2": f(mz) / c1,
+                             "g_rounding_bound": f(gbound),
+                             "mean_abs_term": f(sa) / n_terms,
+                             "u_sync": f(us), "u_zero2": f(uz)})
+            del us, uz, obs, miss, dm, mbound, gbound
+        for key in ("params", "m", "v"):
+            out[f"{key}_max_abs_diff"] = worst(got, ref, key)
+        out["worst"] = sorted(cand, key=lambda c: -abs(c["dp"]))[:5]
+        return out
+
+    rec["adam"] = {"boundaries": 1, "consts_lr_bc1_bc2": [lr, bc1, bc2],
+                   "gamma7": gamma7}
+    for name, doubled in (("sync_zero2", False), ("control", True)):
+        got = run("sync_zero2", 2, "adam", n_steps=1, doubled=doubled)
+        if got["consts"] != ref["consts"]:
+            raise AssertionError(f"zero_vs_sync accum 2: Adam's constants "
+                                 f"{got['consts']} != {ref['consts']}")
+        rec["adam"][name] = check(got)
+        del got
+    del ref
+    z, c = rec["adam"]["sync_zero2"], rec["adam"]["control"]
+    if z["grad_gate_failures"] or z["update_rule_failures"] \
+            or not c["grad_gate_failures"]:
+        raise AssertionError(f"zero_vs_sync accum 2 adam: {rec}")
+    return rec
+
+
+def ckpt_resume(get_config, smi):
+    """Checkpoints on the card, at ``qwen2-1.5b --reduced`` (saving is host
+    zlib: a full-width state would measure the host for minutes), W = 2,
+    fused Adam, under ``build/ckpt_resume/``:
+
+    * for ZeRO-1 under ``bf16`` and ZeRO-3 in f32, six uninterrupted steps
+      against three, ``checkpoint_tree`` saved, a fresh state,
+      ``resume_auto`` and three more (one schedule of 6 steps): every leaf
+      ``torch.equal`` (the loss scale is not checkpointed, by either
+      package: its value must match, its growth streak restarts);
+    * a ZeRO-1 ``bf16`` save at W = 4 restored with ``repartition=True``
+      at W = 2: m, v and the master after ``unpartition`` ``torch.equal``;
+    * the CLI with ``--ckpt-dir`` and then ``--resume auto``, which prints
+      ``resumed from step 2``;
+    * ``verify_checkpoint`` on every step written; the bytes written and
+      the seconds to save and to restore."""
+    import shutil
+
+    from repro_torch import checkpoint as CK
+    from repro_torch.core import tree as TT
+    from repro_torch.core.comm import LocalComm
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.core.precision import apply_policy, get_policy
+    from repro_torch.core.strategies import get_strategy
+    from repro_torch.data.pipeline import DataConfig, worker_batches
+    from repro_torch.launch import train as CLI
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam, warmup_cosine
+    from repro_torch.train.loop import (init_train_state, make_loss_fn,
+                                        make_replica_train_step)
+
+    root = ROOT / "build" / "ckpt_resume"
+    shutil.rmtree(root, ignore_errors=True)
+    base = get_config("qwen2-1.5b").reduced()
+    total = 6
+
+    def fresh(stage, precision, w):
+        pol = None if precision == "f32" else get_policy(precision)
+        cfg = base if pol is None else apply_policy(base, pol)
+        comm = LocalComm(w)
+        strat = get_strategy(f"sync_zero{stage}", policy=pol)
+        opt = adam(warmup_cosine(1e-3, 1, total), fused=True)
+        lf = make_loss_fn(cfg, remat=False)
+        params = comm.replicate(T.init_model(
+            torch.Generator(device="cuda").manual_seed(21), cfg,
+            device="cuda"))
+        state = init_train_state(params, opt, strat, comm, policy=pol)
+        step = make_replica_train_step(
+            lambda p, x: lf(p, {"tokens": x, "labels": x}), opt, strat,
+            comm, policy=pol)
+        return state, strat, comm, pol, step
+
+    dcfg = DataConfig(vocab_size=base.vocab_size, seq_len=64,
+                      batch_per_worker=2, seed=21)
+
+    def steps(state, step, t0, t1, w=2):
+        for t in range(t0, t1):
+            state, _ = step(state, worker_batches(dcfg, w, t,
+                                                  device="cuda"))
+        return state
+
+    out = {"phase": "ckpt_resume", "arch": base.name, "workers": 2,
+           "fused_adam": True, "steps": total, "resume": {}}
+    for stage, precision in ((1, "bf16"), (3, "f32")):
+        name = f"sync_zero{stage}"
+        d = str(root / f"{name}_{precision}")
+        state, _, _, _, step = fresh(stage, precision, 2)
+        ref = steps(state, step, 0, total)
+        state, strat, comm, pol, step = fresh(stage, precision, 2)
+        state = steps(state, step, 0, total // 2)
+        tree, kw = CLI.checkpoint_tree(state, strat, comm, pol)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fname = CK.save_checkpoint(d, total // 2, tree, **kw)
+        save_s = time.perf_counter() - t0
+        del state, tree
+        state, strat, comm, pol, step = fresh(stage, precision, 2)
+        t0 = time.perf_counter()
+        k = CLI.resume_auto(d, state, strat, comm, pol, "cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        state = steps(state, step, k, total)
+        scale_equal = True
+        if "loss_scale" in ref:
+            scale_equal = torch.equal(state.pop("loss_scale")["scale"],
+                                      ref.pop("loss_scale")["scale"])
+        a, b = TT.leaves(state), TT.leaves(ref)
+        equal = len(a) == len(b) and all(torch.equal(x, y)
+                                         for x, y in zip(a, b))
+        verify = CK.verify_checkpoint(d, total // 2)
+        out["resume"][f"{name}_{precision}"] = {
+            "restored_step": k, "leaves_compared": len(b),
+            "bitwise": equal, "loss_scale_equal": scale_equal,
+            "verify": verify, "bytes": os.path.getsize(fname),
+            "save_s": save_s, "restore_s": restore_s}
+        del state, ref
+        if not (equal and scale_equal and verify is None
+                and k == total // 2):
+            raise AssertionError(f"ckpt_resume {name}: {out}")
+
+    # re-shard: a ZeRO-1 bf16 save at W = 4, restored at W = 2
+    d = str(root / "reshard")
+    state4, strat4, comm4, pol, step4 = fresh(1, "bf16", 4)
+    state4 = steps(state4, step4, 0, 2, w=4)
+    tree, kw = CLI.checkpoint_tree(state4, strat4, comm4, pol)
+    CK.save_checkpoint(d, 2, tree, **kw)
+    state2, strat2, comm2, _, _ = fresh(1, "bf16", 2)
+    template, _ = CLI.checkpoint_tree(state2, strat2, comm2, pol)
+    t0 = time.perf_counter()
+    got = CK.restore_checkpoint(d, 2, template, device="cuda",
+                                repartition=True)
+    torch.cuda.synchronize()
+    reshard_s = time.perf_counter() - t0
+    # f32 layouts (meta): the master and m, v are compared at full width
+    fab4, fab2 = Fabric(comm4), Fabric(comm2)
+    play4, play2 = (fab.partitioned_layout(TT.tree_map(
+        lambda x: torch.empty(x.shape, device="meta"), st["params"]))
+        for fab, st in ((fab4, state4), (fab2, state2)))
+    pairs = {"m": (got["opt_state"]["opt"]["m"],
+                   state4["opt_state"]["opt"]["m"]),
+             "v": (got["opt_state"]["opt"]["v"],
+                   state4["opt_state"]["opt"]["v"]),
+             "master": (got["opt_state"]["master"],
+                        state4["opt_state"]["master"])}
+    reshard = {}
+    for key, (new, old) in pairs.items():
+        x, y = fab2.unpartition(new, play2), fab4.unpartition(old, play4)
+        reshard[key] = all(torch.equal(a[0], b[0]) for a, b in
+                           zip(TT.leaves(x), TT.leaves(y)))
+    out["reshard_w4_to_w2"] = {"bitwise": reshard, "restore_s": reshard_s,
+                               "shard_shapes_w2": [list(t.shape) for t in
+                                                   pairs["m"][0]]}
+    del state4, state2, got
+    if not all(reshard.values()):
+        raise AssertionError(f"ckpt_resume re-shard: {out}")
+
+    # the CLI: --ckpt-dir, then --resume auto
+    d = str(root / "cli")
+    argv = ["--arch", "qwen2-1.5b", "--reduced", "--workers", "2",
+            "--batch-per-worker", "2", "--seq-len", "64", "--log-every",
+            "1", "--zero-stage", "1", "--precision", "bf16", "--fused-adam",
+            "--device", "cuda", "--ckpt-dir", d]
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        CLI.main(argv + ["--steps", "2"])
+        hist = CLI.main(argv + ["--steps", "4", "--resume", "auto"])
+    lines = text.getvalue().splitlines()
+    out["cli"] = {"resumed": [x for x in lines if x.startswith("resumed")],
+                  "steps_after_resume": [h["step"] for h in hist],
+                  "verify": {s: CK.verify_checkpoint(d, s) for s in (2, 4)},
+                  "loss": [h["loss"] for h in hist]}
+    if not any("resumed from step 2" in x for x in lines) \
+            or out["cli"]["steps_after_resume"] != [2, 3] \
+            or any(out["cli"]["verify"].values()) \
+            or not all(math.isfinite(x) for x in out["cli"]["loss"]):
+        raise AssertionError(f"ckpt_resume CLI: {out['cli']}")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["card"] = smi
     return out
 
 
@@ -2588,14 +3082,17 @@ def time_train_kernels(ob, tk, fa, launches, get_config, smi):
                     flush)
     del pb, m, v
     bms, by = bound(24 * n, 15 * n)
-    out["fused_adam"]["bf16_p"] = {
+    bf16_row = {
         "max_abs_err_p": p_err, "p_elements_not_bitwise": p_differ,
         "tol": "m, v rtol 1e-5, atol 1e-6; p within one bf16 ulp",
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
         "library_ms": None,
         "library_note": "torch.optim.Adam keeps m and v in the param's "
                         "dtype: no single call computes f32 m, v on bf16 p"}
+    out["fused_adam"]["bf16_p"] = bf16_row
     del g, r
+    out["fused_adam"]["shard_bucket"] = time_shard_adam(fa, get_config,
+                                                        flush, bound)
     torch.cuda.empty_cache()
     ob.onebit_quant_packed.launches = saved["ob"]
     tk.topk_encode_ef.launches = saved["tk"]
@@ -2604,6 +3101,52 @@ def time_train_kernels(ob, tk, fa, launches, get_config, smi):
         rec["launches"] = launches[name]
     return {"phase": "time_train_kernels", "elements": n, "kernels": out,
             "card": smi}
+
+
+def time_shard_adam(fa, get_config, flush, bound):
+    """``fused_adam`` as the ZeRO strategies launch it: on one shard bucket
+    of the training path, the largest bucket's ``(W, chunk)`` flattened,
+    f32 p (the master shards under ``bf16``).  Held against the plain
+    version on the same inputs at step 7's bias corrections (rtol 1e-5,
+    atol 1e-6, ``check_adam``'s), then timed against its bound (28 B an
+    element), the plain version and ``torch.optim.Adam(fused=True)`` on the
+    same elements."""
+    play = meta_partition(get_config, TRAIN_LAYERS)
+    b = max(range(len(play.shard_sizes)), key=lambda i: play.shard_sizes[i])
+    shape = [TRAIN_W, play.shard_sizes[b]]
+    n = shape[0] * shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    p = torch.randn(n, device="cuda", generator=gen)
+    g = torch.randn(n, device="cuda", generator=gen)
+    m = 0.1 * torch.randn(n, device="cuda", generator=gen)
+    v = torch.rand(n, device="cuda", generator=gen)
+    c7 = torch.tensor([1e-3, 1.0 - 0.9 ** 7, 1.0 - 0.999 ** 7],
+                      device="cuda")
+    got = [x.clone() for x in (p, m, v)]
+    fa.fused_adam(got[0], g, got[1], got[2], c7)
+    want = [x.clone() for x in (p, m, v)]
+    fa.fused_adam_plain(want[0], g, want[1], want[2], c7)
+    torch.cuda.synchronize()
+    err = 0.0
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+        err = max(err, (x - y).abs().max().item())
+    del got, want
+    ms = cuda_ms(lambda: fa.fused_adam(p, g, m, v, c7), 10, flush)
+    plain = cuda_ms(lambda: fa.fused_adam_plain(p, g, m, v, c7), 3, flush)
+    lp = torch.nn.Parameter(p)
+    lp.grad = g
+    lib_opt = torch.optim.Adam([lp], lr=1e-3, fused=True)
+    lib = cuda_ms(lib_opt.step, 5, flush)
+    del lib_opt, lp, p, g, m, v
+    torch.cuda.empty_cache()
+    bms, by = bound(28 * n, 15 * n)
+    return {"bucket": b, "shape": shape, "elements": n,
+            "max_abs_err_vs_plain": err, "tol": "rtol 1e-5, atol 1e-6",
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib,
+            "library_note": "torch.optim.Adam(fused=True).step() on the "
+                            "same elements; never called by the port"}
 
 
 def time_codec_kernels(ob, tk, launches, get_config, smi):
@@ -2835,7 +3378,26 @@ def main(argv=None) -> int:
         for k, n in result["launches"].items():
             train_launches[k] += n
         torch.cuda.empty_cache()
+    # ZeRO-1/2/3 on the same cut, fused_adam once a shard bucket, after
+    # their baseline: sync without a compressor
+    for phase, strategy, precision, accum in (
+            ("train_sync", "sync", "f32", 1),
+            ("train_zero1", "sync_zero1", "f32", 1),
+            ("train_zero2", "sync_zero2", "f32", 2),
+            ("train_zero3", "sync_zero3", "f32", 1),
+            ("train_zero1_bf16", "sync_zero1", "bf16", 2)):
+        result, prof = train_path(train_kernels, get_config, smi,
+                                  strategy=strategy, precision=precision,
+                                  accum=accum, phase=phase)
+        emit(result)
+        emit(prof)
+        for k, n in result["launches"].items():
+            train_launches[k] += n
+        torch.cuda.empty_cache()
+    emit(zero_vs_sync(get_config, smi))
     emit(skip_step(get_config, train_kernels, smi))
+    emit(skip_step(get_config, train_kernels, smi, strategy="sync_zero1"))
+    emit(ckpt_resume(get_config, smi))
     emit(finite_read_cost(get_config, smi))
     emit(prefetch(train_kernels, get_config, smi))
     emit(train_remat(get_config, smi))
@@ -2888,7 +3450,9 @@ def main(argv=None) -> int:
             "bound_by": tim["bound_by"], "library_ms": tim["library_ms"],
             **({"general_path_ms": checks[name]["general_path"]["ms"]}
                if "general_path" in checks[name] else {}),
-            **({"bf16_p": tim["bf16_p"]} if "bf16_p" in tim else {})})
+            **({"bf16_p": tim["bf16_p"]} if "bf16_p" in tim else {}),
+            **({"shard_bucket": tim["shard_bucket"]}
+               if "shard_bucket" in tim else {})})
 
     emit({"kernels": [{
         "name": "paged_attention", "route": "cuda",

@@ -21,7 +21,12 @@ for ``sm_90a`` (``kernels/csrc/``):
     skip-step) → the strategies of the spectrum →
     ``core.fabric.Fabric.exchange`` (``kernels.ops.onebit_quant_packed``,
     ``topk_encode_ef``) → ``optim.adam`` (``kernels.ops.fused_adam``, f32
-    or bf16 params).
+    or bf16 params); ZeRO-1/2/3 (``sync_zero1``/``2``/``3``:
+    ``Fabric.exchange_partitioned``'s reduce-scatter, ``fused_adam`` on
+    the 1/W shard buckets, ``unpartition``'s all-gather), and the npz
+    checkpointer with re-sharding across worker counts
+    (``checkpoint``, ``core.resharding``; ``--ckpt-dir``, ``--resume
+    auto``), whose files the JAX package reads and writes too.
 
 Every entry point takes an explicit ``device``, defaulting to ``"cuda"``.
 With no card a ``"cuda"`` default raises; nothing moves quietly to the

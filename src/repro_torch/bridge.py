@@ -5,7 +5,12 @@ Both packages use the same nested-dict layout (``models/transformer.py``,
 ``train/loop.py::init_train_state``, each strategy's ``comm_state``), so
 the conversion is a pure copy, leaf by leaf, through numpy; the one
 exception is ``ssp``'s ring, one (s, W, ...) array a parameter in the
-reference and a tuple of s parameter trees in the port.  bfloat16
+reference and a tuple of s parameter trees in the port.  Lists and
+tuples are kept: the ZeRO strategies' shard-bucket states (an optimizer
+state of per-bucket ``(W, chunk)`` arrays, ZeRO-1's ``{"opt",
+"master"}``, ZeRO-3's param shards) are lists in both packages.  Every
+leaf is copied into storage of its own, so a broadcast view (the
+replicated params ``unpartition`` returns) comes back as W rows.  bfloat16
 leaves go through a 16-bit integer view: ``torch.from_numpy`` rejects
 ml_dtypes' ``bfloat16``.
 """
@@ -42,6 +47,8 @@ def params_from_numpy(tree, device="cuda", dtype=None):
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(conv(v) for v in x)
         return _leaf_to_torch(x, dev, dt)
 
     return conv(tree)
@@ -52,6 +59,8 @@ def params_to_numpy(tree):
     bfloat16 leaves come back as ml_dtypes' ``bfloat16``."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
     t = tree.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         import ml_dtypes  # installed with JAX; only this direction needs it

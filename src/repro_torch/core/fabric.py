@@ -20,9 +20,19 @@ use (``compress``) and the exchange with DGC momentum correction
 (``exchange_dgc``), the wire dtype of the precision policy (uncompressed
 buckets rounded to bf16 before the axis reduction, which accumulates in
 f32, and counted at 2 bytes an element) and the microbatch accumulator
-(``init_accum``, ``accumulate``).  The partitioned (ZeRO) layout and the
-``ShardComm`` branches, the narrow sharded wire among them, are later
-slices of the port.
+(``init_accum``, ``accumulate``), and the partitioned (ZeRO) half: the
+``PartitionedLayout`` (each bucket zero-padded to a multiple of W, worker
+w owning chunk w), the reduce-scatter exchange, the shard slice of a
+replicated tree, the all-gather back (``unpartition``) and the 1/W shard
+accumulator of ZeRO-2/3.  The ``ShardComm`` branches, the narrow sharded
+wire among them, are a later slice of the port.
+
+``LocalComm.all_gather`` returns a broadcast view: the tree
+``unpartition`` hands back holds ONE copy of each bucket behind stride 0
+on the replica axis, and for an f32 leaf that copy is the shard buckets'
+own storage.  Nothing of the ZeRO strategies writes such a tree in place
+(the optimizer updates the shard buckets); a caller that would must copy
+it first.
 """
 
 from __future__ import annotations
@@ -134,6 +144,47 @@ class BucketLayout:
             seg = seg.reshape(self.lead_shape + self.shapes[i])
             leaves.append(seg.to(self.dtypes[i]) if cast else seg)
         return T.unflatten(self.treedef, leaves)
+
+
+# ---------------------------------------------------------------------------
+# partitioned (ZeRO) layout: every bucket padded to a multiple of W
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class PartitionedLayout:
+    """BucketLayout + the ZeRO partition: each flat f32 bucket is
+    zero-padded to a multiple of ``n_parts`` and worker w owns chunk w.
+
+    What is kept in shard form (optimizer state, the master, ZeRO-3's
+    params) costs ``sum(shard_sizes)`` ≈ ``total_elements / n_parts`` a
+    worker.  One partitioned exchange (reduce-scatter + all-gather) ships
+    the bytes of the dense all-reduce."""
+
+    layout: BucketLayout
+    n_parts: int
+    padded_sizes: tuple  # per-bucket elements after padding
+
+    @staticmethod
+    def build(layout: BucketLayout, n_parts: int) -> "PartitionedLayout":
+        """THE padding rule: each bucket rounds up to the next multiple of
+        ``n_parts``."""
+        padded = tuple(-(-n // n_parts) * n_parts
+                       for n in layout.bucket_sizes)
+        return PartitionedLayout(layout, n_parts, padded)
+
+    @property
+    def shard_sizes(self) -> tuple:
+        return tuple(p // self.n_parts for p in self.padded_sizes)
+
+    def spec(self) -> dict:
+        """JSON-able partition description for checkpoint re-sharding."""
+        return {"n_parts": self.n_parts,
+                "bucket_sizes": list(self.layout.bucket_sizes)}
+
+    def with_parts(self, n_parts: int) -> "PartitionedLayout":
+        """The same bucket layout re-padded for another worker count: the
+        bucket contents are invariant, only padding and chunk width
+        change."""
+        return PartitionedLayout.build(self.layout, n_parts)
 
 
 # ---------------------------------------------------------------------------
@@ -304,23 +355,28 @@ class Fabric:
     # accumulated sum: compression, error feedback and the collective all
     # run at the boundary only.
 
-    def init_accum(self, lay: BucketLayout, device=None):
-        """Zeroed flat f32 accumulator buckets on ``device``.  They own
-        their storage: a one-leaf bucket of ``bucketize`` is a view of the
-        leaf, and an add into such a view would write into a microbatch's
-        gradient."""
+    def init_accum(self, lay: BucketLayout, device=None,
+                   play: Optional[PartitionedLayout] = None):
+        """Zeroed flat f32 accumulator buckets on ``device`` (padded when
+        ``play`` is given, so the boundary reduce-scatter needs no
+        re-pad).  They own their storage: a one-leaf bucket of
+        ``bucketize`` is a view of the leaf, and an add into such a view
+        would write into a microbatch's gradient."""
+        sizes = play.padded_sizes if play is not None else lay.bucket_sizes
         return [torch.zeros(lay.lead_shape + (n,), dtype=torch.float32,
-                            device=device) for n in lay.bucket_sizes]
+                            device=device) for n in sizes]
 
     def accumulate(self, acc, tree, lay: BucketLayout, replica=None):
         """acc + bucketize(tree), IN PLACE on the accumulator's buckets
         (the reference's donated scan carry): elementwise f32 adds.  With
         ``replica`` (an index on the leading replica axis) ``tree`` is that
         one replica's tree and is added into its rows only: the same adds,
-        without a stacked tree.  Returns ``acc``."""
+        without a stacked tree.  A padded accumulator
+        (``init_accum(lay, play=...)``) takes the same adds and its padding
+        stays zero.  Returns ``acc``."""
         if replica is None:
             for a, g in zip(acc, lay.bucketize(tree)):
-                a.add_(g)
+                a[..., :g.shape[-1]].add_(g)
             return acc
         for i, x in enumerate(T.leaves(tree)):
             row = acc[lay.bucket_of[i]][replica]
@@ -328,6 +384,36 @@ class Fabric:
             row[..., off:off + lay.sizes[i]].add_(
                 x.reshape(tuple(row.shape[:-1]) + (-1,)))
         return acc
+
+    # ZeRO-2 (gradient sharding): each microbatch's gradient is
+    # reduce-scattered and only the local 1/W shard accumulates.  One
+    # reduce-scatter a bucket a MICROBATCH against a W times smaller
+    # accumulator.
+
+    def init_accum_partitioned(self, play: PartitionedLayout, device=None):
+        """Zeroed 1/W shard-bucket f32 accumulator (ZeRO-2)."""
+        lead = play.layout.lead_shape
+        return [torch.zeros(lead + (n,), dtype=torch.float32, device=device)
+                for n in play.shard_sizes]
+
+    def accumulate_partitioned(self, acc, tree, play: PartitionedLayout):
+        """acc + reduce_scatter_mean(tree), IN PLACE: the shard-space
+        microbatch add of ZeRO-2.  It accumulates each microbatch's
+        cross-worker MEAN, so the boundary divides by accum_steps only.
+        Returns (acc, metrics); the metrics charge the reduce-scatter half
+        of the partitioned exchange."""
+        return self.accumulate_partitioned_buckets(
+            acc, self._pad_buckets(play.layout.bucketize(tree), play), play)
+
+    def accumulate_partitioned_buckets(self, acc, buckets,
+                                       play: PartitionedLayout):
+        """``accumulate_partitioned`` from one microbatch's PADDED stacked
+        buckets (``init_accum(lay, play=play)`` filled replica by replica,
+        as the train loop builds them)."""
+        shards, _ = self.exchange_partitioned_accumulated(buckets, play)
+        for a, s in zip(acc, shards):
+            a.add_(s)
+        return acc, self.metrics(self.flat_bytes(play.layout) / 2.0)
 
     # -- fused exchanges ----------------------------------------------------
     def exchange(self, grads, residual=None, compressor=None, events=1.0):
@@ -379,6 +465,56 @@ class Fabric:
                      "residual": lay.debucketize(r_out, cast=False)}
         return (lay.debucketize(g_out), new_state,
                 self.metrics(self.wire_bytes(lay, compressor), events))
+
+    # -- partitioned (ZeRO) exchange ----------------------------------------
+    def partitioned_layout(self, tree) -> PartitionedLayout:
+        return PartitionedLayout.build(self.layout(tree), self.comm.size)
+
+    def _pad_buckets(self, buckets, play: PartitionedLayout):
+        return [b if b.shape[-1] == p else torch.nn.functional.pad(
+                    b, (0, p - b.shape[-1]))
+                for b, p in zip(buckets, play.padded_sizes)]
+
+    def shard_params(self, tree, play: Optional[PartitionedLayout] = None):
+        """This worker's 1/W shard of each (replicated) flat f32 bucket: a
+        local slice, no collective, into storage of its own (the optimizer
+        updates it in place).  The optimizer state built from these shard
+        buckets is ZeRO-1's partitioned state."""
+        play = play or self.partitioned_layout(tree)
+        buckets = self._pad_buckets(play.layout.bucketize(tree), play)
+        return self.comm.shard_chunk(buckets)
+
+    def exchange_partitioned(self, grads,
+                             play: Optional[PartitionedLayout] = None,
+                             events=1.0):
+        """Fused reduce-scatter mean: every worker receives ONLY its own
+        1/W shard of the cross-worker mean gradient, one reduce-scatter a
+        bucket.  Returns (shard_buckets, metrics).  With the all-gather of
+        ``unpartition`` it ships the bytes of the dense all-reduce."""
+        play = play or self.partitioned_layout(grads)
+        gb = self._pad_buckets(play.layout.bucketize(grads), play)
+        return self.exchange_partitioned_accumulated(gb, play, events=events)
+
+    def exchange_partitioned_accumulated(self, buckets,
+                                         play: PartitionedLayout,
+                                         events=1.0):
+        """``exchange_partitioned`` from PADDED flat f32 buckets (the
+        accumulator of ``init_accum(lay, play=play)``): one reduce-scatter
+        a bucket.  The stacked simulator rounds the buckets to the wire
+        dtype and reduces in f32.  Returns (shard_buckets, metrics)."""
+        shards = self.comm.reduce_scatter(self._wire_cast(buckets),
+                                          mean=True)
+        return shards, self.metrics(self.flat_bytes(play.layout), events)
+
+    def unpartition(self, shards, play: PartitionedLayout):
+        """All-gather the shards back into the full tree: one tiled
+        all-gather a bucket of wire-dtype buffers (the gathered params are
+        the wire-dtype image of f32 master shards), padding sliced away,
+        leaf dtypes restored.  The leaves are broadcast views on the
+        replica axis (module docstring)."""
+        full = self.comm.all_gather(self._wire_cast(shards), tiled=True)
+        full = [b[..., :n] for b, n in zip(full, play.layout.bucket_sizes)]
+        return play.layout.debucketize(full)
 
     def compress(self, grads, residual, compressor):
         """Error-feedback compression WITHOUT a collective, for strategies

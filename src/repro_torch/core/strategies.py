@@ -4,7 +4,9 @@ strategies.
 Port of ``repro/core/strategies.py``.  Spectrum point → strategy:
 
   1. synchronous (large mini-batch)   → ``sync``; with DGC momentum
-     correction ``sync_dgc``
+     correction ``sync_dgc``; with the optimizer state partitioned
+     (ZeRO-1) ``sync_zero1``, also the gradients (ZeRO-2) ``sync_zero2``,
+     also the parameters (ZeRO-3) ``sync_zero3``
   2. complete, bounded delay          → ``ssp`` (stale-synchronous)
   3. complete, unbounded delay        → ``downpour`` (decentralized
      parameter-server semantics)
@@ -27,8 +29,8 @@ Differences from the reference, none of which changes a result:
     (s, W, ...) array: a step builds a new tuple that holds the fresh
     gradient in its slot, so the ring is neither copied nor mutated
     (``bridge.py`` converts to and from the reference's layout);
-  * the ZeRO strategies and the unused ``compressor`` arguments of
-    ``local_sgd`` and ``gossip`` are not ported.
+  * the unused ``compressor`` arguments of ``local_sgd`` and ``gossip``
+    are not ported.
 
 Every strategy takes the precision policy (``policy=``, ``core/precision.py``):
 its Fabric rounds the uncompressed exchanges (``all_mean``, ``all_sum``,
@@ -104,6 +106,168 @@ def sync(compressor: Optional[Compressor] = None,
 
     return Strategy("sync", 1, True, init, update,
                     wire_profile="compressed" if compressor else "dense")
+
+
+# ---------------------------------------------------------------------------
+# 1z. synchronous + partitioned optimizer state (ZeRO-1)
+# ---------------------------------------------------------------------------
+def _shard_update(fab, play, params, g_shards, opt_state, t, opt,
+                  keeps_master):
+    """The shard step of ZeRO-1/2: the optimizer on this worker's 1/W
+    shard buckets (the f32 master shards under a master-keeping policy),
+    then the all-gather of the updated shards into the replicated params.
+    Returns (params, opt_state)."""
+    if keeps_master:
+        inner, p_shards = opt_state["opt"], opt_state["master"]
+    else:
+        inner, p_shards = opt_state, fab.shard_params(params, play)
+    p_shards, inner = opt.update(g_shards, inner, p_shards, t)
+    params = fab.unpartition(p_shards, play)
+    return params, ({"opt": inner, "master": p_shards} if keeps_master
+                    else inner)
+
+
+def sync_zero1(bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+               policy: Optional[PrecisionPolicy] = None) -> Strategy:
+    """Spectrum point 1 with sharded-optimizer data parallelism (ZeRO-1,
+    Rajbhandari et al.): each flat f32 bucket is reduce-scattered so
+    worker w owns only chunk w of the mean gradient, updates its 1/W
+    shard of the parameters against 1/W of the optimizer state, and the
+    updated shards are all-gathered back into the replicated params.
+
+    The wire bytes a step equal the dense all-reduce's; the optimizer
+    state a worker drops from N to N/W.  The numerics are ``sync``'s: the
+    same mean reaches the same elementwise update.  Under a master-keeping
+    policy the f32 master rides the shard: ``opt_state = {"opt": <inner
+    state>, "master": <1/W f32 shard buckets>}``, and the all-gather
+    ships the bf16 image of the new master.
+
+    The params it returns are the broadcast view of ``unpartition``
+    (``core/fabric.py``): nothing writes them in place, since the
+    optimizer updates shard buckets of their own storage."""
+
+    keeps_master = policy is not None and policy.keeps_master
+
+    def init(params, comm):
+        return {}
+
+    def init_opt(params, opt, comm):
+        # optimizer state over THIS worker's shard buckets
+        shards = _fab(comm, bucket_bytes, policy).shard_params(params)
+        inner = opt.init(shards)
+        return {"opt": inner, "master": shards} if keeps_master else inner
+
+    def update(params, grads, opt_state, cstate, t, opt, comm):
+        fab = _fab(comm, bucket_bytes, policy)
+        play = fab.partitioned_layout(params)
+        g_shards, m = fab.exchange_partitioned(grads, play)
+        del grads
+        params, opt_state = _shard_update(fab, play, params, g_shards,
+                                          opt_state, t, opt, keeps_master)
+        return params, opt_state, cstate, m
+
+    return Strategy("sync_zero1", 1, True, init, update, init_opt,
+                    owns_master=keeps_master, wire_profile="partitioned")
+
+
+# ---------------------------------------------------------------------------
+# 1z2. ZeRO-2: gradient sharding on top of the partitioned optimizer state
+# ---------------------------------------------------------------------------
+def sync_zero2(bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+               policy: Optional[PrecisionPolicy] = None) -> Strategy:
+    """ZeRO-1 plus gradient sharding (stage 2): under microbatch
+    accumulation each microbatch's gradient is reduce-scattered into the
+    ``PartitionedLayout`` as it is produced
+    (``Fabric.accumulate_partitioned``), so the accumulator holds 1/W
+    shard buckets.  One reduce-scatter a bucket a MICROBATCH against a W
+    times smaller accumulator; at ``accum_steps=1`` it is ``sync_zero1``,
+    wire and numerics."""
+
+    keeps_master = policy is not None and policy.keeps_master
+    z1 = sync_zero1(bucket_bytes=bucket_bytes, policy=policy)
+
+    def update_partitioned(params, g_shards, opt_state, cstate, t, opt,
+                           comm):
+        # the boundary: the gradients arrive as reduced 1/W shard buckets,
+        # only the shard update and the param all-gather remain
+        fab = _fab(comm, bucket_bytes, policy)
+        play = fab.partitioned_layout(params)
+        params, opt_state = _shard_update(fab, play, params, g_shards,
+                                          opt_state, t, opt, keeps_master)
+        m = fab.metrics(fab.flat_bytes(play.layout) / 2.0)  # the AG half
+        return params, opt_state, cstate, m
+
+    return Strategy("sync_zero2", 1, True, z1.init, z1.update, z1.init_opt,
+                    owns_master=keeps_master, wire_profile="partitioned",
+                    partitioned_accum=True,
+                    update_partitioned=update_partitioned)
+
+
+# ---------------------------------------------------------------------------
+# 1z3. ZeRO-3: parameter sharding, the train state holds 1/W of the model
+# ---------------------------------------------------------------------------
+def sync_zero3(bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+               policy: Optional[PrecisionPolicy] = None) -> Strategy:
+    """Full ZeRO (stage 3): parameters, gradients and optimizer state are
+    partitioned.  The train state's ``params`` are this worker's flat f32
+    shard buckets; the loop all-gathers the full parameters a step with
+    ``gather_params`` (a temporary of the step), the gradients are
+    reduce-scattered, and the elementwise optimizer updates the shards in
+    place.  The numerics are ``sync``'s bitwise.  The f32 shard buckets
+    are the precision master too (``owns_master``), and the gather ships
+    their wire-dtype image."""
+
+    keeps_master = policy is not None and policy.keeps_master
+    box = {}  # the partition layout, recorded by init_params
+
+    def _fab_play(comm, tree=None):
+        fab = _fab(comm, bucket_bytes, policy)
+        play = box.get("play")
+        if play is None and tree is not None:
+            play = fab.partitioned_layout(tree)
+        return fab, play
+
+    def init(params, comm):
+        return {}
+
+    def init_params(params, comm):
+        fab = _fab(comm, bucket_bytes, policy)
+        play = fab.partitioned_layout(params)
+        box["play"] = play
+        return fab.shard_params(params, play)  # flat f32 shard buckets
+
+    def gather_params(shards, comm):
+        fab, play = _fab_play(comm)
+        return fab.unpartition(shards, play)
+
+    def init_opt(p_shards, opt, comm):
+        # init_train_state hands the shard buckets of init_params
+        return opt.init(p_shards)
+
+    def update(p_shards, grads, opt_state, cstate, t, opt, comm):
+        # grads: the full per-worker tree of the backward over the
+        # gathered params, whose partitioned layout is the params'
+        fab, play = _fab_play(comm, grads)
+        g_shards, m = fab.exchange_partitioned(grads, play)
+        del grads
+        p_shards, opt_state = opt.update(g_shards, opt_state, p_shards, t)
+        return p_shards, opt_state, cstate, m
+
+    def update_partitioned(p_shards, g_shards, opt_state, cstate, t, opt,
+                           comm):
+        # the partitioned accumulation's boundary: only the shard update
+        # (the next step's param gather is the AG half of the wire)
+        fab = _fab(comm, bucket_bytes, policy)
+        p_shards, opt_state = opt.update(g_shards, opt_state, p_shards, t)
+        play = box.get("play")
+        nb = fab.flat_bytes(play.layout) / 2.0 if play is not None else 0.0
+        return p_shards, opt_state, cstate, fab.metrics(nb)
+
+    return Strategy("sync_zero3", 1, True, init, update, init_opt,
+                    owns_master=keeps_master, wire_profile="partitioned",
+                    owns_params=True, init_params=init_params,
+                    gather_params=gather_params, partitioned_accum=True,
+                    update_partitioned=update_partitioned)
 
 
 # ---------------------------------------------------------------------------
@@ -375,6 +539,9 @@ def hierarchical(inner: Strategy, outer: Strategy) -> Strategy:
 
 REGISTRY = {
     "sync": sync,
+    "sync_zero1": sync_zero1,
+    "sync_zero2": sync_zero2,
+    "sync_zero3": sync_zero3,
     "sync_dgc": sync_dgc,
     "local_sgd": local_sgd,
     "easgd": easgd,

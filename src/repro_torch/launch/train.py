@@ -1,25 +1,31 @@
 """Trainer CLI: W stacked model replicas under any strategy of the
-spectrum (``sync``, ``sync_dgc``, ``local_sgd``, ``easgd``, ``ssp``,
-``downpour``, ``gossip``) with optional compression, on one card.
+spectrum (``sync``, ``sync_zero1``/``2``/``3``, ``sync_dgc``,
+``local_sgd``, ``easgd``, ``ssp``, ``downpour``, ``gossip``) with optional
+compression, on one card.
 
 Port of ``repro/launch/train.py`` (its replica-simulator mode), with the
 reference's flags, printed fields, ``--out`` JSON and exit-2 messages, and
 one more flag, ``--device`` (default ``cuda``).  As in the reference,
 ``--compressor`` goes to ``sync``, ``ssp``, ``downpour`` and ``sync_dgc``
-(which needs one); ``--precision bf16|bf16-pure`` trains under that
-precision policy (bf16 weights, compute and uncompressed wire; ``bf16``
-keeps an f32 master and scales the loss, skipping a step that
+(which needs one); ``--zero-stage N`` is ``--strategy sync_zeroN`` (exit 2
+beside another strategy); ``--precision bf16|bf16-pure`` trains under
+that precision policy (bf16 weights, compute and uncompressed wire;
+``bf16`` keeps an f32 master and scales the loss, skipping a step that
 overflows); ``--accum-steps K`` accumulates K microbatches an optimizer
 step (one exchange a boundary, global batch W × B × K); and
 ``--prefetch-depth D`` keeps D batches in flight (``1`` is synchronous).
-Flags whose machinery is a later slice of the port exit 2 with a
-one-line message that names it: ``--zero-stage`` and the ``sync_zero*``
-strategies, ``--ckpt-dir`` and ``--resume``.
+``--ckpt-dir DIR`` saves the state at the end of the run (replica 0's
+params, the master, and for the ZeRO strategies the shard-bucket
+optimizer state, ZeRO-3's param shards and the partition spec), in the
+reference's format; ``--resume auto`` restores the newest valid step of
+``DIR`` first, re-sharded when the save's worker count differs, and
+skips the batches before it (exit 2 when there is none, or when it does
+not fit the run).
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
-      --reduced --device cpu --strategy sync --compressor onebit \\
-      --precision bf16 --accum-steps 2 --fused-adam --steps 20
+      --reduced --device cpu --zero-stage 1 --precision bf16 \\
+      --accum-steps 2 --fused-adam --steps 20 --ckpt-dir /tmp/ck
 """
 
 from __future__ import annotations
@@ -32,11 +38,14 @@ import time
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import (latest_valid_step, read_meta,
+                                    restore_checkpoint, save_checkpoint)
 from repro_torch.configs import get_config, list_configs
 from repro_torch.core import tree as T
 from repro_torch.core.comm import LocalComm
 from repro_torch.core.compression import get_compressor
-from repro_torch.core.precision import apply_policy, get_policy
+from repro_torch.core.fabric import Fabric
+from repro_torch.core.precision import POLICIES, apply_policy, get_policy
 from repro_torch.core.strategies import REGISTRY, get_strategy
 from repro_torch.data.pipeline import (DataConfig, bayes_entropy,
                                        prefetch_batches)
@@ -45,25 +54,22 @@ from repro_torch.optim import adam, sgd, warmup_cosine
 from repro_torch.train.loop import (init_train_state, make_loss_fn,
                                     make_replica_train_step)
 
-# the reference's strategy and precision names, so that a strategy of a
-# later slice parses and then exits 2 with a message naming what it needs
-REFERENCE_STRATEGIES = ("downpour", "easgd", "gossip", "local_sgd", "ssp",
-                        "sync", "sync_dgc", "sync_zero1", "sync_zero2",
-                        "sync_zero3")
-REFERENCE_PRECISIONS = ("bf16", "bf16-pure", "f32")
-
 
 def build_argparser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale variant of the arch")
-    ap.add_argument("--strategy", default="sync", choices=REFERENCE_STRATEGIES)
+    ap.add_argument("--strategy", default="sync", choices=sorted(REGISTRY))
     ap.add_argument("--zero-stage", type=int, default=0, choices=[0, 1, 2, 3],
-                    help="ZeRO partitioning stage (a later slice: only 0)")
+                    help="ZeRO partitioning stage (shorthand for --strategy "
+                         "sync_zero{N}): 1 shards optimizer state, 2 also "
+                         "reduce-scatters per-microbatch gradients into a "
+                         "1/W accumulator, 3 also shards the parameters "
+                         "(gathered per step)")
     ap.add_argument("--compressor", default="none",
                     choices=["none", "onebit", "int8", "topk"])
-    ap.add_argument("--precision", default="f32", choices=REFERENCE_PRECISIONS,
+    ap.add_argument("--precision", default="f32", choices=sorted(POLICIES),
                     help="precision policy (core/precision.py): f32 | bf16 "
                          "(bf16 compute/wire, f32 master, dynamic loss "
                          "scaling) | bf16-pure")
@@ -86,7 +92,11 @@ def build_argparser():
                          "kernel (its plain version on --device cpu)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--resume", default=None, choices=["auto"])
+    ap.add_argument("--resume", default=None, choices=["auto"],
+                    help="auto: resume from the latest VALID checkpoint in "
+                         "--ckpt-dir (corrupt or partial steps are checked "
+                         "against the per-leaf checksums and skipped); exit "
+                         "2 when the dir holds no valid step")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--out", default=None, help="JSON metrics file")
     ap.add_argument("--device", default="cuda",
@@ -100,19 +110,6 @@ def _exit2(msg):
     raise SystemExit(2)
 
 
-def check_ported(args):
-    """Exit 2 for a flag whose machinery is not ported yet."""
-    if args.zero_stage:
-        _exit2(f"--zero-stage {args.zero_stage}: ZeRO partitioning is a "
-               "later slice of the port")
-    if args.strategy not in REGISTRY:
-        _exit2(f"--strategy {args.strategy}: ZeRO partitioning is a later "
-               f"slice of the port; ported: {', '.join(sorted(REGISTRY))}")
-    if args.ckpt_dir or args.resume:
-        _exit2("--ckpt-dir/--resume: checkpoints are a later slice of the "
-               "port")
-
-
 def resolve_config(args):
     """The model config the flags name, or exit 2."""
     try:
@@ -122,6 +119,11 @@ def resolve_config(args):
                + ", ".join(sorted(list_configs())))
     if args.reduced:
         cfg = cfg.reduced()
+    if args.zero_stage:
+        if args.strategy not in ("sync", f"sync_zero{args.zero_stage}"):
+            _exit2(f"--zero-stage {args.zero_stage} conflicts with "
+                   f"--strategy {args.strategy}")
+        args.strategy = f"sync_zero{args.zero_stage}"
     if cfg.is_encoder_decoder or cfg.modality is not None:
         raise SystemExit("trainer CLI supports decoder-only text archs")
     return cfg
@@ -144,10 +146,67 @@ def strategy_from_args(args, policy=None):
     return get_strategy(args.strategy, **kw)
 
 
+def checkpoint_tree(state, strategy, comm, policy):
+    """What ``--ckpt-dir`` saves, as the reference builds it: replica 0's
+    params (gathered under ZeRO-3, so the checkpoint is portable across
+    worker counts) and master, the step, and for the ZeRO strategies the
+    shard-bucket optimizer state, ZeRO-3's param shards and the partition
+    spec (the CLI's strategies bucket by the default ``bucket_bytes``).
+    Returns (tree, save keywords).  The loss scale is not saved (nor is it
+    by the reference): a resumed run restarts its growth streak."""
+    full = strategy.gather_params(state["params"], comm) \
+        if strategy.owns_params else state["params"]
+    tree = {"params": comm.replica(full, 0), "step": state["step"]}
+    kw = {}
+    if policy is not None:
+        kw["precision"] = policy.spec()
+        if "master" in state:
+            tree["master"] = comm.replica(state["master"], 0)
+    if strategy.name.startswith("sync_zero"):
+        tree["opt_state"] = state["opt_state"]
+        if strategy.owns_params:
+            tree["param_shards"] = state["params"]
+        kw["partition"] = Fabric(comm).partitioned_layout(full).spec()
+    return tree, kw
+
+
+def resume_auto(ckpt_dir, state, strategy, comm, policy, device):
+    """Restore the newest valid checkpoint of ``ckpt_dir`` into ``state``
+    (in place): the template mirrors ``checkpoint_tree``, and shard-bucket
+    leaves are re-sharded when the save recorded a partition.  Returns the
+    restored step; exits 2 when the dir holds no valid step or the
+    checkpoint does not fit this run."""
+    step0 = latest_valid_step(ckpt_dir)
+    if step0 is None:
+        _exit2(f"--resume auto: no valid checkpoint step in {ckpt_dir!r}")
+    template, _ = checkpoint_tree(state, strategy, comm, policy)
+    has_part = str(step0) in read_meta(ckpt_dir).get("partitions", {})
+    try:
+        restored = restore_checkpoint(ckpt_dir, step0, template,
+                                      device=device, repartition=has_part)
+    except (KeyError, ValueError) as e:
+        _exit2(f"--resume auto: checkpoint step {step0} does not match "
+               f"this run's strategy/layout ({e})")
+    if strategy.owns_params:
+        state["params"] = restored["param_shards"]
+    else:
+        state["params"] = comm.replicate(restored["params"])
+    if "master" in template:
+        state["master"] = comm.replicate(restored["master"])
+    if "opt_state" in template:
+        state["opt_state"] = restored["opt_state"]
+    # a new step tensor: the train step reads its value back once
+    state["step"] = restored["step"].to(torch.int32)
+    return int(restored["step"])
+
+
 def train(args, cfg, on_step=None):
-    """The CLI's body for a resolved config: prints the reference's fields
-    and returns the logged history.  ``on_step(t, state, metrics)``, when
-    given, runs after every step."""
+    """The CLI's body for a resolved config: prints the reference's fields,
+    resumes and saves as ``--resume``/``--ckpt-dir`` say, and returns the
+    logged history.  ``on_step(t, state, metrics)``, when given, runs
+    after every step."""
+    if args.resume and not args.ckpt_dir:
+        _exit2("--resume auto requires --ckpt-dir")
     policy = get_policy(args.precision)
     if policy.is_noop:
         policy = None  # f32: the policy-less path, bitwise
@@ -165,6 +224,7 @@ def train(args, cfg, on_step=None):
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = comm.replicate(TM.init_model(gen, cfg, device=dev))
+    n_params = sum(x.numel() for x in T.leaves(params)) // args.workers
     state = init_train_state(params, opt, strategy, comm, policy=policy)
     del params
 
@@ -177,8 +237,6 @@ def train(args, cfg, on_step=None):
                                       policy=policy,
                                       accum_steps=args.accum_steps)
 
-    n_params = sum(x.numel() for x in T.leaves(state["params"])) \
-        // args.workers
     # one optimizer step consumes accum_steps microbatches of workers x
     # batch_per_worker samples each, but ships the bytes of ONE exchange
     samples_per_step = args.workers * args.batch_per_worker * args.accum_steps
@@ -189,11 +247,22 @@ def train(args, cfg, on_step=None):
           f"prefetch_depth={args.prefetch_depth} "
           f"entropy_floor={bayes_entropy(dcfg):.3f}", flush=True)
 
+    start_step = 0
+    if args.resume:
+        start_step = resume_auto(args.ckpt_dir, state, strategy, comm,
+                                 policy, dev)
+        print(f"resumed from step {start_step} ({args.ckpt_dir})",
+              flush=True)
+
     history = []
     t0 = time.time()
     for t, batches in prefetch_batches(dcfg, args.workers, args.steps,
                                        accum_steps=args.accum_steps,
                                        depth=args.prefetch_depth, device=dev):
+        if t < start_step:
+            # the data stream of an uninterrupted run: the boundaries
+            # before the restored step are drawn, not trained on
+            continue
         state, m = step_fn(state, batches)
         if on_step is not None:
             on_step(t, state, m)
@@ -211,13 +280,16 @@ def train(args, cfg, on_step=None):
                   f"div {rec['divergence']:.2e} wireB {rec['wire_bytes']:.0f}"
                   f" wireB/sample {rec['wire_bytes_per_sample']:.1f}",
                   flush=True)
+    if args.ckpt_dir:
+        tree, kw = checkpoint_tree(state, strategy, comm, policy)
+        save_checkpoint(args.ckpt_dir, args.steps, tree, **kw)
+        print(f"checkpoint saved to {args.ckpt_dir}", flush=True)
     return history
 
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     cfg = resolve_config(args)
-    check_ported(args)
     history = train(args, cfg)
     if args.out:
         with open(args.out, "w") as f:

@@ -48,7 +48,25 @@ reference reports the bytes of the exchange it discards).  The f32 policy
 (``policy=None``) scales nothing, keeps no master and casts nothing, so
 the same step computes the policy-less update bitwise.
 
-The ZeRO strategies and the sharded production step are later slices.
+The ZeRO strategies own parts of the state.  ``sync_zero1`` keeps the
+optimizer state (and under ``bf16`` the f32 master) as 1/W shard buckets
+inside ``opt_state``, so the state holds no ``master``; ``sync_zero3``
+keeps the params themselves as shard buckets, and the step all-gathers
+the full params for the forward and backward only (a temporary of the
+step, never state).  With ``accum_steps > 1``, ``sync_zero2`` and
+``sync_zero3`` accumulate in shard space: each microbatch's gradients
+are added replica by replica into padded stacked buckets, those are
+reduce-scattered at once (the reference's per-microbatch
+reduce-scatter), the 1/W result is added into the shard accumulator and
+the stacked buckets are freed, so no full-size accumulator outlives a
+microbatch.  The boundary divides once and hands the shard buckets to
+``update_partitioned``.  A skipped boundary of that path reports the
+reduce-scatter bytes its microbatches shipped before the decision.
+``zero1_opt_template``, ``zero1_master_buckets`` and
+``zero3_param_template`` build the global (unstacked) shard-bucket state
+of the partitioned layout.
+
+The sharded production step is a later slice.
 """
 
 from __future__ import annotations
@@ -60,11 +78,12 @@ import torch
 from repro_torch.core import precision as PR
 from repro_torch.core import tree as T
 from repro_torch.core.comm import HierComm
-from repro_torch.core.fabric import DEFAULT_BUCKET_BYTES, Fabric
+from repro_torch.core.fabric import (DEFAULT_BUCKET_BYTES, BucketLayout,
+                                     Fabric, PartitionedLayout)
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.strategies import Strategy
 from repro_torch.models import transformer as TM
-from repro_torch.optim.optimizers import Optimizer
+from repro_torch.optim.optimizers import Optimizer, state_template
 from repro_torch.train.losses import lm_loss
 
 
@@ -84,21 +103,27 @@ def make_loss_fn(cfg, remat: bool = True):
 def init_train_state(params, optimizer: Optimizer, strategy: Strategy,
                      comm, policy: Optional[PrecisionPolicy] = None):
     """Stacked ``params`` → {params, opt_state, comm_state, step}; the step
-    counter is an int32 tensor on the params' device.  A policy that
-    scales adds ``loss_scale`` ({"scale", "good_steps"}); one whose master
-    is wider than its params adds ``master``, a copy of the params in the
-    master dtype."""
+    counter is an int32 tensor on the params' device.  A strategy that
+    owns the params (ZeRO-3) shards them first; one that owns the
+    optimizer-state layout (ZeRO) builds it.  A policy that scales adds
+    ``loss_scale`` ({"scale", "good_steps"}); one whose master is wider
+    than its params adds ``master``, a copy of the params in the master
+    dtype, unless the strategy keeps the master in its optimizer state."""
     device = T.leaves(params)[0].device
+    if strategy.owns_params:
+        params = strategy.init_params(params, comm)
     state = {
         "params": params,
-        "opt_state": optimizer.init(params),
+        "opt_state": (strategy.init_opt(params, optimizer, comm)
+                      if strategy.init_opt is not None
+                      else optimizer.init(params)),
         "comm_state": strategy.init(params, comm),
         "step": torch.zeros((), dtype=torch.int32, device=device),
     }
     policy = PR.get_policy(policy)
     if policy.uses_scaling:
         state["loss_scale"] = PR.init_scale_state(policy, device)
-    if policy.keeps_master:
+    if policy.keeps_master and not strategy.owns_master:
         # its own storage: the optimizer may update it in place
         state["master"] = T.tree_map(
             lambda x: x.to(policy.master_dt, copy=True)
@@ -170,6 +195,35 @@ def make_replica_train_step(loss_fn, optimizer: Optimizer, strategy: Strategy,
             loss_sum = loss_sum + loss.mean()
         return acc, lay, loss_sum
 
+    owns_params = strategy.owns_params
+    part_accum = accum_steps > 1 and strategy.partitioned_accum
+
+    def accum_grads_part(lfn, full, batches):
+        """ZeRO-2/3 accumulation: each microbatch's gradients go replica
+        by replica into padded stacked buckets, which are reduce-scattered
+        (an f32 wire, as the reference's) and added into the 1/W shard
+        accumulator, then freed.  Returns (summed shard buckets, the sum
+        of the replica-mean losses, the reduce-scatter bytes and events);
+        the caller divides the shards once."""
+        fab = Fabric(comm, bucket_bytes)
+        play = fab.partitioned_layout(full)
+        dev = T.leaves(full)[0].device
+        acc = fab.init_accum_partitioned(play, dev)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        wire = ev = torch.zeros((), dtype=torch.float32)
+        for j in range(accum_steps):
+            mb = fab.init_accum(play.layout, dev, play=play)
+
+            def add(w, grads_w, mb=mb):
+                fab.accumulate(mb, grads_w, play.layout, replica=w)
+
+            loss, _ = _replica_grads(lfn, full, _replica(batches, j), add)
+            _, m = fab.accumulate_partitioned_buckets(acc, mb, play)
+            del mb
+            loss_sum = loss_sum + loss.mean()
+            wire, ev = wire + m["wire_bytes"], ev + m["comm_events"]
+        return acc, loss_sum, wire, ev
+
     def divisor(x, dev):
         # a device tensor, never a host scalar: CUDA divides by a host
         # scalar through its reciprocal, which rounds differently
@@ -183,14 +237,19 @@ def make_replica_train_step(loss_fn, optimizer: Optimizer, strategy: Strategy,
         host.update(tensor=new_state["step"], t=t + 1)
         metrics = dict(metrics)
         metrics["loss"] = loss
+        params = new_state["params"]
         metrics["replica_divergence"] = _stack_divergence(
-            new_state["params"])
+            strategy.gather_params(params, comm) if owns_params else params)
         return new_state, metrics
 
     def step(state, batches):
         sstate = state.get("loss_scale")
         src = state.get("master", state["params"])
+        # ZeRO-3: the params are shard buckets; the full tree is gathered
+        # for the forward and backward only
+        fwd = strategy.gather_params(src, comm) if owns_params else src
         t = next_t(state)
+        boundary_wire = None
 
         def policy_loss(p_src, batch):
             # the forward consumes the param-dtype image of the (possibly
@@ -199,32 +258,49 @@ def make_replica_train_step(loss_fn, optimizer: Optimizer, strategy: Strategy,
             return loss * sstate["scale"] if sstate is not None else loss
 
         if accum_steps == 1:
-            loss, grads = _replica_grads(policy_loss, src, batches)
+            loss, grads = _replica_grads(policy_loss, fwd, batches)
             grads = (PR.unscale_grads(grads, sstate["scale"])
                      if sstate is not None
                      else PR.cast_floats(grads, torch.float32))
             mean_loss = loss.mean()
         else:
-            acc, lay, loss_sum = accum_grads(policy_loss, src, batches)
+            if part_accum:
+                acc, loss_sum, *boundary_wire = accum_grads_part(
+                    policy_loss, fwd, batches)
+            else:
+                acc, lay, loss_sum = accum_grads(policy_loss, fwd, batches)
             # one division at the boundary: microbatch mean AND unscale
             k = divisor(accum_steps, loss_sum.device)
             ks = k * sstate["scale"] if sstate is not None else k
-            grads = lay.debucketize([a.div_(ks) for a in acc], cast=False)
+            grads = [a.div_(ks) for a in acc]
+            if not part_accum:  # shard buckets stay buckets
+                grads = lay.debucketize(grads, cast=False)
             del acc
             mean_loss = loss_sum / k
+        del fwd
         finite = PR.tree_finite(grads) if sstate is not None else None
         # the skip is decided before anything is written: the update
         # writes params, master, m, v and the codec residuals in place
         apply = finite is None or bool(finite)
-        if apply:
-            new_src, opt_state, comm_state, metrics = strategy.update(
-                src, grads, state["opt_state"], state["comm_state"], t,
-                optimizer, comm)
-        else:  # nothing shipped, nothing updated
+        if not apply:  # nothing updated, no boundary exchange
             new_src, opt_state, comm_state = (src, state["opt_state"],
                                               state["comm_state"])
             metrics = acc_fab.metrics(0.0, events=0.0)
+        elif part_accum:
+            new_src, opt_state, comm_state, metrics = \
+                strategy.update_partitioned(
+                    src, grads, state["opt_state"], state["comm_state"], t,
+                    optimizer, comm)
+        else:
+            new_src, opt_state, comm_state, metrics = strategy.update(
+                src, grads, state["opt_state"], state["comm_state"], t,
+                optimizer, comm)
         del grads
+        metrics = dict(metrics)
+        if boundary_wire is not None:  # the microbatches' reduce-scatters
+            metrics["wire_bytes"] = metrics["wire_bytes"] + boundary_wire[0]
+            metrics["comm_events"] = metrics["comm_events"] \
+                + boundary_wire[1]
         new_state = {"opt_state": opt_state, "comm_state": comm_state,
                      "step": state["step"] + 1}
         if "master" in state:
@@ -233,7 +309,6 @@ def make_replica_train_step(loss_fn, optimizer: Optimizer, strategy: Strategy,
                                    else state["params"])
         else:
             new_state["params"] = new_src
-        metrics = dict(metrics)
         if sstate is not None:
             new_state["loss_scale"] = PR.next_scale_state(policy, sstate,
                                                           finite)
@@ -243,6 +318,61 @@ def make_replica_train_step(loss_fn, optimizer: Optimizer, strategy: Strategy,
         return finish(new_state, t, metrics, mean_loss)
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# the global (unstacked) shard-bucket state of the partitioned layout
+# ---------------------------------------------------------------------------
+def zero1_opt_template(params, optimizer: Optimizer, n_parts: int,
+                       bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                       policy: Optional[PrecisionPolicy] = None):
+    """GLOBAL optimizer state of the partitioned layout: one padded flat
+    f32 bucket a state leaf, for one (unstacked) ``params`` tree.  Meta
+    ``params`` give a meta template (no allocation); real ones give
+    zeros, and under a master-keeping policy ``{"opt": <inner>,
+    "master": <the buckets FROM the params>}`` (zeros would reset the
+    model on the first step)."""
+    play = PartitionedLayout.build(
+        BucketLayout.build(params, bucket_bytes, lead_axes=0), n_parts)
+    meta = [torch.empty((p,), dtype=torch.float32, device="meta")
+            for p in play.padded_sizes]
+    template = state_template(optimizer, meta)
+    keeps_master = policy is not None and policy.keeps_master
+    if all(x.device.type == "meta" for x in T.leaves(params)):
+        return {"opt": template, "master": meta} if keeps_master \
+            else template
+    dev = T.leaves(params)[0].device
+    zeros = T.tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                             device=dev), template)
+    if keeps_master:
+        return {"opt": zeros,
+                "master": zero1_master_buckets(params, n_parts,
+                                               bucket_bytes)}
+    return zeros
+
+
+def zero1_master_buckets(params, n_parts: int,
+                         bucket_bytes: int = DEFAULT_BUCKET_BYTES):
+    """The f32 master in GLOBAL form (padded flat buckets) from the
+    params: what the "master" entry of the partitioned opt state holds
+    before the first step."""
+    lay = BucketLayout.build(params, bucket_bytes, lead_axes=0)
+    play = PartitionedLayout.build(lay, n_parts)
+    return [torch.nn.functional.pad(b, (0, p - b.shape[-1]))
+            for b, p in zip(lay.bucketize(params), play.padded_sizes)]
+
+
+def zero3_param_template(params, n_parts: int,
+                         bucket_bytes: int = DEFAULT_BUCKET_BYTES):
+    """GLOBAL parameter state of ZeRO-3: one padded flat f32 bucket a param
+    bucket, for one (unstacked) ``params`` tree; meta ``params`` give
+    meta buckets, real ones the buckets filled FROM the params."""
+    if all(x.device.type == "meta" for x in T.leaves(params)):
+        play = PartitionedLayout.build(
+            BucketLayout.build(params, bucket_bytes, lead_axes=0), n_parts)
+        return [torch.empty((p,), dtype=torch.float32, device="meta")
+                for p in play.padded_sizes]
+    return zero1_master_buckets(params, n_parts, bucket_bytes)
 
 
 def _stack_divergence(params):

@@ -190,3 +190,31 @@ def test_numpy_copies_import_nothing_of_repro(module):
         elif isinstance(node, ast.ImportFrom) and node.module:
             tops.add(node.module.split(".")[0])
     assert tops <= {"__future__", "dataclasses", "typing", "numpy"}, tops
+
+
+@pytest.mark.parametrize("path", ["core/resharding.py",
+                                  "checkpoint/checkpointer.py",
+                                  "checkpoint/__init__.py",
+                                  "examples/train_lm.py"])
+def test_slice_modules_import_no_jax_and_nothing_of_repro(path):
+    """The checkpointer and the re-sharding copy (the reference's are
+    numpy) import numpy, torch, the standard library and the port only;
+    so does the ``train_lm`` example."""
+    tree = ast.parse((PORT / path).read_text())
+    tops = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            tops |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            tops.add(node.module.split(".")[0])
+    assert tops <= {"__future__", "argparse", "json", "math", "os", "re",
+                    "time", "warnings", "zlib", "numpy", "torch",
+                    "repro_torch"}, tops
+
+
+def test_train_lm_defaults_to_cuda_and_raises_without_it():
+    _no_cuda()
+    from repro_torch.examples import train_lm
+
+    with pytest.raises(RuntimeError, match="cuda.is_available"):
+        train_lm.main(["--steps", "1"])

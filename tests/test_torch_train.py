@@ -303,12 +303,19 @@ def test_step_mutates_fused_state_like_a_donated_step():
 
 
 def test_strategy_registry_holds_what_is_ported():
+    from repro.core.strategies import REGISTRY as JREGISTRY
+    from repro_torch.core.strategies import REGISTRY
+
     assert get_strategy("sync").name == "sync"
     assert get_strategy("sync", compressor=get_compressor("onebit")) \
         .wire_profile == "compressed"
     assert get_strategy("gossip").name == "gossip"
+    assert sorted(REGISTRY) == sorted(JREGISTRY)  # every strategy ported
+    z3 = get_strategy("sync_zero3")
+    assert z3.owns_params and z3.partitioned_accum
+    assert get_strategy("sync_zero1").wire_profile == "partitioned"
     with pytest.raises(KeyError):
-        get_strategy("sync_zero1")  # ZeRO is a later slice
+        get_strategy("sync_zero4")
 
 
 def test_bridge_round_trips_a_bf16_train_state_with_master_and_scale():
@@ -373,19 +380,64 @@ def test_worker_batches_are_reproducible_affine_streams():
 # ---------------------------------------------------------------------------
 # the CLI
 # ---------------------------------------------------------------------------
+def _misfit_checkpoint(tmp_path):
+    """A directory whose newest valid step is a ZeRO-1 save at W = 2 with
+    the port's default buckets, which a ``--zero-stage 3`` run (param
+    shards expected) cannot take."""
+    d = tmp_path / "misfit"
+    CLI.main(["--reduced", "--device", "cpu", "--steps", "1", "--workers",
+              "2", "--batch-per-worker", "1", "--seq-len", "8",
+              "--zero-stage", "1", "--ckpt-dir", str(d)])
+    return ["--workers", "2", "--batch-per-worker", "1", "--seq-len", "8",
+            "--steps", "2", "--zero-stage", "3", "--ckpt-dir", str(d),
+            "--resume", "auto"]
+
+
 @pytest.mark.parametrize("argv,msg", [
     (["--arch", "bogus"], "unknown arch 'bogus'"),
-    (["--zero-stage", "1"], "ZeRO"),
-    (["--strategy", "sync_zero2"], "ZeRO partitioning is a later slice"),
-    (["--ckpt-dir", "x"], "checkpoints"),
-    (["--resume", "auto"], "checkpoints"),
+    (["--zero-stage", "1", "--strategy", "local_sgd"],
+     "--zero-stage 1 conflicts with --strategy local_sgd"),
+    (["--resume", "auto"], "--resume auto requires --ckpt-dir"),
+    ("empty", "--resume auto: no valid checkpoint step in"),
+    ("misfit", "--resume auto: checkpoint step 1 does not match this run's "
+               "strategy/layout"),
 ])
-def test_cli_exit_2_paths(argv, msg, capsys):
+def test_cli_exit_2_paths(argv, msg, capsys, tmp_path):
+    if argv == "empty":
+        (tmp_path / "empty").mkdir()
+        argv = ["--steps", "1", "--ckpt-dir", str(tmp_path / "empty"),
+                "--resume", "auto"]
+    elif argv == "misfit":
+        argv = _misfit_checkpoint(tmp_path)
+        capsys.readouterr()
     with pytest.raises(SystemExit) as e:
         CLI.main(["--reduced", "--device", "cpu"] + argv)
     assert e.value.code == 2
     err = capsys.readouterr().err.strip()
     assert msg in err and len(err.splitlines()) == 1
+
+
+@pytest.mark.parametrize("argv,strategy,wire", [
+    (["--zero-stage", "1"], "sync_zero1", 4 * 2 * 1_313_024),
+    # 2 reduce-scatters and 1 all-gather, each half the flat bytes
+    (["--strategy", "sync_zero2", "--accum-steps", "2"], "sync_zero2",
+     1.5 * 4 * 2 * 1_313_024),
+    (["--zero-stage", "3", "--strategy", "sync_zero3", "--precision",
+      "bf16"], "sync_zero3", 2 * 2 * 1_313_024),
+])
+def test_cli_runs_the_zero_strategies_on_cpu(argv, strategy, wire, capsys):
+    """``--zero-stage N`` and ``--strategy sync_zeroN`` train; the printed
+    params count the model, not ZeRO-3's shards; wire bytes are the dense
+    all-reduce's (W = 2, 1,313,024 params), halved on the bf16 wire."""
+    hist = CLI.main(["--reduced", "--device", "cpu", "--steps", "2",
+                     "--log-every", "1", "--workers", "2",
+                     "--batch-per-worker", "2", "--seq-len", "16",
+                     "--fused-adam"] + argv)
+    text = capsys.readouterr().out
+    assert f"params=1,313,024 strategy={strategy} " in text
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+    assert all(h["divergence"] == 0.0 for h in hist)
+    assert hist[-1]["wire_bytes"] == wire
 
 
 @pytest.mark.parametrize("argv,fields", [
@@ -410,15 +462,13 @@ def test_cli_runs_precision_and_accum_flags_on_cpu(argv, fields, capsys):
 
 
 def test_cli_flag_choices_are_the_reference_names():
-    from repro.core.precision import POLICIES
-    from repro.core.strategies import REGISTRY as JREGISTRY
     from repro.launch.train import build_argparser as jbuild
 
-    assert CLI.REFERENCE_STRATEGIES == tuple(sorted(JREGISTRY))
-    assert CLI.REFERENCE_PRECISIONS == tuple(sorted(POLICIES))
-    ours = {a.dest: a.default for a in CLI.build_argparser()._actions}
-    ref = {a.dest: a.default for a in jbuild()._actions}
-    assert ours.pop("device") == "cuda"
+    def table(ap):
+        return {a.dest: (a.default, a.choices) for a in ap._actions}
+
+    ours, ref = table(CLI.build_argparser()), table(jbuild())
+    assert ours.pop("device") == ("cuda", None)
     assert ours == ref
 
 
