@@ -57,7 +57,18 @@ then drives the main paths through their entry points:
     ``qwen2-1.5b --reduced`` a resume from a checkpoint bitwise an
     uninterrupted run (ZeRO-1 bf16, ZeRO-3), a re-shard from W = 4 to
     W = 2 and ``--ckpt-dir``/``--resume auto`` through the CLI
-    (``ckpt_resume``).
+    (``ckpt_resume``);
+  * the elastic fleet (``repro_torch.launch.elastic``): ZeRO-1 and ZeRO-3
+    states on the training cut resized W 4 → 2 → 4 in memory, each shard
+    leaf against the checkpoint restore's numpy re-shard on host copies,
+    with 2 steps at W = 2 (``fused_adam`` on ``(2, chunk')`` buckets) and
+    on ``--reduced`` a disk round trip bitwise the live resize
+    (``elastic_resize``); ``ElasticFleet`` on the training cut for 24
+    boundaries of ``edge_async_sim``'s schedule (straggler demotion, a
+    flake, a kill, a restore, a rejoin), its log against a CPU run's
+    (``elastic_fleet``); the fleet with an all-ones mask bitwise the
+    trainer's ``sync`` step (``elastic_vs_sync``); and the schedule on
+    the card against the CPU on a reduced cut (``elastic_card_vs_cpu``).
 
 Each kernel's launches are counted from zero over the paths that run it,
 and each is timed against its bound, its plain version and one PyTorch
@@ -472,8 +483,13 @@ def profiled_ms(fn, iters, flush, match):
     """Device time a call of the kernels ``fn`` launches whose names hold
     ``match``, from torch.profiler (``flush`` runs before each call):
     {kernel name: ms a call}.  Unlike events around a call, it leaves out
-    the host's time and the gaps between kernels.  A trace that holds no
-    such kernel is taken once more; if that one holds none either, the
+    the host's time and the gaps between kernels.  Each kernel's time is
+    averaged over the launches the trace recorded: late in a long
+    process a trace can drop kernel records (seen on the H100 as one
+    turn of ``time_mamba`` reading half and a tenth of the other's
+    time while CUDA events agreed), and a total divided by ``iters``
+    would read the dropped ones as zero.  A trace that holds no such
+    kernel is taken once more; if that one holds none either, the
     result is empty: not measured."""
     def run():
         for _ in range(iters):
@@ -486,10 +502,10 @@ def profiled_ms(fn, iters, flush, match):
     for _ in range(2):
         with torch.profiler.profile(activities=acts) as prof:
             run()
-        found = {e.key: e.self_device_time_total / 1e3 / iters
+        found = {e.key: e.self_device_time_total / 1e3 / e.count
                  for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA
-                 and match in e.key}
+                 and match in e.key and e.count}
         if found:
             break
     return found
@@ -2845,6 +2861,553 @@ def ckpt_resume(get_config, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the elastic fleet
+# ---------------------------------------------------------------------------
+FLEET_BOUNDARIES = 24  # edge_async_sim's chaos act
+FLEET_PROFILED = 22  # a boundary at W = 4, every member in the sync tier
+
+
+def elastic_loss(cfg):
+    from repro_torch.train.loop import make_loss_fn
+
+    lf = make_loss_fn(cfg, remat=False)
+    return lambda p, x: lf(p, {"tokens": x, "labels": x})
+
+
+def member_batches(dcfg, device):
+    """``batch_fn`` of ``ElasticFleet``: each member's ``sample_batch``,
+    keyed by its stable id."""
+    from repro_torch.data.pipeline import sample_batch
+
+    return lambda view, t: torch.stack([sample_batch(dcfg, w, t,
+                                                     device=device)
+                                        for w in view.members])
+
+
+def fleet_logs_equal(a, b):
+    """Every log field of two fleet histories but the loss."""
+    def strip(logs):
+        return [{k: v for k, v in lg.items() if k != "loss"} for lg in logs]
+    return strip(a) == strip(b)
+
+
+def zero_resize_check(live, state, sizes, w_new, owns):
+    """Every shard leaf of the live resize ``torch.equal`` (on the host)
+    to ``repartition_tree``'s numpy path, the function
+    ``restore_checkpoint(repartition=True)`` applies, on host copies of
+    the old state.  Returns (leaves compared, leaves not equal)."""
+    from repro_torch.core import resharding as RS
+    from repro_torch.core import tree as TT
+
+    keys = ["opt_state"] + (["params"] if owns else [])
+    n, differ = 0, []
+    for key in keys:
+        host = TT.tree_map(lambda x: x.cpu().numpy(), state[key])
+        want = TT.leaves(RS.repartition_tree(host, sizes, w_new))
+        del host
+        for i, (x, y) in enumerate(zip(TT.leaves(live[key]), want)):
+            n += 1
+            if not torch.equal(x.cpu(), torch.from_numpy(y)):
+                differ.append(f"{key}.{i}")
+    return n, differ
+
+
+def elastic_resize(get_config, smi, adam_kernel):
+    """The live W 4 → 2 → 4 resize of ZeRO-1 and ZeRO-3 train states at
+    full width (qwen2-1.5b, 4 layers, f32, fused Adam, 2 steps at W = 4):
+    at each transition every shard leaf ``torch.equal`` to the numpy
+    re-shard on host copies; ZeRO-3's ``gather_params`` at W = 2 equal to
+    W = 4's; 2 steps at W = 2 with the step remade there, ``fused_adam``
+    once a shard bucket on ``(2, chunk')`` buckets and the wire the
+    closed form at W = 2; ZeRO-1's params one storage throughout.  On
+    ``qwen2-1.5b --reduced``, the disk round trip as well: a save at
+    W = 4 and ``restore(repartition=True)`` at W = 2 bitwise the live
+    resize, with the seconds of each."""
+    import shutil
+
+    from repro_torch import checkpoint as CK
+    from repro_torch.core import tree as TT
+    from repro_torch.core.comm import LocalComm
+    from repro_torch.core.fabric import Fabric
+    from repro_torch.core.strategies import get_strategy
+    from repro_torch.data.pipeline import DataConfig, worker_batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch.elastic import FleetView, resize_state
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam
+    from repro_torch.train.loop import (init_train_state,
+                                        make_replica_train_step)
+
+    def zero_state(cfg, stage, dcfg, steps=2, w=TRAIN_W, seed=31):
+        comm = LocalComm(w)
+        strat = get_strategy(f"sync_zero{stage}")
+        opt = adam(1e-3, fused=True)
+        loss = elastic_loss(cfg)
+        params = comm.replicate(T.init_model(
+            torch.Generator(device="cuda").manual_seed(seed), cfg,
+            device="cuda"))
+        state = init_train_state(params, opt, strat, comm)
+        del params
+        step = make_replica_train_step(loss, opt, strat, comm)
+        for t in range(steps):
+            state, _ = step(state, worker_batches(dcfg, w, t,
+                                                  device="cuda"))
+        return state, strat, comm, opt, loss
+
+    def new_bytes(live, state):
+        """Bytes the resize wrote: every leaf of new storage."""
+        olds = {x.untyped_storage().data_ptr() for x in TT.leaves(state)
+                if isinstance(x, torch.Tensor)}
+        return sum(x.numel() * x.element_size() for x in TT.leaves(live)
+                   if isinstance(x, torch.Tensor)
+                   and x.untyped_storage().data_ptr() not in olds)
+
+    def timed_resize(state, vf, vt, strat):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        live = resize_state(state, vf, vt, strategy=strat)
+        torch.cuda.synchronize()
+        return live, time.perf_counter() - t0
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                              num_layers=TRAIN_LAYERS)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_L,
+                      batch_per_worker=TRAIN_B, seed=31)
+    sizes = meta_partition(get_config, TRAIN_LAYERS).layout.bucket_sizes
+    total = sum(sizes)
+    v4, v2 = FleetView(0, (0, 1, 2, 3)), FleetView(1, (0, 1))
+    v4b = FleetView(2, (0, 1, 2, 3))
+    out = {"phase": "elastic_resize", "arch": cfg.name,
+           "layers": TRAIN_LAYERS, "precision": "f32", "fused_adam": True,
+           "elements": total, "stages": {}}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for stage in (1, 3):
+        rec = {}
+        state, strat, comm4, opt, loss = zero_state(cfg, stage, dcfg)
+        owns = stage == 3
+        full4 = strat.gather_params(state["params"], comm4) if owns \
+            else None
+        live, s = timed_resize(state, v4, v2, strat)
+        n, differ = zero_resize_check(live, state, sizes, 2, owns)
+        rec["w4_to_w2"] = {"s": s, "bytes_written": new_bytes(live, state),
+                           "leaves_compared": n, "leaves_not_equal": differ}
+        if owns:  # the layout was re-primed for W = 2
+            full2 = strat.gather_params(live["params"], LocalComm(2))
+            rec["gather_w2_equals_w4"] = all(
+                torch.equal(a[0], b[0]) for a, b in
+                zip(TT.leaves(full2), TT.leaves(full4)))
+            del full2, full4
+        del state
+        # two steps at W = 2, the step remade for LocalComm(2)
+        comm2 = LocalComm(2)
+        step2 = make_replica_train_step(loss, opt, strat, comm2)
+        sizes_seen = set()
+        orig = ops.fused_adam
+
+        def spy(p, g, m, v, consts, **k):
+            sizes_seen.add(tuple(p.shape))
+            return orig(p, g, m, v, consts, **k)
+
+        adam_kernel.launches = 0
+        ops.fused_adam = spy
+        wires = []
+        try:
+            for t in (2, 3):
+                live, m = step2(live, worker_batches(dcfg, 2, t,
+                                                     device="cuda"))
+                wires.append(m["wire_bytes"].item())
+        finally:
+            ops.fused_adam = orig
+        torch.cuda.synchronize()
+        launches = adam_kernel.launches
+        shapes = {(2 * c,) for c in meta_partition(get_config, TRAIN_LAYERS,
+                                                   w=2).shard_sizes}
+        closed = float(np.float32(4.0 * total * 2))
+        one_storage = None if owns else all(
+            x.stride(0) == 0 for x in TT.leaves(live["params"]))
+        rec["steps_w2"] = {"fused_adam_launches": launches,
+                           "expected": len(sizes) * 2,
+                           "fused_adam_shapes": sorted(sizes_seen),
+                           "wire_bytes": wires,
+                           "wire_bytes_closed_form": closed,
+                           "params_one_storage": one_storage}
+        stepped = live
+        back, s = timed_resize(stepped, v2, v4b, strat)
+        n, differ2 = zero_resize_check(back, stepped, sizes, 4, owns)
+        rec["w2_to_w4"] = {"s": s, "bytes_written": new_bytes(back, stepped),
+                           "leaves_compared": n, "leaves_not_equal": differ2}
+        if not owns:
+            rec["params_one_storage_after_w4"] = all(
+                x.stride(0) == 0 for x in TT.leaves(back["params"]))
+        del live, stepped, back
+        torch.cuda.empty_cache()
+        out["stages"][f"sync_zero{stage}"] = rec
+        if differ or differ2 or launches != len(sizes) * 2 \
+                or sizes_seen != shapes \
+                or any(w != closed for w in wires) \
+                or rec.get("gather_w2_equals_w4") is False \
+                or one_storage is False \
+                or rec.get("params_one_storage_after_w4") is False:
+            raise AssertionError(f"elastic_resize sync_zero{stage}: {out}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # the disk round trip on --reduced, beside the live resize
+    root = ROOT / "build" / "elastic_resize"
+    shutil.rmtree(root, ignore_errors=True)
+    red = get_config("qwen2-1.5b").reduced()
+    rdcfg = DataConfig(vocab_size=red.vocab_size, seq_len=64,
+                       batch_per_worker=2, seed=32)
+    out["reduced"] = {}
+    for stage in (1, 3):
+        owns = stage == 3
+        state, strat, comm4, *_ = zero_state(red, stage, rdcfg, seed=32)
+        full = strat.gather_params(state["params"], comm4) if owns \
+            else state["params"]
+        play = Fabric(comm4).partitioned_layout(full)
+
+        def shard_tree(st):
+            tree = {"opt_state": st["opt_state"]}
+            if owns:
+                tree["param_shards"] = st["params"]
+            return tree
+
+        d = str(root / f"sync_zero{stage}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fname = CK.save_checkpoint(d, 2, shard_tree(state),
+                                   partition=play.spec())
+        save_s = time.perf_counter() - t0
+        live, resize_s = timed_resize(state, v4, v2, strat)
+        fresh, *_ = zero_state(red, stage, rdcfg, steps=0, w=2, seed=32)
+        template = TT.tree_map(torch.zeros_like, shard_tree(fresh))
+        del fresh
+        t0 = time.perf_counter()
+        got = CK.restore_checkpoint(d, 2, template, device="cuda",
+                                    repartition=True)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        a, b = TT.leaves(shard_tree(live)), TT.leaves(got)
+        equal = len(a) == len(b) and all(torch.equal(x, y)
+                                         for x, y in zip(a, b))
+        out["reduced"][f"sync_zero{stage}"] = {
+            "bitwise_live_vs_disk": equal, "leaves_compared": len(b),
+            "resize_s": resize_s, "save_s": save_s, "restore_s": restore_s,
+            "bytes_on_disk": os.path.getsize(fname)}
+        del state, live, got, template
+        if not equal:
+            raise AssertionError(f"elastic_resize --reduced: {out}")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["card"] = smi
+    return out
+
+
+def elastic_fleet(get_config, smi, adam_kernel):
+    """``ElasticFleet`` at full width (qwen2-1.5b, 4 layers, W = 4, f32,
+    ``adam(fused=True)``) for 24 boundaries of ``edge_async_sim``'s
+    schedule (slowdown, flake, kill, restore, rejoin), ``resync_every=4``,
+    ``StragglerPolicy(patience=2, recovery=2)``, ``FleetClock(4,
+    jitter=0)``.  Gates: the log but the loss equals a CPU run of the same
+    schedule on the example's tiny cut; ``fused_adam`` 14 a boundary; the
+    wire ``flat_bytes`` at each boundary's W; the sync-tier rows of the
+    members never demoted ``torch.equal`` at every boundary (a promoted
+    member's row is recorded: the resync pulls its params, not its Adam
+    moments, as in the reference); a resynced demoted row within 1e-6
+    relative of the sync rows (bitwise when the sync count is a power of
+    two); after the rejoin's resize the joiner's row equal to the sync
+    rows; the kill's boundary committed on 3 rows.  Times each boundary,
+    each resize and one profiled boundary."""
+    from repro_torch.core import tree as TT
+    from repro_torch.core.chaos import FleetClock
+    from repro_torch.core.staleness import StragglerPolicy
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.examples.edge_async_sim import SCHEDULE, edge_config
+    from repro_torch.launch.elastic import ElasticFleet
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam
+
+    def make(cfg, dcfg, dev, opt, seed):
+        base = T.init_model(torch.Generator(device=dev).manual_seed(seed),
+                            cfg, device=dev)
+        return ElasticFleet(base, elastic_loss(cfg), opt, workers=TRAIN_W,
+                            straggler_policy=StragglerPolicy(patience=2,
+                                                             recovery=2),
+                            resync_every=4, chaos=SCHEDULE,
+                            clock=FleetClock(TRAIN_W, jitter=0.0, seed=0),
+                            retries=2, backoff_s=1e-4)
+
+    # the controller's decisions on the CPU, the example's tiny cut
+    tiny = edge_config()
+    tdcfg = DataConfig(vocab_size=tiny.vocab_size, seq_len=32,
+                       batch_per_worker=4)
+    cpu = make(tiny, tdcfg, "cpu", adam(3e-3), 0)
+    cpu_logs = cpu.run(FLEET_BOUNDARIES, member_batches(tdcfg, "cpu"))
+    del cpu
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                              num_layers=TRAIN_LAYERS)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_L,
+                      batch_per_worker=TRAIN_B, seed=0)
+    n_leaves = meta_partition(get_config, TRAIN_LAYERS).layout.n_leaves
+    total = meta_partition(get_config, TRAIN_LAYERS).layout.total_elements
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fleet = make(cfg, dcfg, "cuda", adam(1e-3, fused=True), 0)
+    batch_fn = member_batches(dcfg, "cuda")
+
+    def sync_ranks(view):
+        return [i for i, w in enumerate(view.members)
+                if w not in view.demoted]
+
+    resizes = []
+    orig_resize = fleet.resize
+
+    def timed_resize(new_view):
+        old = fleet.view
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig_resize(new_view)
+        torch.cuda.synchronize()
+        rec = {"t": fleet._t, "from": list(old.members),
+               "to": list(new_view.members),
+               "demoted": list(new_view.demoted),
+               "ms": 1e3 * (time.perf_counter() - t0)}
+        joiners = [new_view.rank_of(w) for w in new_view.members
+                   if w not in old.members]
+        if joiners:  # each joiner copied a sync row
+            ranks = sync_ranks(new_view)
+            rec["joiner_rows_equal_sync_rows"] = all(
+                torch.equal(x[r], x[ranks[0]])
+                for x in TT.leaves(fleet.state["params"]) for r in ranks)
+            rec["demoted_rows_max_abs_diff"] = max(
+                (float((x[d] - x[ranks[0]]).abs().max())
+                 for x in TT.leaves(fleet.state["params"])
+                 for d in range(len(new_view.members)) if d not in ranks),
+                default=None)
+        resizes.append(rec)
+
+    fleet.resize = timed_resize
+    adam_kernel.launches = 0
+    rows, prof = [], None
+    ever_demoted = set()  # a promoted member keeps its own Adam moments
+    for i in range(FLEET_BOUNDARIES):
+        if i == FLEET_PROFILED:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = fleet.run_boundary(batch_fn)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        if prof is not None and i == FLEET_PROFILED:
+            prof.__exit__(None, None, None)
+        m, view = fleet.last_metrics, fleet.view
+        ever_demoted |= set(view.demoted)
+        ranks = sync_ranks(view)
+        # the sync rows of members never demoted must agree bitwise; a
+        # promoted row took its own Adam steps while demoted: recorded
+        kept = [r for r in ranks if view.members[r] not in ever_demoted]
+        params = TT.leaves(fleet.state["params"])
+        row = {"t": lg["t"], "w": view.size, "demoted": len(view.demoted),
+               "ms": ms, "loss": lg["loss"],
+               "wire_bytes": m["wire_bytes"].item(),
+               "wire_closed_form": float(np.float32(4.0 * total
+                                                    * view.size)),
+               "resync": m["resync"],
+               "resized": any(r["t"] == lg["t"] and r["from"] != r["to"]
+                              for r in resizes),
+               "rows": params[0].shape[0],
+               "sync_rows_equal": all(torch.equal(x[r], x[kept[0]])
+                                      for x in params for r in kept[1:]),
+               "promoted_rows_max_abs_diff": max(
+                   (float((x[r] - x[kept[0]]).abs().max())
+                    for x in params for r in ranks if r not in kept),
+                   default=None)}
+        if m["resync"] and view.demoted:
+            # each resynced row against the sync row, element by element
+            row.update(nsync=len(ranks), resync_rel=0.0, resync_within=True,
+                       resync_bitwise=True)
+            for x in params:
+                s = x[ranks[0]]
+                for d in set(range(view.size)) - set(ranks):
+                    diff = (x[d] - s).abs()
+                    row["resync_rel"] = max(row["resync_rel"], float(
+                        (diff / s.abs().clamp_min(1e-30)).max()))
+                    row["resync_within"] &= bool(
+                        (diff <= 1e-6 * s.abs()).all())
+                    row["resync_bitwise"] &= torch.equal(x[d], s)
+        rows.append(row)
+    launches = adam_kernel.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    logs = fleet.history
+    del fleet
+    torch.cuda.empty_cache()
+
+    bad = []
+    if not fleet_logs_equal(logs, cpu_logs):
+        bad.append("log differs from the CPU run's")
+    if launches != n_leaves * FLEET_BOUNDARIES:
+        bad.append(f"fused_adam launched {launches}")
+    for r in rows:
+        if r["wire_bytes"] != r["wire_closed_form"]:
+            bad.append(f"t {r['t']}: wire {r['wire_bytes']}")
+        if not r["sync_rows_equal"]:
+            bad.append(f"t {r['t']}: sync rows differ")
+        if "nsync" in r and (not r["resync_within"] or (
+                r["nsync"] & (r["nsync"] - 1) == 0
+                and not r["resync_bitwise"])):
+            bad.append(f"t {r['t']}: resynced row {r['resync_rel']}")
+        if not math.isfinite(r["loss"]):
+            bad.append(f"t {r['t']}: loss {r['loss']}")
+    kill = [lg for lg in logs if "dropped" in lg]
+    if len(kill) != 1 or kill[0]["size_after"] != 3 \
+            or rows[kill[0]["t"]]["rows"] != 3:
+        bad.append(f"the kill's boundary: {kill}")
+    joins = [r for r in resizes if "joiner_rows_equal_sync_rows" in r]
+    if len(joins) != 1 or not joins[0]["joiner_rows_equal_sync_rows"]:
+        bad.append(f"the rejoin's resize: {joins}")
+    result = {"phase": "elastic_fleet", "arch": cfg.name,
+              "layers": TRAIN_LAYERS, "workers": TRAIN_W,
+              "batch_per_worker": TRAIN_B, "seq_len": TRAIN_L,
+              "precision": "f32", "fused_adam": True,
+              "boundaries": FLEET_BOUNDARIES, "resync_every": 4,
+              "schedule": SCHEDULE.spec(), "fused_adam_launches": launches,
+              "fused_adam_expected": n_leaves * FLEET_BOUNDARIES,
+              "log_equals_cpu_run": fleet_logs_equal(logs, cpu_logs),
+              "final_epoch": logs[-1]["epoch_after"],
+              "resizes": resizes, "boundaries_detail": rows,
+              "peak_gb": peak, "card": smi}
+    steady = [r for r in rows if not r["resized"]
+              and r["t"] not in (0, FLEET_PROFILED)]
+    for key, pick in (("w4_all_sync", lambda r: r["w"] == 4
+                       and not r["demoted"]),
+                      ("w4_one_demoted", lambda r: r["w"] == 4
+                       and r["demoted"]),
+                      ("w3", lambda r: r["w"] == 3)):
+        got = [r["ms"] for r in steady if pick(r)]
+        result[f"boundary_ms_median_{key}"] = (statistics.median(got)
+                                               if got else None)
+    for what, r in (("kill", [x for x in resizes if len(x["to"]) == 3]),
+                    ("rejoin", joins)):
+        result[f"resize_ms_{what}"] = r[0]["ms"] if r else None
+    result["profile"] = profile_summary(
+        prof, rows[FLEET_PROFILED]["ms"], "elastic_fleet")
+    if bad:
+        raise AssertionError(f"elastic_fleet: {bad}: {result}")
+    return result
+
+
+def elastic_vs_sync(get_config, smi, boundaries=3):
+    """An ``ElasticFleet`` with no schedule (an all-ones mask,
+    ``resync_every=2``, so one resync fires) and the trainer's ``sync``
+    step from one seed on the same batches (``sample_batch`` rows =
+    ``worker_batches``), qwen2-1.5b at full width cut to 2 layers, W = 4,
+    ``adam(fused=True)``: every leaf of the params, m and v
+    ``torch.equal`` after ``boundaries`` boundaries."""
+    from repro_torch.core import strategies as ST
+    from repro_torch.core import tree as TT
+    from repro_torch.core.comm import LocalComm
+    from repro_torch.data.pipeline import DataConfig, worker_batches
+    from repro_torch.launch.elastic import ElasticFleet
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam
+    from repro_torch.train.loop import (init_train_state,
+                                        make_replica_train_step)
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=2)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_L,
+                      batch_per_worker=TRAIN_B, seed=5)
+    loss = elastic_loss(cfg)
+    opt = adam(1e-3, fused=True)
+    base = T.init_model(torch.Generator(device="cuda").manual_seed(5), cfg,
+                        device="cuda")
+    comm = LocalComm(TRAIN_W)
+    strat = ST.sync()
+    ref = init_train_state(comm.replicate(base), opt, strat, comm)
+    step = make_replica_train_step(loss, opt, strat, comm)
+    fleet = ElasticFleet(base, loss, opt, workers=TRAIN_W, resync_every=2)
+    del base
+    batch_fn = member_batches(dcfg, "cuda")
+    same_batches, resyncs, losses = True, [], []
+    for t in range(boundaries):
+        b = worker_batches(dcfg, TRAIN_W, t, device="cuda")
+        same_batches &= torch.equal(b, batch_fn(fleet.view, t))
+        ref, m = step(ref, b)
+        lg = fleet.run_boundary(batch_fn)
+        resyncs.append(fleet.last_metrics["resync"])
+        losses.append((float(m["loss"]), lg["loss"]))
+    trees = {"params": (fleet.state["params"], ref["params"]),
+             "m": (fleet.state["opt_state"]["m"], ref["opt_state"]["m"]),
+             "v": (fleet.state["opt_state"]["v"], ref["opt_state"]["v"])}
+    differ = [f"{k}.{i}" for k, (a, b) in trees.items()
+              for i, (x, y) in enumerate(zip(TT.leaves(a), TT.leaves(b)))
+              if not torch.equal(x, y)]
+    out = {"phase": "elastic_vs_sync", "arch": cfg.name, "layers": 2,
+           "workers": TRAIN_W, "boundaries": boundaries,
+           "resync_every": 2, "resyncs": resyncs, "fused_adam": True,
+           "same_batches": same_batches,
+           "leaves_compared": 3 * len(TT.leaves(ref["params"])),
+           "leaves_not_equal": differ,
+           "loss_sync_vs_fleet": losses, "card": smi}
+    del fleet, ref, trees
+    torch.cuda.empty_cache()
+    if differ or not same_batches or sum(resyncs) != 1:
+        raise AssertionError(f"elastic_vs_sync: {out}")
+    return out
+
+
+def elastic_card_vs_cpu(get_config, smi):
+    """``edge_async_sim``'s schedule through ``ElasticFleet`` on a 2-layer
+    cut at ``qwen2-1.5b --reduced``'s widths, on the card and on the CPU,
+    from one init: the logs but the loss equal, the losses within 1e-4."""
+    from repro_torch.core import tree as TT
+    from repro_torch.core.chaos import FleetClock
+    from repro_torch.core.staleness import StragglerPolicy
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.examples.edge_async_sim import SCHEDULE
+    from repro_torch.launch.elastic import ElasticFleet
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(),
+                              num_layers=2)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                      batch_per_worker=2, seed=7)
+    base = T.init_model(torch.Generator().manual_seed(7), cfg, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        fleet = ElasticFleet(TT.tree_map(lambda x, d=dev: x.to(d), base),
+                             elastic_loss(cfg), adam(3e-3, fused=True),
+                             workers=TRAIN_W,
+                             straggler_policy=StragglerPolicy(patience=2,
+                                                              recovery=2),
+                             resync_every=4, chaos=SCHEDULE,
+                             clock=FleetClock(TRAIN_W, jitter=0.0, seed=0),
+                             retries=2, backoff_s=1e-4)
+        t0 = time.perf_counter()
+        runs[dev] = (fleet.run(FLEET_BOUNDARIES, member_batches(dcfg, dev)),
+                     time.perf_counter() - t0)
+        del fleet
+    cuda, cpu = runs["cuda"][0], runs["cpu"][0]
+    rel = max(rel_diff(a["loss"], b["loss"]) for a, b in zip(cuda, cpu))
+    out = {"phase": "elastic_card_vs_cpu", "arch": cfg.name, "layers": 2,
+           "workers": TRAIN_W, "boundaries": FLEET_BOUNDARIES,
+           "tol_rel": 1e-4, "logs_equal": fleet_logs_equal(cuda, cpu),
+           "loss_max_rel_diff": rel,
+           "loss_cuda": [lg["loss"] for lg in cuda],
+           "loss_cpu": [lg["loss"] for lg in cpu],
+           "cuda_s": runs["cuda"][1], "cpu_s": runs["cpu"][1], "card": smi}
+    torch.cuda.empty_cache()
+    if not out["logs_equal"] or not rel <= 1e-4:
+        raise AssertionError(f"elastic_card_vs_cpu: {out}")
+    return out
+
+
 def profile_summary(prof, step_ms, phase):
     """Device-busy share, kernels per step, the top device ops and the time
     of the port's kernels, from one profiled train step."""
@@ -3398,6 +3961,18 @@ def main(argv=None) -> int:
     emit(skip_step(get_config, train_kernels, smi))
     emit(skip_step(get_config, train_kernels, smi, strategy="sync_zero1"))
     emit(ckpt_resume(get_config, smi))
+    # the elastic fleet: fused_adam on (W', chunk') shard buckets after a
+    # ZeRO resize and on (W', ...) leaves as the fleet's width changes
+    resize = elastic_resize(get_config, smi, fa.fused_adam)
+    emit(resize)
+    fleet = elastic_fleet(get_config, smi, fa.fused_adam)
+    emit({k: v for k, v in fleet.items() if k != "profile"})
+    emit(fleet["profile"])
+    train_launches["fused_adam"] += fleet["fused_adam_launches"] + sum(
+        st["steps_w2"]["fused_adam_launches"]
+        for st in resize["stages"].values())
+    emit(elastic_vs_sync(get_config, smi))
+    emit(elastic_card_vs_cpu(get_config, smi))
     emit(finite_read_cost(get_config, smi))
     emit(prefetch(train_kernels, get_config, smi))
     emit(train_remat(get_config, smi))

@@ -26,7 +26,15 @@ for ``sm_90a`` (``kernels/csrc/``):
     the 1/W shard buckets, ``unpartition``'s all-gather), and the npz
     checkpointer with re-sharding across worker counts
     (``checkpoint``, ``core.resharding``; ``--ckpt-dir``, ``--resume
-    auto``), whose files the JAX package reads and writes too.
+    auto``), whose files the JAX package reads and writes too;
+  * the elastic fleet: ``launch.elastic.ElasticFleet`` (membership as a
+    ``FleetView``, the chaos harness ``core.chaos``, straggler demotion,
+    retries, graceful degradation) → the masked boundary step
+    (``make_elastic_replica_step``: ``Fabric.all_sum`` a bucket, then
+    ``optim.adam``'s ``kernels.ops.fused_adam`` on ``(W′, …)`` leaves),
+    and ``resize_state``, the live W → W′ re-partition of dense and
+    ZeRO-1/2/3 state (``core.resharding`` on tensors, bitwise the
+    checkpoint restore's re-shard).
 
 Every entry point takes an explicit ``device``, defaulting to ``"cuda"``.
 With no card a ``"cuda"`` default raises; nothing moves quietly to the

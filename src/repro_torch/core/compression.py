@@ -17,8 +17,10 @@ signs, f32 mean-|t| scale, residual) and ``ops.topk_sparsify`` on
 t = g + r (values, indices and the dense kept entries, which are
 ``decompress(compress(t))``).  A leaf is folded as ``compress`` folds it:
 flattened whole, replica axes included, its tail zero-padded to a block.
-Blocks the kernels do not take, and the int8 and none compressors, run the
-codec's compress → decompress round.
+Every 1-bit and top-k round goes through ``ops``: the plain version for
+a CPU tensor, the kernel for a CUDA tensor, which raises on a block it
+does not take (nothing falls back to the codec).  The int8 and none
+compressors run the codec's compress → decompress round.
 
 Differences from the reference, none of which changes a result:
   * ``Compressor`` also records its ``block`` (and ``k`` for top-k), so

@@ -8,14 +8,17 @@ and the live resize of a state tree (:func:`repartition_tree`).
 Shard chunks are stored in rank order: a stacked simulator leaf (W, C)
 and a global flat leaf (padded,) both flatten to chunk_0 ‖ chunk_1 ‖ … ‖
 old padding, so "drop the old padding, zero-pad for the new worker count,
-reshape" is the whole transition.  It works on numpy arrays, the
-reference's code line for line: the checkpointer re-shards what it read
-from disk.
+reshape" is the whole transition.  A numpy array takes the reference's
+code line for line (the checkpointer re-shards what it read from disk);
+a torch tensor takes the same steps on its own device and in its own
+dtype, into new storage (the live resize of ``launch/elastic.py``), so
+both give the same values bitwise.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def _prod(shape):
@@ -25,11 +28,18 @@ def _prod(shape):
     return n
 
 
-def reshard_bucket(arr: np.ndarray, true_size: int,
-                   target_shape) -> np.ndarray:
-    """Re-shard one saved ZeRO bucket to a new partition: keep the
+def reshard_bucket(arr, true_size: int, target_shape):
+    """Re-shard one ZeRO bucket to a new partition: keep the
     ``true_size`` live elements of the rank-ordered flat image, zero-pad
-    to the target's size and reshape to ``target_shape``."""
+    to the target's size and reshape to ``target_shape``.  A tensor comes
+    back as a new tensor on its device in its dtype; anything else as a
+    numpy array."""
+    if isinstance(arr, torch.Tensor):
+        flat = arr.reshape(-1)[:true_size]
+        out = torch.zeros((_prod(target_shape),), dtype=arr.dtype,
+                          device=arr.device)
+        out[:true_size] = flat
+        return out.reshape(target_shape)
     flat = np.asarray(arr).reshape(-1)[:true_size]
     out = np.zeros((_prod(target_shape),), flat.dtype)
     out[:true_size] = flat
@@ -48,14 +58,15 @@ def _reshard_one(x, true_size: int, n_new: int):
     # a stacked simulator shard (W, C) keeps its 2-d layout at the new
     # width; a global flat shard (padded,) stays flat
     target = (n_new, padded // n_new) if x.ndim == 2 else (padded,)
-    return reshard_bucket(np.asarray(x), true_size, target)
+    return reshard_bucket(x, true_size, target)
 
 
 def repartition_tree(tree, bucket_sizes, n_new: int):
     """Re-partition every shard-bucket list of a ZeRO state tree W → W′.
 
     A shard-bucket list is a list or tuple of ``len(bucket_sizes)``
-    arrays, each 1-d (flat) or 2-d (stacked ``(W, C)``): the layout of
+    numpy arrays or tensors, each 1-d (flat) or 2-d (stacked ``(W, C)``),
+    re-sharded by :func:`reshard_bucket` into the same kind: the layout of
     ``Fabric.shard_params`` and the ZeRO ``init_opt`` hooks.  Bucket i
     carries ``bucket_sizes[i]`` live elements (``PartitionedLayout.spec()``);
     the rest is padding, dropped and regrown for the new worker count.

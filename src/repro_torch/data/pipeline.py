@@ -4,10 +4,14 @@ Port of ``repro/data/pipeline.py``: a learnable token stream in which,
 with probability ``structure``, the next token is the affine successor
 ``x' = (a·x + b) mod V`` and otherwise uniform.  Every (worker, step) gets
 a reproducible shard from an explicit ``torch.Generator`` seeded from
-``(seed, step)``, drawn on the host: ``jax.random``'s bits cannot be
-reproduced and need not be (the parity tests feed the JAX package's
-batches to the port).  A batch is a few KB, so the host draws it and one
-non-blocking copy moves it to the card.
+``(seed, worker, step)``, as the reference folds ``worker`` and then
+``step`` into its key, drawn on the host: ``jax.random``'s bits cannot
+be reproduced and need not be (the parity tests feed the JAX package's
+batches to the port).  ``sample_batch`` is one worker's batch and
+``worker_batches`` the stack of W of them, so a worker's batch does not
+depend on W: an elastic fleet keyed by stable worker ids draws, for
+members ``(0, …, W-1)``, exactly the trainer's tokens.  A batch is a few
+KB, so the host draws it and one non-blocking copy moves it to the card.
 
 ``microbatch_stack`` stacks the microbatches of one accumulation boundary
 (microbatch j of optimizer step T is plain step ``T*accum_steps + j``),
@@ -46,25 +50,38 @@ class DataConfig:
         return self.active_vocab or self.vocab_size
 
 
-def _generator(cfg: DataConfig, step: int) -> torch.Generator:
-    # one stream per (seed, step); the workers' shards are its rows
-    return torch.Generator().manual_seed(
-        (cfg.seed * 1_000_003 + int(step)) % (1 << 63))
+def _generator(cfg: DataConfig, worker: int, step: int) -> torch.Generator:
+    # one stream per (seed, worker, step)
+    key = (cfg.seed * 1_000_003 + int(worker)) * 1_000_003 + int(step)
+    return torch.Generator().manual_seed(key % (1 << 63))
 
 
-def _host_batches(cfg: DataConfig, n_workers: int, step: int):
-    """(W, batch_per_worker, seq_len) int32 tokens of ``step`` on the host."""
-    gen = _generator(cfg, step)
-    w, b, l, v = n_workers, cfg.batch_per_worker, cfg.seq_len, cfg.v_act
-    start = torch.randint(0, v, (w, b), generator=gen, dtype=torch.int64)
-    noise = torch.randint(0, v, (w, b, l), generator=gen, dtype=torch.int64)
-    coin = torch.rand((w, b, l), generator=gen) < cfg.structure
-    toks = torch.empty((w, b, l), dtype=torch.int32)
-    x = start
+def _host_rows(cfg: DataConfig, workers, step: int):
+    """(len(workers), batch_per_worker, seq_len) int32 tokens of ``step``
+    on the host: each worker's draws from its own generator, the affine
+    recurrence run on all rows at once (it is elementwise a row)."""
+    b, l, v = cfg.batch_per_worker, cfg.seq_len, cfg.v_act
+    start, noise, coin = [], [], []
+    for w in workers:
+        gen = _generator(cfg, w, step)
+        start.append(torch.randint(0, v, (b,), generator=gen,
+                                   dtype=torch.int64))
+        noise.append(torch.randint(0, v, (b, l), generator=gen,
+                                   dtype=torch.int64))
+        coin.append(torch.rand((b, l), generator=gen) < cfg.structure)
+    noise, coin = torch.stack(noise), torch.stack(coin)
+    toks = torch.empty((len(workers), b, l), dtype=torch.int32)
+    x = torch.stack(start)
     for i in range(l):
         x = torch.where(coin[..., i], (cfg.a * x + cfg.b) % v, noise[..., i])
         toks[..., i] = x
     return toks
+
+
+def _host_batches(cfg: DataConfig, n_workers: int, step: int):
+    """(W, batch_per_worker, seq_len) int32 tokens of ``step`` on the host:
+    the rows of workers 0 … W-1."""
+    return _host_rows(cfg, range(n_workers), step)
 
 
 def _host_stack(cfg, n_workers, opt_step, accum_steps):
@@ -78,10 +95,17 @@ def _to_device(toks, dev):
     return toks.to(dev)
 
 
+def sample_batch(cfg: DataConfig, worker: int, step: int, device="cuda"):
+    """(batch_per_worker, seq_len) int32 tokens of one worker at ``step``,
+    deterministic in (seed, worker, step), on ``device``."""
+    dev = resolve_device(device)
+    return _to_device(_host_rows(cfg, (worker,), step)[0], dev)
+
+
 def worker_batches(cfg: DataConfig, n_workers: int, step: int,
                    device="cuda"):
-    """Stacked (W, batch_per_worker, seq_len) int32 tokens of ``step``,
-    deterministic in (seed, step), on ``device``."""
+    """Stacked (W, batch_per_worker, seq_len) int32 tokens of ``step`` on
+    ``device``: row w is ``sample_batch(cfg, w, step)``."""
     dev = resolve_device(device)
     return _to_device(_host_batches(cfg, n_workers, step), dev)
 

@@ -218,3 +218,42 @@ def test_train_lm_defaults_to_cuda_and_raises_without_it():
 
     with pytest.raises(RuntimeError, match="cuda.is_available"):
         train_lm.main(["--steps", "1"])
+
+
+def _import_tops(path):
+    tree = ast.parse((PORT / path).read_text())
+    tops = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            tops |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            tops.add(node.module.split(".")[0])
+    return tops
+
+
+@pytest.mark.parametrize("path", ["launch/elastic.py", "core/chaos.py",
+                                  "examples/edge_async_sim.py"])
+def test_elastic_modules_import_no_jax_and_nothing_of_repro(path):
+    """The elastic fleet, the chaos harness and the edge example import
+    numpy, torch, the standard library and the port only."""
+    assert _import_tops(path) <= {"__future__", "argparse", "dataclasses",
+                                  "time", "numpy", "torch",
+                                  "repro_torch"}, path
+
+
+def test_chaos_copy_imports_numpy_only():
+    """``core/chaos.py`` copies the reference's numpy-only module."""
+    assert _import_tops("core/chaos.py") <= {"__future__", "dataclasses",
+                                             "numpy"}
+
+
+def test_edge_async_sim_and_sample_batch_default_to_cuda():
+    _no_cuda()
+    from repro_torch.data.pipeline import DataConfig, sample_batch
+    from repro_torch.examples import edge_async_sim
+
+    with pytest.raises(RuntimeError, match="cuda.is_available"):
+        edge_async_sim.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda.is_available"):
+        sample_batch(DataConfig(vocab_size=8, seq_len=4,
+                                batch_per_worker=1), 0, 0)
