@@ -68,7 +68,19 @@ then drives the main paths through their entry points:
     flake, a kill, a restore, a rejoin), its log against a CPU run's
     (``elastic_fleet``); the fleet with an all-ones mask bitwise the
     trainer's ``sync`` step (``elastic_vs_sync``); and the schedule on
-    the card against the CPU on a reduced cut (``elastic_card_vs_cpu``).
+    the card against the CPU on a reduced cut (``elastic_card_vs_cpu``);
+  * the MoE families: ``greedy_generate`` on granite-moe-1b-a400m and
+    qwen2-moe-a2.7b at full width and depth in bf16 (one flash launch a
+    layer a prefill; a decode step profiled with its device time split
+    into router and sort, dispatch scatter, expert matmuls, combine
+    gather, shared experts and the rest, beside the floor of reading
+    every weight once), ``PagedDecodeEngine`` on qwen2-moe-a2.7b's
+    parameters and, on the same weights in f32, its tokens against
+    ``DecodeEngine``'s; the trainer on granite-moe-1b-a400m at full width,
+    4 layers, W = 4 (``train_moe``: 1-bit, fused Adam, the share of rows
+    capacity dropped in step 0); and in f32 the card against the CPU on
+    2-layer cuts of both and on jamba ``.reduced()`` with its experts:
+    logits, each MoE layer's routing, tokens (``moe_card_vs_cpu``).
 
 Each kernel's launches are counted from zero over the paths that run it,
 and each is timed against its bound, its plain version and one PyTorch
@@ -98,6 +110,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -213,6 +226,12 @@ def paged_inputs(rng, b, kv, g, dh, page, ctx, q_dtype, kv_dtype, idle_row):
 SPLIT_EDGES = {"qwen2-1.5b": (17, [0, 1, 543, 544, 545, 1087, 1088, 2048]),
                "gemma3-1b": (64, [0, 31, 33, 2048])}
 
+# the MoE models' paged decode at 8 slots: qwen2-moe-a2.7b MHA (G 1),
+# granite-moe-1b-a400m GQA 16 over 8 (G 2); ragged ctx with an idle row
+MOE_PAGED_SHAPES = {
+    "qwen2-moe-a2.7b": dict(b=8, kv=16, g=1, dh=128, page=16),
+    "granite-moe-1b-a400m": dict(b=8, kv=8, g=2, dh=64, page=16)}
+
 
 def check_kernel(pa):
     """Phase 2: the CUDA kernel against its plain version on the card:
@@ -220,7 +239,8 @@ def check_kernel(pa):
     split-K parts' edges (SPLIT_EDGES), windows 7, 100 and 512 crossing
     them."""
     shapes = {"qwen2-1.5b": dict(b=8, kv=2, g=6, dh=128, page=16),
-              "gemma3-1b": dict(b=4, kv=1, g=4, dh=256, page=16)}
+              "gemma3-1b": dict(b=4, kv=1, g=4, dh=256, page=16),
+              **MOE_PAGED_SHAPES}
     dts = (torch.float32, torch.bfloat16)
     err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     cases = 0
@@ -230,11 +250,15 @@ def check_kernel(pa):
         ctx = rng.integers(1, 2049, size=s["b"])
         ctx[-1] = 2048
         runs.append((arch, s, ctx, True, (-1, 7, 512)))
-        splits, edges = SPLIT_EDGES[arch]
-        runs.append((arch, s, np.asarray(edges), False, (-1, 7, 100, 512)))
+        if arch in SPLIT_EDGES:
+            splits, edges = SPLIT_EDGES[arch]
+            runs.append((arch, s, np.asarray(edges), False,
+                         (-1, 7, 100, 512)))
     for ri, (arch, s, ctx, idle_row, windows) in enumerate(runs):
-        for qd in dts:
-            for kd in dts:
+        # the MoE decode shapes as their engines run them: bf16
+        run_dts = (torch.bfloat16,) if arch in MOE_PAGED_SHAPES else dts
+        for qd in run_dts:
+            for kd in run_dts:
                 inp = paged_inputs(np.random.default_rng(100 + ri), s["b"],
                                    s["kv"], s["g"], s["dh"], s["page"], ctx,
                                    qd, kd, idle_row=idle_row)
@@ -265,6 +289,7 @@ def check_kernel(pa):
     return {"cases": cases, "split_edges": {
                 arch: {"splits": n, "ctx": c}
                 for arch, (n, c) in SPLIT_EDGES.items()},
+            "moe_shapes_bf16": MOE_PAGED_SHAPES,
             "max_abs_err_f32": err[torch.float32],
             "tol_f32": TOL[torch.float32],
             "max_abs_err_bf16": err[torch.bfloat16],
@@ -303,9 +328,12 @@ def timed_engine(eng):
 
 
 def serve(pa, T, Engine, Request, cfg, smi, *, slots, max_seq, reqs, seed,
-          after=None):
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = T.init_model(gen, cfg, device="cuda")
+          after=None, params=None):
+    """``Engine`` (the paged one) on ``reqs``; ``params`` made from ``seed``
+    unless given."""
+    if params is None:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = T.init_model(gen, cfg, device="cuda")
     eng = Engine(params, cfg, batch_slots=slots, max_seq=max_seq,
                  page_size=16, chunk_size=256, cache_dtype=cfg.compute_dtype,
                  device="cuda")
@@ -516,7 +544,9 @@ def profiled_ms(fn, iters, flush, match):
 # layers at 4 slots
 PAGED_TIMING = [("qwen2-1.5b", 8, 2, 6, 128, 1024, -1),
                 ("gemma3-1b", 4, 1, 4, 256, 1024, -1),
-                ("gemma3-1b local", 4, 1, 4, 256, 1024, 512)]
+                ("gemma3-1b local", 4, 1, 4, 256, 1024, 512),
+                ("qwen2-moe-a2.7b", 8, 16, 1, 128, 1024, -1),
+                ("granite-moe-1b-a400m", 8, 8, 2, 64, 1024, -1)]
 
 
 def time_kernel(pa, launches_per_step, smi):
@@ -628,7 +658,13 @@ FLASH_PATH_SHAPES = [
     ("gemma3-1b local", 4, 1, 2048, 256, 512),
     ("gemma3-1b global", 4, 1, 2048, 256, -1),
     ("qwen2.5-14b", 40, 8, 1024, 128, -1),
-    ("jamba-1.5-large", 64, 8, 2048, 128, -1)]
+    ("jamba-1.5-large", 64, 8, 2048, 128, -1),
+    ("granite-moe-1b-a400m", 16, 8, 2048, 64, -1),
+    ("qwen2-moe-a2.7b", 16, 16, 1024, 128, -1)]
+
+# the MoE head layouts at L 2048 as well (qwen2-moe's prefill is 1024)
+FLASH_MOE_CHECKS = [("granite-moe-1b-a400m", 16, 8, 2048, 64, -1),
+                    ("qwen2-moe-a2.7b", 16, 16, 2048, 128, -1)]
 
 
 def flash_err(fl, q, k, v, causal, window, what):
@@ -653,7 +689,8 @@ def check_flash(fl):
     bf16; L 1, 37, 128, 300, 2048; Dh 64, 128, 256; causal and not; windows
     -1, 32, 100, 512; GQA groups 1, 4, 5, 6; model-layout views and
     contiguous tensors in turn; then every shape the greedy_* prefills
-    launch (FLASH_PATH_SHAPES) in both dtypes."""
+    launch (FLASH_PATH_SHAPES) and the MoE layouts at L 2048
+    (FLASH_MOE_CHECKS) in both dtypes."""
     worst, path, cases = {}, {}, 0
     for dt in (torch.float32, torch.bfloat16):
         for l in (1, 37, 128, 300, 2048):
@@ -669,10 +706,11 @@ def check_flash(fl):
                         f"L={l} D={d} causal={causal} window={window} G={g}"))
                     cases += 1
                 worst[f"{str(dt)[6:]} L={l} D={d}"] = err
-        for si, (name, h, kv, l, d, w) in enumerate(FLASH_PATH_SHAPES):
+        for si, (name, h, kv, l, d, w) in enumerate(FLASH_PATH_SHAPES
+                                                     + FLASH_MOE_CHECKS):
             q, k, v = flash_inputs(np.random.default_rng(77 + si), 1, h, kv,
                                    l, d, dt, model_layout=True)
-            path[f"{str(dt)[6:]} {name}"] = flash_err(
+            path[f"{str(dt)[6:]} {name} L={l}"] = flash_err(
                 fl, q, k, v, True, w, f"{name} H={h} KV={kv} L={l} D={d} "
                 f"window={w}")
             cases += 1
@@ -686,7 +724,8 @@ def check_flash(fl):
             "max_abs_err_f32": f32, "tol_f32": TOL[torch.float32],
             "max_abs_err_bf16": bf16, "tol_bf16": TOL[torch.bfloat16],
             "max_abs_err_per_dtype_L_D": worst,
-            "path_shapes": [list(x) for x in FLASH_PATH_SHAPES],
+            "path_shapes": [list(x) for x in FLASH_PATH_SHAPES
+                            + FLASH_MOE_CHECKS],
             "max_abs_err_path_shapes": path}
 
 
@@ -786,15 +825,18 @@ def prefill_launches(cfg):
 
 
 def greedy(kernels, T, E, cfg, smi, *, phase, prompt_len, new, seed,
-           profile=False):
+           profile=False, params=None, after=None):
     """``greedy_generate``: one prefill (one flash launch per attention
     layer, one mamba_scan launch per Mamba layer) and ``new - 1``
     dense-cache decode steps; with ``profile``, one more prefill and a few
     decode steps under torch.profiler; for a model with Mamba layers, the
-    scan kernel held against its plain version on the path's own tensors.
-    ``kernels`` maps each kernel name to its wrapper."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = T.init_model(gen, cfg, device="cuda")
+    scan kernel held against its plain version on the path's own tensors;
+    ``after(params, prompt)``, when given, adds its dict to the result.
+    ``kernels`` maps each kernel name to its wrapper; ``params`` are made
+    from ``seed`` unless given (the caller then keeps them)."""
+    if params is None:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = T.init_model(gen, cfg, device="cuda")
     prompt = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, prompt_len).astype(np.int32)
     rec, undo = timed_calls(T, ("prefill", "decode_step"))
@@ -835,6 +877,8 @@ def greedy(kernels, T, E, cfg, smi, *, phase, prompt_len, new, seed,
         extra = profile_dense(T, params, cfg, prompt)
     if prefill_launches(cfg)["mamba_scan"]:
         extra.update(scan_on_path(T, params, cfg, prompt))
+    if after is not None:
+        extra.update(after(params, prompt))
     for k, fn in kernels.items():  # not the path's run
         fn.launches = saved[k]
     del params
@@ -1924,14 +1968,14 @@ TRAIN_W, TRAIN_B, TRAIN_L, TRAIN_LAYERS, TRAIN_STEPS = 4, 4, 64, 4, 10
 ZERO_STRATEGIES = ("sync_zero1", "sync_zero2", "sync_zero3")
 
 
-def meta_partition(get_config, layers, w=TRAIN_W):
-    """The ``PartitionedLayout`` of the stacked qwen2-1.5b cut at full width,
+def meta_partition(get_config, layers, w=TRAIN_W, arch="qwen2-1.5b"):
+    """The ``PartitionedLayout`` of the stacked ``arch`` cut at full width,
     built over meta tensors: shapes only, nothing allocated."""
     from repro_torch.core.comm import LocalComm
     from repro_torch.core.fabric import Fabric
     from repro_torch.models import transformer as T
 
-    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=layers)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     comm = LocalComm(w)
     return Fabric(comm).partitioned_layout(comm.replicate(
         T.init_model(torch.Generator(), cfg, device="meta")))
@@ -1963,12 +2007,13 @@ def events_closed_form(strategy, t):
 
 def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
                layers=TRAIN_LAYERS, precision="f32", accum=1, depth=2,
-               steps=TRAIN_STEPS, phase=None, profile=True):
-    """The trainer CLI's body at full width, depth cut, on the card: each
-    kernel's launch count set to 0 just before and read just after.  Under
-    the ZeRO strategies ``fused_adam`` runs once a shard bucket, on
-    ``(W, chunk)`` buckets.  Returns (result, the profiled last step's
-    summary or None)."""
+               steps=TRAIN_STEPS, phase=None, profile=True,
+               arch="qwen2-1.5b"):
+    """The trainer CLI's body on ``arch`` at full width, depth cut, on the
+    card: each kernel's launch count set to 0 just before and read just
+    after.  Under the ZeRO strategies ``fused_adam`` runs once a shard
+    bucket, on ``(W, chunk)`` buckets.  Returns (result, the profiled last
+    step's summary or None)."""
     from repro_torch.core.comm import LocalComm
     from repro_torch.core.compression import get_compressor
     from repro_torch.core.fabric import Fabric
@@ -1978,16 +2023,16 @@ def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
 
     phase = phase or (f"train_{compressor}" if strategy == "sync" else
                       f"train_{strategy}")
-    argv = ["--arch", "qwen2-1.5b", "--strategy", strategy, "--compressor",
+    argv = ["--arch", arch, "--strategy", strategy, "--compressor",
             compressor, "--fused-adam", "--workers", str(TRAIN_W),
             "--batch-per-worker", str(TRAIN_B), "--seq-len", str(TRAIN_L),
             "--steps", str(steps), "--log-every", "1",
             "--precision", precision, "--accum-steps", str(accum),
             "--prefetch-depth", str(depth), "--device", "cuda"]
     args = CLI.build_argparser().parse_args(argv)
-    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=layers)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     zero = strategy in ZERO_STRATEGIES
-    play = meta_partition(get_config, layers)
+    play = meta_partition(get_config, layers, arch=arch)
     comp = None if compressor == "none" else (
         get_compressor("topk", ratio=0.01) if compressor == "topk"
         else get_compressor(compressor))
@@ -3767,6 +3812,447 @@ def time_codec_kernels(ob, tk, launches, get_config, smi):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# the MoE families: granite-moe-1b-a400m and qwen2-moe-a2.7b
+# ---------------------------------------------------------------------------
+MOE_SPLIT = ("router_sort", "dispatch_scatter", "expert_matmuls",
+             "combine_gather", "shared_experts", "rest")
+
+
+def tree_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def decode_floor(params, cfg):
+    """The bytes a decode step must read and their time at the HBM rate:
+    every weight once, the padded experts included (the capacity dispatch
+    runs every expert on its slots), less the embedding table when the
+    head has its own (a step reads only its rows); the KV cache is left
+    out."""
+    nbytes = tree_bytes(params) - (0 if cfg.tie_embeddings else
+                                   tree_bytes(params["embed"]))
+    return {"weight_bytes_per_step": nbytes,
+            "floor_ms_per_step": 1e3 * nbytes / HBM_BYTES_PER_S}
+
+
+def moe_split(prof):
+    """Device time of one profiled step by where each kernel was launched
+    (the ranges ``moe_decode_profile`` wraps around the layer's
+    functions): ``_route`` (router and sort), ``_moe_dense`` before its
+    experts (dispatch scatter) and after them (combine gather),
+    ``_expert_ffn`` (the expert matmuls), ``moe`` outside ``_moe_dense``
+    (the shared experts), and everything else (attention, norms, head)."""
+    split = dict.fromkeys(MOE_SPLIT, 0.0)
+    kernels = 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU or not ev.kernels:
+            continue
+        names, a = {}, ev
+        while a is not None:
+            names.setdefault(a.name, a)
+            a = a.cpu_parent
+        if "moe:router" in names:
+            key = "router_sort"
+        elif "moe:experts" in names:
+            key = "expert_matmuls"
+        elif "moe:dense" in names:
+            ffn = [c for c in names["moe:dense"].cpu_children
+                   if c.name == "moe:experts"]
+            key = ("dispatch_scatter" if not ffn or ev.time_range.start
+                   < ffn[0].time_range.start else "combine_gather")
+        elif "moe:layer" in names:
+            key = "shared_experts"
+        else:
+            key = "rest"
+        split[key] += sum(k.duration for k in ev.kernels) / 1e3
+        kernels += len(ev.kernels)
+    return split, kernels
+
+
+def moe_decode_profile(T, L, params, cfg, prompt, steps=4):
+    """Dense-cache decode steps (batch 1) after a prefill of ``prompt``:
+    ``steps`` timed plain, then one under torch.profiler with ``L.moe``,
+    ``_moe_dense``, ``_route`` and ``_expert_ffn`` wrapped in named ranges,
+    its device time split by ``moe_split``.  The floor is
+    ``decode_floor``'s."""
+    lp = len(prompt)
+    with torch.no_grad():
+        logits, cache = T.prefill(params, cfg, torch.from_numpy(prompt)[None]
+                                  .to("cuda"), last_only=True)
+        cache = T.pad_prefill_cache(cfg, cache, lp + steps + 1)
+        tok = logits[:, -1].argmax(-1)
+
+        def step(i):
+            T.decode_step(params, cfg, tok, lp + i, cache)
+
+        step(0)  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(1, steps):
+            step(i)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t) / (steps - 1)
+
+        ranges = {"moe": "moe:layer", "_moe_dense": "moe:dense",
+                  "_route": "moe:router", "_expert_ffn": "moe:experts"}
+        saved = {n: getattr(L, n) for n in ranges}
+
+        def ranged(label, fn):
+            def run(*args, **kw):
+                with torch.profiler.record_function(label):
+                    return fn(*args, **kw)
+            return run
+
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        for n, label in ranges.items():
+            setattr(L, n, ranged(label, saved[n]))
+        try:
+            with torch.profiler.profile(activities=acts) as prof:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step(steps)
+                torch.cuda.synchronize()
+                prof_ms = 1e3 * (time.perf_counter() - t)
+        finally:
+            for n, fn in saved.items():
+                setattr(L, n, fn)
+    del cache
+    # the device kernels, not the ranges' own device-side spans
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith("moe:")]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    split, kernels = moe_split(prof)
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    floor = decode_floor(params, cfg)
+    return {"moe_decode_profile": {
+        "batch": 1, "ctx": lp, "step_ms": wall_ms,
+        "step_ms_under_profiler": prof_ms,
+        "device_ms_per_step": dev_ms,
+        "device_busy_share": dev_ms / wall_ms if dev_ms else None,
+        "device_kernels_per_step": sum(e.count for e in events),
+        "kernels_attributed": kernels,
+        "device_ms_split": split,
+        "device_ms_attributed": sum(split.values()),
+        **floor,
+        "step_over_floor": wall_ms / floor["floor_ms_per_step"],
+        "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                          for e in top}}}
+
+
+def greedy_granite_moe(kernels, T, E, L, cfg, smi):
+    """granite-moe-1b-a400m at full width and depth, bf16: a 2048-token
+    prompt (24 flash launches), a profiled prefill and decode, and the
+    MoE split of one decode step."""
+    out = greedy(kernels, T, E, cfg, smi, phase="greedy_granite_moe",
+                 prompt_len=2048, new=32, seed=14, profile=True,
+                 after=lambda prm, prompt: moe_decode_profile(
+                     T, L, prm, cfg, prompt))
+    return {**out, "experts": cfg.num_experts, "top_k": cfg.top_k,
+            "params_b": cfg.param_count() / 1e9}
+
+
+def to_f32_in_place(tree):
+    """Each leaf of ``tree`` replaced by its f32 copy, one leaf at a time
+    with the cache emptied after each: the peak is the tree in f32 plus one
+    bf16 leaf, not both trees."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            to_f32_in_place(v)
+        else:
+            tree[k] = v.float()
+            del v
+            torch.cuda.empty_cache()
+
+
+def engines_agree(pa, T, E, params, cfg):
+    """The same parameters in f32 (each bf16 weight exactly) through
+    ``PagedDecodeEngine`` and ``DecodeEngine`` on 4 requests, tokens
+    identical.  Capacity factor E_pad / k (nothing dropped): at the
+    default the two engines route other token sets together (a prefill
+    chunk against one token a slot), so capacity drops other rows in each,
+    as in the reference."""
+    cfg = dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32",
+        capacity_factor=cfg.num_experts_padded / cfg.top_k)
+    gc.collect()  # an engine's timing wrappers hold it, and its weights,
+    torch.cuda.empty_cache()  # in a reference cycle
+    t = time.perf_counter()
+    to_f32_in_place(params)
+    out = {"capacity_factor": cfg.capacity_factor, "requests": 4,
+           "to_f32_s": time.perf_counter() - t}
+    gens = {}
+    for name, Engine, kw in (
+            ("paged", E.PagedDecodeEngine,
+             dict(page_size=16, chunk_size=256)),
+            ("dense", E.DecodeEngine, {})):
+        reqs = requests(E.Request, np.random.default_rng(15), 4, 64, 256, 16,
+                        32, cfg.vocab_size)
+        eng = Engine(params, cfg, batch_slots=4, max_seq=512, device="cuda",
+                     **kw)
+        for r in reqs:
+            eng.submit(r)
+        t = time.perf_counter()
+        pa.paged_attention.launches = 0
+        gens[name] = {r.rid: r.generated for r in eng.run()}
+        torch.cuda.synchronize()
+        out[f"{name}_s"] = time.perf_counter() - t
+        if name == "paged":
+            eng.kv.allocator.check()
+            if eng.kv.allocator.num_allocated:
+                raise AssertionError("f32 subset: the page pool did not "
+                                     "drain")
+            if pa.paged_attention.launches != eng.decode_steps \
+                    * cfg.num_layers:
+                raise AssertionError("f32 subset: paged launches")
+        del eng
+        torch.cuda.empty_cache()
+    if gens["paged"] != gens["dense"]:
+        raise AssertionError(f"{cfg.name}: PagedDecodeEngine "
+                             f"{gens['paged']} vs DecodeEngine "
+                             f"{gens['dense']} (f32, no drops)")
+    return {**out, "paged_eq_dense_f32": True,
+            "prompt_tokens": [len(r.prompt) for r in reqs],
+            "tokens": sum(len(g) for g in gens["paged"].values()),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def qwen2_moe(kernels, pa, T, E, L, cfg, smi):
+    """qwen2-moe-a2.7b at full width and depth, initialised in bf16: the
+    ``greedy_qwen2_moe`` phase (a 1024-token prompt, the MoE split of a
+    profiled decode step) and ``paged_serve_qwen2_moe`` on the same
+    parameters (8 slots, 16 requests, prompts of 64-1024 tokens, 32-128
+    new ones; the pool drains clean, paged launches = decode steps x 24),
+    then the engines' tokens on 4 requests in f32 (``engines_agree``);
+    the parameters are freed at the end."""
+    gc.collect()  # engines of earlier phases, held in reference cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = T.init_model(torch.Generator(device="cuda").manual_seed(16),
+                          cfg, device="cuda")
+    torch.cuda.synchronize()
+    init = {"init_s": time.perf_counter() - t,
+            "init_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "params_gb": tree_bytes(params) / 1e9,
+            "params_b": sum(x.numel() for x in _leaves(params)) / 1e9}
+    greedy_out = greedy(kernels, T, E, cfg, smi, phase="greedy_qwen2_moe",
+                        prompt_len=1024, new=16, seed=16, params=params,
+                        after=lambda prm, prompt: moe_decode_profile(
+                            T, L, prm, cfg, prompt))
+    greedy_out.update(init, experts=cfg.num_experts,
+                      experts_padded=cfg.num_experts_padded,
+                      shared_experts=cfg.num_shared_experts, top_k=cfg.top_k)
+    serve_out = serve(
+        pa, T, E.PagedDecodeEngine, E.Request, cfg, smi, slots=8,
+        max_seq=2048, reqs=requests(E.Request, np.random.default_rng(17), 16,
+                                    64, 1024, 32, 128, cfg.vocab_size),
+        seed=17, params=params)
+    floor = decode_floor(params, cfg)
+    serve_out.update(phase="paged_serve_qwen2_moe", **floor,
+                     step_over_floor=serve_out["decode_step_ms_median"]
+                     / floor["floor_ms_per_step"])
+    serve_out["engines_agree"] = engines_agree(pa, T, E, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    return greedy_out, serve_out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def one_batch(CLI):
+    """Wrap ``CLI.prefetch_batches`` to yield its first batch at every step
+    (the trainer fitting one batch); returns the undo function."""
+    stream = CLI.prefetch_batches
+
+    def repeat_first(*args, **kw):
+        first = None
+        for t, batch in stream(*args, **kw):
+            first = batch if first is None else first
+            yield t, first
+
+    CLI.prefetch_batches = repeat_first
+
+    def undo():
+        CLI.prefetch_batches = stream
+    return undo
+
+
+def train_moe(kernels, L, T, get_config, smi):
+    """The trainer path on granite-moe-1b-a400m at full width, 4 layers,
+    W = 4, f32, ``sync --compressor onebit --fused-adam``, 10 steps:
+    ``train_path``'s gates, each forward's aux finite and > 0, and the
+    share of (token, rank) rows capacity dropped in step 0 (a spy on
+    ``L._route`` here; the package counts nothing).  On the stream's
+    batches the loss cannot fall in 10 steps: its tokens are uniform over
+    49,155 ids, so the cross entropy starts at ln V and only the bigram
+    map, which no 10 batches cover, lowers it.  So the trainer then fits
+    one batch, repeated for 10 steps (``train_moe_one_batch``), and there
+    the loss must fall."""
+    from repro_torch.launch import train as CLI
+
+    arch = "granite-moe-1b-a400m"
+    step0 = TRAIN_W * TRAIN_LAYERS  # _route calls of step 0
+    kept, auxes = [], []
+    route, forward = L._route, T.forward
+
+    def route_spy(*args):
+        out = route(*args)
+        if len(kept) < step0:
+            kept.append(out[2].detach())
+        return out
+
+    def forward_spy(*args, **kw):
+        logits, aux = forward(*args, **kw)
+        auxes.append(aux.detach())
+        return logits, aux
+
+    L._route, T.forward = route_spy, forward_spy
+    try:
+        result, prof = train_path(kernels, get_config, smi,
+                                  compressor="onebit", phase="train_moe",
+                                  arch=arch)
+    finally:
+        L._route, T.forward = route, forward
+    aux = torch.stack(auxes).cpu()
+    if not (torch.isfinite(aux).all() and (aux > 0).all()):
+        raise AssertionError(f"train_moe: aux {aux.tolist()}")
+    undo = one_batch(CLI)
+    try:
+        fit, _ = train_path(kernels, get_config, smi, compressor="onebit",
+                            phase="train_moe_one_batch", arch=arch,
+                            profile=False)
+    finally:
+        undo()
+    if not fit["loss"][-1] < fit["loss"][0]:
+        raise AssertionError(f"train_moe: on one repeated batch the loss "
+                             f"did not fall: {fit['loss']}")
+    cfg = get_config(arch)
+    keep = torch.cat(kept)
+    result.update(
+        experts=cfg.num_experts, top_k=cfg.top_k,
+        aux_first_last=[aux[0].item(), aux[-1].item()],
+        step0_rows=keep.numel(),
+        step0_dropped_share=1.0 - keep.float().mean().item(),
+        one_batch={k: fit[k] for k in ("loss", "step_ms_median",
+                                       "launches", "wire_bytes",
+                                       "replica_divergence_max")})
+    return result, prof
+
+
+def moe_card_vs_cpu(T, E, L, get_config, kernels):
+    """f32, TF32 off: granite-moe-1b-a400m and qwen2-moe-a2.7b cut to 2
+    layers at d_model 256 (every other width the config's) and jamba
+    ``.reduced()`` with its experts (16 layers, 4 experts, top 2) with a
+    300-token prompt.  The same weights and prompt on the card and the
+    CPU: prefill logits within 1e-3, each MoE layer's flat_idx, slot and
+    keep of the prefill equal, greedy tokens identical, at the default
+    capacity factor.  On the card, ``DecodeEngine`` with the prompt in a
+    slot another request used against ``greedy_generate``, at capacity
+    factor E_pad / k (nothing dropped: the engine routes one token a step
+    and the prefill the whole prompt, so at the default capacity drops
+    other rows in each, as in the reference).  Returns the phase line and
+    the kernels' launches in the card's runs."""
+    cases = [
+        (dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                             num_layers=2, d_model=256), 200, 41),
+        (dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=2,
+                             d_model=256, head_dim=128), 200, 42),
+        (get_config("jamba-1.5-large-398b").reduced(), 300, 43)]
+    out = {"phase": "moe_card_vs_cpu", "dtype": "float32",
+           "tol_logits": 1e-3, "archs": {}}
+    launches = dict.fromkeys(kernels, 0)
+    route = L._route
+    for cfg, lp, seed in cases:
+        params = T.init_model(torch.Generator().manual_seed(seed), cfg,
+                              device="cpu")
+        rng = np.random.default_rng(seed)
+        prompt = rng.integers(0, cfg.vocab_size, lp).astype(np.int32)
+        logits, gens, routes = {}, {}, {}
+        for side, dev in (("card", "cuda"), ("cpu", "cpu")):
+            prm = _tree(params, lambda t, d=dev: t.to(d))
+            calls = routes.setdefault(side, [])
+
+            def spy(*args, calls=calls):
+                res = route(*args)
+                calls.append([x.cpu() for x in res[:3]])
+                return res
+
+            for fn in kernels.values():
+                fn.launches = 0
+            L._route = spy
+            try:
+                with torch.no_grad():
+                    lg, _ = T.prefill(prm, cfg, torch.from_numpy(prompt)[None]
+                                      .to(dev), last_only=True)
+            finally:
+                L._route = route
+            logits[side] = lg.cpu()
+            gens[side] = E.greedy_generate(prm, cfg, prompt, 8, device=dev)
+            if side == "card":
+                for k, fn in kernels.items():
+                    launches[k] += fn.launches
+            del prm, lg
+        err = (logits["card"] - logits["cpu"]).abs().max().item()
+        if not err <= 1e-3:
+            raise AssertionError(f"{cfg.name}: card vs CPU prefill logits "
+                                 f"differ by {err} > 1e-3")
+        n_moe = sum(s.ffn == "moe" for s in cfg.superblock()[0]) \
+            * cfg.superblock()[1]
+        if len(routes["card"]) != n_moe or len(routes["cpu"]) != n_moe:
+            raise AssertionError(f"{cfg.name}: {len(routes['card'])} routed "
+                                 f"layers, expected {n_moe}")
+        for li, (a, b) in enumerate(zip(routes["card"], routes["cpu"])):
+            for name, x, y in zip(("flat_idx", "slot", "keep"), a, b):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{cfg.name}: MoE layer {li}'s "
+                                         f"{name} differs card vs CPU")
+        if gens["card"] != gens["cpu"]:
+            raise AssertionError(f"{cfg.name}: card vs CPU greedy tokens "
+                                 f"{gens['card']} vs {gens['cpu']}")
+        nodrop = dataclasses.replace(
+            cfg, capacity_factor=cfg.num_experts_padded / cfg.top_k)
+        want = E.greedy_generate(params, nodrop, prompt, 8, device="cuda")
+        eng = E.DecodeEngine(params, nodrop, batch_slots=1, max_seq=lp + 16,
+                             device="cuda")
+        other = rng.integers(0, cfg.vocab_size, lp // 2).astype(np.int32)
+        eng.submit(E.Request(rid=0, prompt=other, max_new_tokens=8))
+        eng.submit(E.Request(rid=1, prompt=prompt, max_new_tokens=8))
+        eng_gen = {r.rid: r.generated for r in eng.run()}[1]
+        if eng_gen != want:
+            raise AssertionError(f"{cfg.name}: greedy_generate {want} vs "
+                                 f"DecodeEngine {eng_gen} in a reused slot "
+                                 "on the card (no drops)")
+        specs, repeat = cfg.superblock()
+        out["archs"][cfg.name] = {
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "experts": cfg.num_experts, "experts_padded":
+            cfg.num_experts_padded, "top_k": cfg.top_k,
+            "shared_experts": cfg.num_shared_experts,
+            "mixers": [s.mixer for s in specs] * repeat,
+            "ffns": [s.ffn for s in specs] * repeat,
+            "prompt_tokens": lp, "prefill_logits_max_abs_err": err,
+            "moe_layers_routing_equal": n_moe,
+            "prefill_rows_dropped": sum(int((~c[2]).sum())
+                                        for c in routes["card"]),
+            "prefill_rows": sum(c[2].numel() for c in routes["card"]),
+            "tokens_card_eq_cpu": True,
+            "tokens_generate_eq_engine_reused_slot_no_drops": True,
+            "tokens": gens["card"]}
+        del eng, params
+        torch.cuda.empty_cache()
+    out["launches_on_card"] = launches
+    return out, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--mamba-before", type=Path, default=None,
@@ -3787,6 +4273,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import onebit_quant as ob
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import topk_sparsify as tk
+    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.serve import engine as E
     from repro_torch.serve.engine import PagedDecodeEngine, Request
@@ -3899,6 +4386,25 @@ def main(argv=None) -> int:
     emit(dense_serve(T, E, jamba, smi, phase="dense_serve_jamba"))
     emit(recurrent_card_vs_cpu(T, E, get_config))
 
+    # the MoE families at full width and depth in bf16 (qwen2-moe-a2.7b
+    # also through the paged engine), then f32 cuts card against CPU,
+    # jamba's reduced cut with its experts among them
+    result = greedy_granite_moe(prefill_kernels, T, E, L,
+                                bf16("granite-moe-1b-a400m"), smi)
+    emit(result)
+    flash_launches += result["flash_launches_per_prefill"]
+    greedy_moe, serve_moe = qwen2_moe(prefill_kernels, pa, T, E, L,
+                                      bf16("qwen2-moe-a2.7b"), smi)
+    emit(greedy_moe)
+    emit(serve_moe)
+    flash_launches += greedy_moe["flash_launches_per_prefill"]
+    paged_launches = main_path_launches + serve_moe["paged_attention_launches"]
+    moe_cmp, moe_launches = moe_card_vs_cpu(T, E, L, get_config,
+                                            prefill_kernels)
+    emit(moe_cmp)
+    flash_launches += moe_launches["flash_attention"]
+    mamba_launches += moe_launches["mamba_scan"]
+
     # the leaf-wise codec (its counts zeroed inside, read just after)
     codec = codec_path(ob, tk, get_config, smi)
     emit(codec)
@@ -3926,6 +4432,14 @@ def main(argv=None) -> int:
         for k, n in result["launches"].items():
             train_launches[k] += n
         torch.cuda.empty_cache()
+    # an MoE model on the trainer: granite-moe-1b-a400m, 4 layers, W = 4
+    result, prof = train_moe(train_kernels, L, T, get_config, smi)
+    emit(result)
+    emit(prof)
+    for k in train_launches:
+        train_launches[k] += (result["launches"][k]
+                              + result["one_batch"]["launches"][k])
+    torch.cuda.empty_cache()
     # the rest of the replica trainer: the bf16 policies with an f32
     # master (onebit) and without (bf16 p under fused Adam), microbatch
     # accumulation (each boundary one encode a bucket)
@@ -4033,7 +4547,7 @@ def main(argv=None) -> int:
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:97",
-        "launches": main_path_launches,
+        "launches": paged_launches,
         "max_abs_err": max(check["max_abs_err_f32"],
                            check["max_abs_err_bf16"]),
         "max_abs_err_f32": check["max_abs_err_f32"],

@@ -16,6 +16,10 @@ for ``sm_90a`` (``kernels/csrc/``):
     → ``kernels.ops.mamba_scan``) and xLSTM (``models.ssm.mlstm``,
     ``slstm``); ``DecodeEngine`` zeroes a slot's recurrent state when it
     admits a request;
+  * the MoE families (granite-moe-1b-a400m, qwen2-moe-a2.7b, jamba's
+    reduced cut with its experts) on those serving paths and the trainer:
+    ``models.layers.moe``, the reference's capacity dispatch on one
+    device (no kernel of its own; the experts are batched matmuls);
   * data-parallel training: ``launch.train`` → ``train.loop`` (microbatch
     accumulation, the bf16 precision policies with loss scaling and
     skip-step) → the strategies of the spectrum →

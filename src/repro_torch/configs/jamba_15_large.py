@@ -2,8 +2,9 @@
 expert d_ff=24576 vocab=65536, Mamba+attention 1:7 interleave, MoE 16
 experts top-2 every other layer. [arXiv:2403.19887]
 
-The port serves it without experts (``num_experts=0``: every FFN the
-dense 24576-wide MLP); MoE is a later slice."""
+At full width one MoE layer's experts are 19.3 GB, so the port serves it
+on one card without experts (``num_experts=0``: every FFN the dense
+24576-wide MLP); its ``.reduced()`` cut runs with its experts."""
 
 from repro_torch.configs.base import ModelConfig, register
 

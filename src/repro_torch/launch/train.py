@@ -1,7 +1,10 @@
 """Trainer CLI: W stacked model replicas under any strategy of the
 spectrum (``sync``, ``sync_zero1``/``2``/``3``, ``sync_dgc``,
 ``local_sgd``, ``easgd``, ``ssp``, ``downpour``, ``gossip``) with optional
-compression, on one card.
+compression, on one card.  ``--arch`` takes the decoder-only attention
+models of the registry, the MoE ones (granite-moe-1b-a400m,
+qwen2-moe-a2.7b) included: the router and the expert leaves are buckets
+like any other, and the loss adds the router's aux loss.
 
 Port of ``repro/launch/train.py`` (its replica-simulator mode), with the
 reference's flags, printed fields, ``--out`` JSON and exit-2 messages, and

@@ -1,6 +1,6 @@
 """Decoder layers: norms, RoPE, GQA attention (bias, qk-norm, softcap,
 sliding window) for training, for prefill and decode over a dense KV cache
-and over a paged KV cache, and the SwiGLU MLP.
+and over a paged KV cache, the SwiGLU MLP and the capacity-dispatch MoE.
 
 Port of the training and serving paths of ``repro/models/layers.py``.
 Layers are plain functions on tensors over parameter dicts with the
@@ -24,6 +24,11 @@ Differences from the reference, none of which changes a result:
   * paged single-token decode always goes through
     ``kernels.ops.paged_attention``; chunked prefill and int8 pools take
     the gather path, as in the reference (``layers.py:457-465``).
+  * ``moe`` has no expert-parallel branch (the reference's ``_moe_ep``
+    under a mesh with a "model" axis): it always runs the one-device
+    capacity dispatch, ``_moe_dense``.  Its top-k is a stable descending
+    sort (``lax.top_k``'s order: the lowest index first on a tie), not
+    ``torch.topk``, which orders ties arbitrarily.
 
 ``kernels.ops`` sends CUDA tensors to the hand-written kernels and CPU
 tensors to their plain PyTorch versions.
@@ -41,15 +46,26 @@ NEG_INF = -2.0e38
 INT32_MAX = 2**31 - 1
 
 
-def dense_init(gen, shape, dtype, device, lead=()):
-    """Normal weights scaled by ``shape[0] ** -0.5`` (the fan-in, as the
-    reference's ``dense_init``), drawn in f32 from the ``torch.Generator``
-    ``gen`` (which lives on ``device``).  ``lead`` is a shape prefix such
-    as ``(repeat,)`` for a stacked layer."""
-    fan_in = shape[0]
-    w = torch.randn(tuple(lead) + tuple(shape), generator=gen, device=device,
-                    dtype=torch.float32)
-    return (w * (1.0 / max(1, fan_in) ** 0.5)).to(dtype)
+def dense_init(gen, shape, dtype, device, lead=(), in_axis=0,
+               by_row=False):
+    """Normal weights scaled by ``shape[in_axis] ** -0.5`` (the fan-in, as
+    the reference's ``dense_init``), drawn in f32 from the
+    ``torch.Generator`` ``gen`` (which lives on ``device``).  ``lead`` is a
+    shape prefix such as ``(repeat,)`` for a stacked layer.  ``by_row``
+    draws one ``shape`` at a time into a preallocated tensor of ``dtype``,
+    so the f32 transient is one row of the lead axes, not the whole leaf
+    twice (the experts of a large MoE stack)."""
+    scale = 1.0 / max(1, shape[in_axis]) ** 0.5
+    full = tuple(lead) + tuple(shape)
+    if not by_row:
+        w = torch.randn(full, generator=gen, device=device,
+                        dtype=torch.float32)
+        return (w * scale).to(dtype)
+    out = torch.empty(full, dtype=dtype, device=device)
+    for row in out.view((-1,) + tuple(shape)):
+        row.copy_(torch.randn(shape, generator=gen, device=device,
+                              dtype=torch.float32) * scale)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -428,8 +444,8 @@ def attention_paged(p, cfg: ModelConfig, x, positions, window, theta,
 # ---------------------------------------------------------------------------
 # dense MLP (SwiGLU)
 # ---------------------------------------------------------------------------
-def init_mlp(gen, cfg: ModelConfig, dtype, device, lead=()):
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(gen, cfg: ModelConfig, dtype, device, lead=(), d_ff=None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     return {
         "w_gate": dense_init(gen, (d, f), dtype, device, lead=lead),
         "w_up": dense_init(gen, (d, f), dtype, device, lead=lead),
@@ -446,3 +462,110 @@ def _act(name):
 
 def mlp(p, cfg: ModelConfig, x):
     return (_act(cfg.act)(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts: capacity-based scatter/gather dispatch
+# ---------------------------------------------------------------------------
+def init_moe(gen, cfg: ModelConfig, dtype, device, lead=()):
+    """``router`` (D, E) over the active experts; ``w_gate``/``w_up``
+    (E_pad, D, F) and ``w_down`` (E_pad, F, D) over the padded experts
+    (the dummies are never routed), each scaled by its fan-in D or F and
+    drawn a layer at a time; ``shared`` an MLP of ``num_shared_experts``
+    times the expert width, where the config has shared experts."""
+    d, f, e = cfg.d_model, cfg.expert_d_ff, cfg.num_experts_padded
+
+    def expert(shape):
+        return dense_init(gen, shape, dtype, device, lead=lead, in_axis=1,
+                          by_row=True)
+
+    p = {"router": dense_init(gen, (d, cfg.num_experts), dtype, device,
+                              lead=lead),
+         "w_gate": expert((e, d, f)), "w_up": expert((e, d, f)),
+         "w_down": expert((e, f, d))}
+    if cfg.num_shared_experts:
+        p["shared"] = init_mlp(gen, cfg, dtype, device, lead,
+                               d_ff=cfg.num_shared_experts * f)
+    return p
+
+
+def _route(p, cfg: ModelConfig, xt, e_pad, cap):
+    """xt (T, D) → (flat_idx, slot, keep, flat_gate, aux), each of the
+    first four over the T·k (token, rank) rows in token-major order.
+
+    The router logits are formed in xt's dtype and the softmax, gates and
+    aux in f32.  The top k are the first k of a stable descending sort:
+    ``lax.top_k``'s order, the lowest expert first on a tie.  A row's slot
+    is its position among the rows routed to the same expert before it;
+    a row at or past ``cap`` is dropped (``keep`` false) and parked in the
+    dump slot ``cap``.  Nothing here synchronises with the host."""
+    t = xt.shape[0]
+    e, k = cfg.num_experts, cfg.top_k
+    logits = (xt @ p["router"]).float()  # (T, E) active experts
+    probs = torch.softmax(logits, dim=-1)
+    top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, idx = top[:, :k], order[:, :k]  # (T, k), idx < E <= E_pad
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+
+    onehot = F.one_hot(idx, e_pad).float()  # (T, k, E_pad), no gradient
+    f_e = onehot[..., :e].sum(dim=1).mean(dim=0)
+    p_e = probs.mean(dim=0)
+    aux = e * (f_e * p_e).sum() * cfg.router_aux_coef
+
+    flat_idx = idx.reshape(t * k)
+    flat_gate = gate_vals.reshape(t * k)
+    # the (T·k, E_pad) one-hot stored expert-major, so that the cumsum runs
+    # along contiguous rows (a scan down a column of T·k rows is one
+    # sequential pass a column on the card); integer-valued f32, exact
+    oh = onehot.reshape(t * k, e_pad).t().contiguous()
+    pos_in_e = oh.cumsum(dim=1) - oh  # exclusive: same-expert rows before
+    slot = (pos_in_e * oh).sum(dim=0).to(torch.int32)
+    keep = slot < cap
+    slot = torch.where(keep, slot, cap)  # overflow → dump slot
+    return flat_idx, slot, keep, flat_gate, aux
+
+
+def _expert_ffn(cfg, buf, w_gate, w_up, w_down):
+    """Every expert's SwiGLU over its (cap + 1) slots: batched products of
+    buf (E_pad, C, D) with the expert leaves."""
+    h = _act(cfg.act)(torch.bmm(buf, w_gate))
+    h = h * torch.bmm(buf, w_up)
+    return torch.bmm(h, w_down)
+
+
+def _moe_dense(p, cfg: ModelConfig, x):
+    """Capacity dispatch on one device: each (token, rank) row is written
+    to its expert's slot of an (E_pad, cap + 1, D) buffer, every expert
+    runs on its whole buffer, and each row's output is gathered back,
+    zeroed where capacity dropped it and weighted by its gate.  ``cap``
+    comes from the shapes alone (the reference's formula, Python's
+    ``round``).  x: (B, L, D) → (out, aux)."""
+    b, l, d = x.shape
+    e_pad, k = cfg.num_experts_padded, cfg.top_k
+    t = b * l
+    xt = x.reshape(t, d)
+    cap = int(max(k, round(t * k / e_pad * cfg.capacity_factor)))
+    flat_idx, slot, keep, flat_gate, aux = _route(p, cfg, xt, e_pad, cap)
+
+    src = xt.repeat_interleave(k, dim=0) if k > 1 else xt  # (T·k, D)
+    at = (flat_idx, slot.long())
+    buf = x.new_zeros((e_pad, cap + 1, d)).index_put(at, src.to(x.dtype))
+    out_buf = _expert_ffn(cfg, buf, p["w_gate"], p["w_up"], p["w_down"])
+
+    gathered = out_buf[at]  # (T·k, D)
+    # a select, not a product: an inf in the dump slot must not give NaN
+    gathered = torch.where(keep[:, None], gathered, 0.0)
+    combined = (gathered * flat_gate[:, None].to(gathered.dtype)) \
+        .reshape(t, k, d).sum(dim=1)
+    return combined.reshape(b, l, d), aux
+
+
+def moe(p, cfg: ModelConfig, x):
+    """x: (B, L, D) → (out, aux loss): the capacity dispatch, plus the
+    shared experts' MLP where the layer has one.  The reference's
+    expert-parallel ``_moe_ep`` (under a mesh) is not ported: this is its
+    one-device path."""
+    out, aux = _moe_dense(p, cfg, x)
+    if "shared" in p:
+        out = out + mlp(p["shared"], cfg, x)
+    return out, aux

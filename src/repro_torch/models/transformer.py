@@ -12,15 +12,20 @@ theta from ``cfg.layer_windows()``.
 Which stacks run where:
   * dense-cache serving (``init_model``, ``init_cache``, ``prefill``,
     ``decode_step``) takes attention, Mamba, mLSTM and sLSTM mixers with a
-    dense MLP or no FFN: the dense models, jamba without experts
-    (``num_experts=0``) and xLSTM.  A layer's cache is per mixer, as the
+    dense MLP, an MoE or no FFN: the dense and MoE models, jamba with or
+    without experts and xLSTM.  A layer's cache is per mixer, as the
     reference's: attention ``{"k", "v"}``, Mamba ``{"conv", "ssm"}``,
     mLSTM ``{"C", "n", "m"}``, sLSTM ``{"c", "n", "h", "m"}``, the
     recurrent leaves f32 whatever the cache dtype;
   * the training ``forward`` and the paged cache take attention-only
-    stacks (training the recurrent families is a later slice; recurrent
-    state lives per slot on the dense engine, as in the reference);
-  * MoE FFNs and encoder-decoder stacks raise everywhere: later slices.
+    stacks, MoE FFNs included (training the recurrent families is a later
+    slice; recurrent state lives per slot on the dense engine, as in the
+    reference);
+  * encoder-decoder stacks raise everywhere: a later slice.
+
+An MoE layer routes every token its step is given, pad rows and idle
+slots included, so capacity is shared over the same token set as in the
+reference and the same real tokens are dropped.
 
 The step functions expect parameters already in ``cfg.compute_dtype``
 (``cast_compute``): the reference casts on every call inside ``jit``, the
@@ -67,18 +72,16 @@ _RECURRENT = {
 
 def _check_stack(cfg: ModelConfig, attention_only=None):
     """The layer specs, if the port runs this stack: decoder-only, dense
-    MLP or no FFN, attention or recurrent mixers.  ``attention_only`` is
-    ``(entry point, hint)`` for an entry point that takes attention mixers
-    only."""
+    MLP, MoE or no FFN, attention or recurrent mixers.  ``attention_only``
+    is ``(entry point, hint)`` for an entry point that takes attention
+    mixers only."""
     specs, _ = cfg.superblock()
     if cfg.is_encoder_decoder:
         raise ValueError("the port serves decoder-only models; encoder-"
                          "decoder stacks are a later slice")
     for spec in specs:
-        if spec.ffn not in ("mlp", "none"):
-            raise ValueError(
-                f"the port runs dense MLP FFNs; got ffn {spec.ffn!r} (MoE "
-                f"is a later slice)")
+        if spec.ffn not in ("mlp", "moe", "none"):
+            raise ValueError(f"the port has no ffn {spec.ffn!r}")
         if spec.mixer != "attn" and spec.mixer not in _RECURRENT:
             raise ValueError(f"the port has no mixer {spec.mixer!r}")
         if spec.mixer != "attn" and attention_only:
@@ -117,7 +120,10 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
                                                            dev, lead)
         if spec.ffn != "none":
             p["ffn_norm"] = norm(lead + (cfg.d_model,))
-            p["mlp"] = L.init_mlp(gen, cfg, pdt, dev, lead)
+            if spec.ffn == "moe":
+                p["moe"] = L.init_moe(gen, cfg, pdt, dev, lead)
+            else:
+                p["mlp"] = L.init_mlp(gen, cfg, pdt, dev, lead)
         return p
 
     stack = {str(i): layer(spec) for i, spec in enumerate(specs)}
@@ -150,13 +156,13 @@ def cast_compute(params, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 def _run_stack(params, cfg: ModelConfig, h, attend, recur=None,
                remat: bool = False):
-    """The layer stack: pre-norm residual (mixer → MLP) layers, the
-    reference's ``_apply_layer`` per layer.  The reference's ``lax.scan``
-    over the repeat axis is a loop here.  ``remat=True`` runs each
-    super-block's body (one layer of a dense stack) under
-    ``torch.utils.checkpoint``, where the reference wraps its scan body in
-    ``jax.checkpoint``: its activations are recomputed in the backward
-    pass instead of kept, with the same values.
+    """The layer stack: pre-norm residual (mixer → MLP or MoE) layers, the
+    reference's ``_apply_layer`` per layer; returns (h, aux).  The
+    reference's ``lax.scan`` over the repeat axis is a loop here.
+    ``remat=True`` runs each super-block's body (one layer of a dense
+    stack) under ``torch.utils.checkpoint``, where the reference wraps its
+    scan body in ``jax.checkpoint``: its activations are recomputed in the
+    backward pass instead of kept, with the same values.
 
     ``attend(p_attn, x, window, theta, key, r)`` is the attention of layer
     ``key`` of super-block ``r`` (its window and RoPE theta from
@@ -165,7 +171,14 @@ def _run_stack(params, cfg: ModelConfig, h, attend, recur=None,
     ``recur(mixer, p_mixer, x, key, r)`` is a recurrent mixer (``"mamba"``,
     ``"mlstm"``, ``"slstm"``) with the layer's cache slice, for the
     entry points that run them.  A layer with ffn ``"none"`` (xLSTM) has
-    no MLP."""
+    no MLP.
+
+    ``aux`` sums, over the super-blocks, the MoE aux loss of each
+    super-block's LAST layer only (0 when that layer has no MoE), as the
+    reference's scan body does: it rebinds ``aux`` for every layer of the
+    super-block and adds the last binding.  For the uniform MoE stacks (a
+    super-block of one layer) that is every layer; for jamba's 8-layer
+    super-block it is layer 7's, and layers 1, 3 and 5 add nothing."""
     specs, repeat = cfg.superblock()
     windows, thetas = cfg.layer_windows()  # (repeat, S) numpy arrays
 
@@ -179,15 +192,23 @@ def _run_stack(params, cfg: ModelConfig, h, attend, recur=None,
                                float(thetas[r, i]), key, r)
             else:
                 h = h + recur(spec.mixer, p[spec.mixer], x, key, r)
+            aux = None  # the layer's aux: None where it has no MoE
             if spec.ffn != "none":
                 x = L.rms_norm(h, p["ffn_norm"], cfg.norm_eps)
-                h = h + L.mlp(p["mlp"], cfg, x)
-        return h
+                if spec.ffn == "moe":
+                    out, aux = L.moe(p["moe"], cfg, x)
+                else:
+                    out = L.mlp(p["mlp"], cfg, x)
+                h = h + out
+        return h, aux
 
+    aux_acc = torch.zeros((), dtype=torch.float32, device=h.device)
     for r in range(repeat):
-        h = (checkpoint(superblock, h, r, use_reentrant=False) if remat
-             else superblock(h, r))
-    return h
+        h, aux = (checkpoint(superblock, h, r, use_reentrant=False) if remat
+                  else superblock(h, r))
+        if aux is not None:
+            aux_acc = aux_acc + aux
+    return h, aux_acc
 
 
 def _logits(params, cfg, h):
@@ -211,7 +232,8 @@ def _embed(params, cfg, tokens):
 def forward(params, cfg: ModelConfig, tokens, positions=None,
             remat: bool = False):
     """Training forward pass over (B, L) tokens.  Returns (logits (B, L, V)
-    f32, aux loss); aux is 0 for the dense stacks ported so far.
+    f32, aux loss): the MoE router's load-balancing loss as ``_run_stack``
+    sums it, 0 for a dense stack.
     ``remat=True`` recomputes each super-block's activations in the
     backward pass (``_run_stack``)."""
     _check_stack(cfg, ("the training forward",
@@ -228,9 +250,8 @@ def forward(params, cfg: ModelConfig, tokens, positions=None,
         return L.attention(p, cfg, x, positions, window, theta,
                            static_window=static)
 
-    h = _run_stack(params, cfg, h, attend, remat=remat)
-    return _logits(params, cfg, h), torch.zeros((), dtype=torch.float32,
-                                                device=h.device)
+    h, aux = _run_stack(params, cfg, h, attend, remat=remat)
+    return _logits(params, cfg, h), aux
 
 
 # ---------------------------------------------------------------------------
@@ -265,8 +286,9 @@ def decode_step_paged(params, cfg: ModelConfig, token, pos, cache,
     logits row is garbage, which the caller masks); block_tables:
     (B, pages_per_seq) int32.  Returns logits (B, V) f32."""
     h = _embed(params, cfg, token.clamp_min(0)[:, None])
-    h = _run_stack(params, cfg, h, _paged(cfg, pos[:, None].to(torch.int32),
-                                          cache, block_tables))
+    h, _ = _run_stack(params, cfg, h, _paged(cfg,
+                                             pos[:, None].to(torch.int32),
+                                             cache, block_tables))
     return _logits(params, cfg, h)[:, 0]
 
 
@@ -277,8 +299,8 @@ def prefill_chunk_paged(params, cfg: ModelConfig, tokens, positions, cache,
     index of each row's last real token in the chunk.  Returns the
     next-token logits at ``last_idx``, (B, V) f32."""
     h = _embed(params, cfg, tokens.clamp_min(0))
-    h = _run_stack(params, cfg, h, _paged(cfg, positions.to(torch.int32),
-                                          cache, block_tables))
+    h, _ = _run_stack(params, cfg, h, _paged(cfg, positions.to(torch.int32),
+                                             cache, block_tables))
     rows = torch.arange(tokens.shape[0], device=h.device)
     hl = h[rows, last_idx.clamp_min(0).long()][:, None]
     return _logits(params, cfg, hl)[:, 0]
@@ -331,7 +353,7 @@ def prefill(params, cfg: ModelConfig, tokens, last_only=False):
         collected.setdefault(key, []).append(state)
         return out
 
-    h = _run_stack(params, cfg, h, attend, recur)
+    h, _ = _run_stack(params, cfg, h, attend, recur)
     if last_only:
         h = h[:, -1:]
     cache = {key: {name: torch.stack([c[name] for c in per_r])
@@ -374,5 +396,5 @@ def decode_step(params, cfg: ModelConfig, token, pos, cache):
         return _RECURRENT[mixer]["layer"](p, cfg, x,
                                           cache=_index(cache[key], r))[0]
 
-    h = _run_stack(params, cfg, h, attend, recur)
+    h, _ = _run_stack(params, cfg, h, attend, recur)
     return _logits(params, cfg, h)[:, 0]

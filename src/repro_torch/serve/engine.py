@@ -15,10 +15,14 @@ Differences from the reference:
     kernel; on ``"cpu"`` their plain PyTorch versions.  int8 pools take the
     gather path on either device, as in the reference.
   * ``DecodeEngine`` and ``greedy_generate`` take decoder-only stacks:
-    attention and the recurrent families (jamba's Mamba layers without
-    experts, xLSTM); encoder-decoder ``memory`` and MoE FFNs come with
-    those model families (``_check_stack`` raises).  On ``"cuda"`` the
-    prefill's Mamba scans run the CUDA ``mamba_scan`` kernel.
+    attention and the recurrent families (jamba's Mamba layers, with or
+    without experts, xLSTM), with dense MLP or MoE FFNs;
+    ``PagedDecodeEngine`` takes the attention stacks, MoE included.
+    Encoder-decoder ``memory`` comes with that model family
+    (``_check_stack`` raises).  On ``"cuda"`` the prefill's Mamba scans
+    run the CUDA ``mamba_scan`` kernel.  An MoE step routes every row it
+    is given, pads and idle slots included, so capacity drops what the
+    reference's step drops.
   * parameters are cast to ``cfg.compute_dtype`` once, here, instead of on
     every step;
   * the caches are updated in place;

@@ -341,18 +341,22 @@ def test_dense_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_dense_engine_rejects_recurrent_stacks():
-    """The recurrent stacks the dense engine does not serve yet: jamba
-    with its experts (MoE FFNs) and a hybrid encoder-decoder stack.  Jamba
-    without experts and xLSTM are served (tests/test_torch_ssm.py)."""
+    """The dense engine serves jamba ``.reduced()`` with its experts (MoE
+    FFNs inside the hybrid Mamba stack: tokens against JAX in
+    tests/test_torch_moe.py) and still rejects a hybrid encoder-decoder
+    stack."""
     from repro_torch.configs import get_config
 
-    _, tcfg = tiny_cfgs("qwen2-1.5b")
-    params = TT.init_model(torch.Generator().manual_seed(0), tcfg, "cpu")
-    jamba = get_config("jamba-1.5-large-398b").reduced()
+    jamba = dataclasses.replace(get_config("jamba-1.5-large-398b").reduced(),
+                                d_model=64, vocab_size=64)
     assert jamba.num_experts and jamba.family == "hybrid"
-    with pytest.raises(ValueError, match="MoE is a later slice"):
-        TE.DecodeEngine(params, jamba, batch_slots=1, max_seq=8,
-                        device="cpu")
+    params = TT.init_model(torch.Generator().manual_seed(0), jamba, "cpu")
+    eng = TE.DecodeEngine(params, jamba, batch_slots=1, max_seq=8,
+                          device="cpu")
+    eng.submit(TE.Request(rid=0, prompt=np.arange(1, 4, dtype=np.int32),
+                          max_new_tokens=2))
+    (done,) = eng.run()
+    assert done.done and len(done.generated) == 2
     enc_dec = dataclasses.replace(jamba, num_experts=0,
                                   is_encoder_decoder=True)
     with pytest.raises(ValueError, match="encoder-decoder"):

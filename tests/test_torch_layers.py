@@ -28,23 +28,30 @@ pytestmark = pytest.mark.torch
 
 ARCHS = ["qwen2-1.5b", "gemma3-1b"]
 # qwen2 keeps KV=2 so the grouped (kv, g) query order is exercised; gemma3
-# brings qk-norm, the sliding window (16 once reduced) and two rope thetas
+# brings qk-norm, the sliding window (16 once reduced) and two rope thetas;
+# the MoE cuts keep their routing shape at a small width: granite 8 experts
+# top 4 with GQA, qwen2-moe 6 experts padded to 8, top 2, one shared
+# expert, MHA with qkv bias
 TINY = {"qwen2-1.5b": dict(num_heads=4, num_kv_heads=2),
-        "gemma3-1b": dict(num_heads=2, num_kv_heads=1)}
+        "gemma3-1b": dict(num_heads=2, num_kv_heads=1),
+        "granite-moe-1b-a400m": dict(num_heads=4, num_kv_heads=2,
+                                     moe_d_ff=32, num_experts=8, top_k=4),
+        "qwen2-moe-a2.7b": dict(num_heads=4, num_kv_heads=4, moe_d_ff=32,
+                                num_experts=6, expert_pad_to=8, top_k=2)}
 
 
 def tiny_cfgs(arch, **over):
     """(JAX config, port config) of one tiny layout: 2 layers, d_model 64,
     vocab 64, as the JAX package's own serving tests."""
-    kw = dict(num_layers=2, d_model=64, head_dim=32, d_ff=128, vocab_size=64,
-              **TINY[arch], **over)
+    kw = {**dict(num_layers=2, d_model=64, head_dim=32, d_ff=128,
+                 vocab_size=64), **TINY[arch], **over}
     return (dataclasses.replace(jax_config(arch).reduced(), **kw),
             dataclasses.replace(torch_config(arch).reduced(), **kw))
 
 
 def np_params(cfg, seed=0):
     """Seeded numpy parameters in ``init_model``'s tree layout, the
-    recurrent mixers' leaves included."""
+    recurrent mixers' and the MoE layers' leaves included."""
     shapes = jax.eval_shape(lambda k: JT.init_model(k, cfg),
                             jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
@@ -72,8 +79,12 @@ def np_params(cfg, seed=0):
         elif name == "R":
             a = rng.standard_normal(shape) / np.sqrt(shape[2])
         else:  # stacked leaves lead with the repeat axis
+            # the experts (R, E_pad, D, F) and (R, E_pad, F, D) by D and F
+            expert = (len(path) > 1 and path[-2].key == "moe"
+                      and name != "router")
             fan_in = (shape[-1] if name == "embed" else
-                      shape[1] * shape[2] if name == "wo" else shape[1])
+                      shape[1] * shape[2] if name == "wo" else
+                      shape[2] if expert else shape[1])
             a = rng.standard_normal(shape) / np.sqrt(fan_in)
         return a.astype(np.float32)
 

@@ -104,14 +104,18 @@ def test_build_targets_sm90a_and_every_source():
 
 @pytest.mark.parametrize("name", ["qwen2-1.5b", "gemma3-1b", "qwen2.5-14b",
                                   "jamba-1.5-large-398b", "xlstm-125m",
-                                  "deepseek-67b"])
+                                  "deepseek-67b", "granite-moe-1b-a400m",
+                                  "qwen2-moe-a2.7b"])
 def test_configs_copy_the_reference_field_for_field(name):
     ours, ref = get_config(name), jax_config(name)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
     assert dataclasses.asdict(ours.reduced()) \
         == dataclasses.asdict(ref.reduced())
     assert ours.param_count() == ref.param_count()
+    assert ours.active_param_count() == ref.active_param_count()
     assert ours.resolved_head_dim == ref.resolved_head_dim
+    assert ours.expert_d_ff == ref.expert_d_ff
+    assert ours.num_experts_padded == ref.num_experts_padded
     for cfg_o, cfg_r in ((ours, ref), (ours.reduced(), ref.reduced())):
         (specs_o, rep_o), (specs_r, rep_r) = (cfg_o.superblock(),
                                               cfg_r.superblock())
@@ -122,10 +126,29 @@ def test_configs_copy_the_reference_field_for_field(name):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("member", ["expert_d_ff", "num_experts_padded",
+                                    "superblock", "layer_windows", "reduced",
+                                    "param_count", "active_param_count"])
+def test_config_members_are_the_reference_source(member):
+    """The copied ``ModelConfig``'s MoE sizing and stack layout are the
+    reference's code, byte for byte."""
+    import inspect
+
+    from repro.configs.base import ModelConfig as JaxModelConfig
+    from repro_torch.configs.base import ModelConfig
+
+    def source(cls):
+        m = getattr(cls, member)
+        return inspect.getsource(m.fget if isinstance(m, property) else m)
+
+    assert source(ModelConfig) == source(JaxModelConfig)
+
+
 def test_config_registry_and_dtype_check():
     assert list_configs() == ["deepseek-67b", "gemma3-1b",
-                              "jamba-1.5-large-398b", "qwen2-1.5b",
-                              "qwen2.5-14b", "xlstm-125m"]
+                              "granite-moe-1b-a400m", "jamba-1.5-large-398b",
+                              "qwen2-1.5b", "qwen2-moe-a2.7b", "qwen2.5-14b",
+                              "xlstm-125m"]
     with pytest.raises(KeyError):
         get_config("llama-7b")
     with pytest.raises(ValueError, match="supported precision"):
