@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paged serving, dense serving (attention and
-recurrent models) and data-parallel training paths on one CUDA card.
+"""Drive the PyTorch port's paged serving, dense serving (attention,
+recurrent, MoE, encoder-decoder and vision models) and data-parallel
+training paths on one CUDA card.
 
     python3 chip_smoke.py [--mamba-before PATH]
 
@@ -80,7 +81,21 @@ then drives the main paths through their entry points:
     4 layers, W = 4 (``train_moe``: 1-bit, fused Adam, the share of rows
     capacity dropped in step 0); and in f32 the card against the CPU on
     2-layer cuts of both and on jamba ``.reduced()`` with its experts:
-    logits, each MoE layer's routing, tokens (``moe_card_vs_cpu``).
+    logits, each MoE layer's routing, tokens (``moe_card_vs_cpu``);
+  * the encoder-decoder and vision families at full width and depth in
+    bf16: seamless-m4t-medium's ``encode`` (one non-causal flash launch an
+    encoder layer over 3072 frames) and ``greedy_generate(memory=...)``
+    (each cross attention one flash launch, Lq != Lk), a decode step's
+    device time split into the memory's k/v projection, cross attention,
+    self attention, MLP, head and the rest (``greedy_seamless``), and
+    ``DecodeEngine`` with 8 slots over 8 memory rows
+    (``dense_serve_seamless``); pixtral-12b's prefill from 1024 patch
+    embeddings and 256 text tokens' rows, then greedy decode beside the
+    floor of reading every weight once (``greedy_pixtral``); and in f32
+    the card against the CPU on a seamless cut (d_model 256, 2 + 2 layers,
+    300 frames) and pixtral ``.reduced()``: ``encode``, logits, tokens, a
+    4-slot ``DecodeEngine`` against ``greedy_generate`` row by row, the
+    loss and every leaf's gradient (``encdec_card_vs_cpu``).
 
 Each kernel's launches are counted from zero over the paths that run it,
 and each is timed against its bound, its plain version and one PyTorch
@@ -99,7 +114,8 @@ MUFU.EX2); ``--mamba-before PATH`` builds an earlier design's
 ``mamba_scan.cu`` beside it and times both in the same run
 (``ms_before``).  Each line of output is a JSON object, except the raw
 ``nvidia-smi --query-gpu=name,power.limit`` line just before the last;
-the last line is ``{"ok": true, "device": {...}}``.  Any failed phase
+every JSON line but the last carries ``phase_s``, the wall seconds since
+the line before it; the last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises and the script exits non-zero without that line.  It needs one
 card and exits non-zero when ``torch.cuda.is_available()`` is false.
 """
@@ -131,7 +147,16 @@ F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, data sheet
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
-def emit(obj):
+_LAST_LINE = [time.perf_counter()]
+
+
+def emit(obj, phase_s=True):
+    """Print ``obj`` as one JSON line; with ``phase_s``, add the wall
+    seconds since the previous line (the phase that emits it)."""
+    now = time.perf_counter()
+    if phase_s:
+        obj = {**obj, "phase_s": now - _LAST_LINE[0]}
+    _LAST_LINE[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -636,15 +661,17 @@ def time_kernel(pa, launches_per_step, smi):
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 dense tensor-core peak, data sheet
 
 
-def flash_inputs(rng, b, h, kv, l, d, dtype, model_layout):
-    """q (B, H, L, D) and k, v (B, KV, L, D) on the card, seeded numpy.
-    With ``model_layout`` they are (B, L, H, D) tensors transposed, the
-    strided views the prefill passes; else contiguous."""
-    def dev(heads):
-        a = rng.standard_normal((b, l, heads, d), dtype=np.float32)
+def flash_inputs(rng, b, h, kv, l, d, dtype, model_layout, lk=None):
+    """q (B, H, L, D) and k, v (B, KV, Lk, D) on the card, seeded numpy;
+    Lk = L unless ``lk`` is given (cross attention).  With
+    ``model_layout`` they are (B, L, H, D) tensors transposed, the strided
+    views the prefill passes; else contiguous."""
+    def dev(heads, n):
+        a = rng.standard_normal((b, n, heads, d), dtype=np.float32)
         t = torch.from_numpy(a).to("cuda").to(dtype).transpose(1, 2)
         return t if model_layout else t.contiguous()
-    return dev(h), dev(kv), dev(kv)
+    lk = l if lk is None else lk
+    return dev(h, l), dev(kv, lk), dev(kv, lk)
 
 
 FLASH_VARIANTS = [  # (causal, window, H / KV)
@@ -665,6 +692,25 @@ FLASH_PATH_SHAPES = [
 # the MoE head layouts at L 2048 as well (qwen2-moe's prefill is 1024)
 FLASH_MOE_CHECKS = [("granite-moe-1b-a400m", 16, 8, 2048, 64, -1),
                     ("qwen2-moe-a2.7b", 16, 16, 2048, 128, -1)]
+
+# the encoder-decoder and vision paths: (name, B, H, KV, Lq, Lk, Dh,
+# causal), no window, the model's (B, L, H, Dh) tensors transposed:
+# seamless-m4t-medium's encoder layers and cross attention (a prefill's
+# Lq 256, a decode step's Lq 1 at B 1 and at the engine's 8 slots, and a
+# tail q tile of 37 rows), a GQA cross case with a ragged Lk, and
+# pixtral-12b's causal prefill (the greedy_pixtral phase's L 1280)
+FLASH_ENCDEC_SHAPES = [
+    ("seamless-m4t-medium encoder", 1, 16, 16, 3072, 3072, 64, False),
+    ("seamless-m4t-medium cross Lq 1", 1, 16, 16, 1, 3072, 64, False),
+    ("seamless-m4t-medium cross Lq 37", 1, 16, 16, 37, 3072, 64, False),
+    ("seamless-m4t-medium cross Lq 256", 1, 16, 16, 256, 3072, 64, False),
+    ("seamless-m4t-medium cross B 8 Lq 1", 8, 16, 16, 1, 3072, 64, False),
+    ("GQA cross Lq 37 Lk 300", 2, 32, 8, 37, 300, 128, False),
+    ("pixtral-12b L 2048", 1, 32, 8, 2048, 2048, 128, True),
+    ("pixtral-12b", 1, 32, 8, 1280, 1280, 128, True)]
+FLASH_ENCDEC_TIMED = ("seamless-m4t-medium encoder",
+                      "seamless-m4t-medium cross Lq 256",
+                      "seamless-m4t-medium cross B 8 Lq 1", "pixtral-12b")
 
 
 def flash_err(fl, q, k, v, causal, window, what):
@@ -689,8 +735,9 @@ def check_flash(fl):
     bf16; L 1, 37, 128, 300, 2048; Dh 64, 128, 256; causal and not; windows
     -1, 32, 100, 512; GQA groups 1, 4, 5, 6; model-layout views and
     contiguous tensors in turn; then every shape the greedy_* prefills
-    launch (FLASH_PATH_SHAPES) and the MoE layouts at L 2048
-    (FLASH_MOE_CHECKS) in both dtypes."""
+    launch (FLASH_PATH_SHAPES), the MoE layouts at L 2048
+    (FLASH_MOE_CHECKS) and the encoder-decoder and vision shapes, non-causal
+    with Lq != Lk among them (FLASH_ENCDEC_SHAPES), in both dtypes."""
     worst, path, cases = {}, {}, 0
     for dt in (torch.float32, torch.bfloat16):
         for l in (1, 37, 128, 300, 2048):
@@ -715,6 +762,15 @@ def check_flash(fl):
                 f"window={w}")
             cases += 1
             del q, k, v
+        for si, (name, b, h, kv, lq, lk, d, causal) in enumerate(
+                FLASH_ENCDEC_SHAPES):
+            q, k, v = flash_inputs(np.random.default_rng(177 + si), b, h, kv,
+                                   lq, d, dt, model_layout=True, lk=lk)
+            path[f"{str(dt)[6:]} {name}"] = flash_err(
+                fl, q, k, v, causal, -1, f"{name} B={b} H={h} KV={kv} "
+                f"Lq={lq} Lk={lk} D={d} causal={causal}")
+            cases += 1
+            del q, k, v
     torch.cuda.empty_cache()
     errs = {**worst, **path}
     f32 = max(e for k, e in errs.items() if k.startswith("float32"))
@@ -726,6 +782,7 @@ def check_flash(fl):
             "max_abs_err_per_dtype_L_D": worst,
             "path_shapes": [list(x) for x in FLASH_PATH_SHAPES
                             + FLASH_MOE_CHECKS],
+            "encdec_shapes": [list(x) for x in FLASH_ENCDEC_SHAPES],
             "max_abs_err_path_shapes": path}
 
 
@@ -899,15 +956,21 @@ def greedy(kernels, T, E, cfg, smi, *, phase, prompt_len, new, seed,
             **extra, "card": smi}
 
 
-def dense_serve(T, E, cfg, smi, phase="dense_serve"):
-    """``DecodeEngine``: 8 slots, max_seq 512, 16 requests of 32-160 prompt
-    tokens (ingested one per step) and 16-48 new tokens."""
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    params = T.init_model(gen, cfg, device="cuda")
+def dense_serve(T, E, cfg, smi, phase="dense_serve", params=None,
+                memory=None, prompt=(32, 160), new=(16, 48), flash=None):
+    """``DecodeEngine``: 8 slots, max_seq 512, 16 requests of ``prompt``
+    tokens (ingested one per step) and ``new`` new tokens; ``params``
+    made from seed 3 unless given.  An encoder-decoder model's ``memory``
+    (8, S, D) goes to the engine, and then ``flash``, the kernel's
+    wrapper, is counted from zero over the run and gated at one launch a
+    decoder layer a step."""
+    if params is None:
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        params = T.init_model(gen, cfg, device="cuda")
     eng = E.DecodeEngine(params, cfg, batch_slots=8, max_seq=512,
-                         device="cuda")
+                         device="cuda", memory=memory)
     del params
-    reqs = requests(E.Request, np.random.default_rng(3), 16, 32, 160, 16, 48,
+    reqs = requests(E.Request, np.random.default_rng(3), 16, *prompt, *new,
                     cfg.vocab_size)
     steps = []
     decode = eng._decode
@@ -925,9 +988,19 @@ def dense_serve(T, E, cfg, smi, phase="dense_serve"):
         eng.submit(r)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    if flash is not None:
+        flash.launches = 0
     t0 = time.perf_counter()
     done = eng.run()
     wall = time.perf_counter() - t0
+    launches = {}
+    if flash is not None:
+        launches = {"flash_launches": flash.launches,
+                    "flash_launches_expected": cfg.num_layers * eng.steps}
+        if flash.launches != cfg.num_layers * eng.steps:
+            raise AssertionError(f"{phase}: flash launches {flash.launches}, "
+                                 f"expected {cfg.num_layers} a step x "
+                                 f"{eng.steps} steps")
     if len(done) != len(reqs):
         raise AssertionError(f"{len(done)} of {len(reqs)} requests finished")
     for r in done:
@@ -942,7 +1015,7 @@ def dense_serve(T, E, cfg, smi, phase="dense_serve"):
     prompt_toks = sum(len(r.prompt) for r in done)
     out = {"phase": phase, "arch": cfg.name,
            "layers": cfg.num_layers, "dtype": cfg.compute_dtype,
-           "slots": 8, "max_seq": 512, "requests": len(reqs),
+           "slots": 8, "max_seq": 512, "requests": len(reqs), **launches,
            "prompt_tokens": prompt_toks, "generated_tokens": gen_toks,
            "steps": eng.steps, "step_ms_median": 1e3 * statistics.median(steps),
            "decode_tok_per_s": gen_toks / sum(steps),
@@ -1004,43 +1077,59 @@ def dense_card_vs_cpu(T, E, get_config):
 
 def time_flash(fl, launches, smi):
     """The kernel, its plain version and F.scaled_dot_product_attention on
-    the prefill's tensors (model-layout views, bf16, B 1) at every shape
-    the greedy_* prefills launch; the kernel's output is held against the
-    plain version's on the same tensors.  L2 flushed before each launch."""
+    the prefill's tensors (model-layout views, bf16) at every shape the
+    greedy_* prefills launch (B 1, causal) and at the encoder-decoder and
+    vision shapes of FLASH_ENCDEC_TIMED; the kernel's output is held
+    against the plain version's on the same tensors.  L2 flushed before
+    each launch."""
     flush = l2_flush()
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
     saved = fl.flash_attention.launches
-    for name, h, kv, l, d, w in FLASH_PATH_SHAPES:
-        q, k, v = flash_inputs(np.random.default_rng(h + d + l), 1, h, kv, l,
-                               d, torch.bfloat16, model_layout=True)
-        ms = cuda_ms(lambda: fl.flash_attention(q, k, v, window=w), 30, flush)
-        plain = cuda_ms(lambda: fl.flash_attention_plain(q, k, v, window=w),
-                        5, flush)
-        err = flash_err(fl, q, k, v, True, w, f"{name} (time_flash)")
+    shapes = [(name, 1, h, kv, l, l, d, w, True)
+              for name, h, kv, l, d, w in FLASH_PATH_SHAPES] + [
+        (name, b, h, kv, lq, lk, d, -1, causal)
+        for name, b, h, kv, lq, lk, d, causal in FLASH_ENCDEC_SHAPES
+        if name in FLASH_ENCDEC_TIMED]
+    for name, b, h, kv, l, lk, d, w, causal in shapes:
+        q, k, v = flash_inputs(np.random.default_rng(h + d + l), b, h, kv, l,
+                               d, torch.bfloat16, model_layout=True, lk=lk)
+
+        def kernel():
+            return fl.flash_attention(q, k, v, causal=causal, window=w)
+
+        ms = cuda_ms(kernel, 30, flush)
+        plain = cuda_ms(lambda: fl.flash_attention_plain(
+            q, k, v, causal=causal, window=w), 5, flush)
+        err = flash_err(fl, q, k, v, causal, w, f"{name} (time_flash)")
         if w > 0:
             i = torch.arange(l, device="cuda")
             mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < w)
             kw = {"attn_mask": mask}
             note = "SDPA with enable_gqa and an explicit window mask"
-        else:
+        elif causal:
             kw = {"is_causal": True}
             note = "SDPA with enable_gqa, is_causal"
+        else:
+            kw = {"is_causal": False}
+            note = "SDPA with enable_gqa, is_causal=False"
         lib = cuda_ms(lambda: sdpa(q, k, v, enable_gqa=True, **kw), 30, flush)
         lib_out = sdpa(q, k, v, enable_gqa=True, **kw)
-        lib_err = (lib_out.float() - fl.flash_attention(q, k, v, window=w)
-                   .float()).abs().max().item()
+        lib_err = (lib_out.float() - kernel().float()).abs().max().item()
         # the pairs (i, j) the mask keeps, each 4 * D flops (QK and PV)
-        ww = l if w <= 0 else w
-        pairs = l * ww - ww * (ww - 1) // 2
-        flops = 4 * d * pairs * h
-        nbytes = 2 * (2 * h + 2 * kv) * l * d  # q, out, k, v once, bf16
+        if causal:
+            ww = l if w <= 0 else w
+            pairs = l * ww - ww * (ww - 1) // 2
+        else:
+            pairs = l * lk
+        flops = 4 * d * pairs * h * b
+        nbytes = 2 * b * (2 * h * l + 2 * kv * lk) * d  # q, out, k, v, bf16
         b_ms, o_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / \
             BF16_OPS_PER_S
         out[name] = {
-            "shape": {"B": 1, "L": l, "H": h, "KV": kv, "Dh": d,
-                      "window": w, "causal": True, "dtype": "bfloat16"},
+            "shape": {"B": b, "L": l, "Lk": lk, "H": h, "KV": kv, "Dh": d,
+                      "window": w, "causal": causal, "dtype": "bfloat16"},
             "ms": ms, "plain_ms": plain, "max_abs_err_vs_plain": err,
             "tol": TOL[torch.bfloat16], "library_ms": lib,
             "library_note": note + "; never called by the port",
@@ -3871,44 +3960,34 @@ def moe_split(prof):
     return split, kernels
 
 
-def moe_decode_profile(T, L, params, cfg, prompt, steps=4):
-    """Dense-cache decode steps (batch 1) after a prefill of ``prompt``:
-    ``steps`` timed plain, then one under torch.profiler with ``L.moe``,
-    ``_moe_dense``, ``_route`` and ``_expert_ffn`` wrapped in named ranges,
-    its device time split by ``moe_split``.  The floor is
-    ``decode_floor``'s."""
-    lp = len(prompt)
+def _ranged(label, fn):
+    def run(*args, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kw)
+    return run
+
+
+def split_decode_profile(params, cfg, step, ranges, split, steps=4):
+    """Dense-cache decode steps: ``step(i)`` runs step i (step 0 a
+    warm-up), steps 1 .. ``steps`` - 1 timed plain, then one more under
+    torch.profiler with each ``(module, attribute, label)`` of ``ranges``
+    wrapped in a range named ``label``; ``split(prof)`` divides its device
+    time by those ranges.  Beside the floor of reading every weight once
+    (``decode_floor``)."""
+    labels = {label for *_, label in ranges}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
     with torch.no_grad():
-        logits, cache = T.prefill(params, cfg, torch.from_numpy(prompt)[None]
-                                  .to("cuda"), last_only=True)
-        cache = T.pad_prefill_cache(cfg, cache, lp + steps + 1)
-        tok = logits[:, -1].argmax(-1)
-
-        def step(i):
-            T.decode_step(params, cfg, tok, lp + i, cache)
-
-        step(0)  # warm-up
+        step(0)
         torch.cuda.synchronize()
         t = time.perf_counter()
         for i in range(1, steps):
             step(i)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t) / (steps - 1)
-
-        ranges = {"moe": "moe:layer", "_moe_dense": "moe:dense",
-                  "_route": "moe:router", "_expert_ffn": "moe:experts"}
-        saved = {n: getattr(L, n) for n in ranges}
-
-        def ranged(label, fn):
-            def run(*args, **kw):
-                with torch.profiler.record_function(label):
-                    return fn(*args, **kw)
-            return run
-
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        for n, label in ranges.items():
-            setattr(L, n, ranged(label, saved[n]))
+        saved = [(m, n, getattr(m, n)) for m, n, _ in ranges]
+        for m, n, label in ranges:
+            setattr(m, n, _ranged(label, getattr(m, n)))
         try:
             with torch.profiler.profile(activities=acts) as prof:
                 torch.cuda.synchronize()
@@ -3917,31 +3996,51 @@ def moe_decode_profile(T, L, params, cfg, prompt, steps=4):
                 torch.cuda.synchronize()
                 prof_ms = 1e3 * (time.perf_counter() - t)
         finally:
-            for n, fn in saved.items():
-                setattr(L, n, fn)
-    del cache
+            for m, n, fn in saved:
+                setattr(m, n, fn)
     # the device kernels, not the ranges' own device-side spans
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.key.startswith("moe:")]
+              and e.key not in labels]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
-    split, kernels = moe_split(prof)
+    flash = [e for e in events if "flash_attention_kernel" in e.key]
+    by_range, kernels = split(prof)
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:6]
     floor = decode_floor(params, cfg)
-    return {"moe_decode_profile": {
-        "batch": 1, "ctx": lp, "step_ms": wall_ms,
-        "step_ms_under_profiler": prof_ms,
-        "device_ms_per_step": dev_ms,
-        "device_busy_share": dev_ms / wall_ms if dev_ms else None,
-        "device_kernels_per_step": sum(e.count for e in events),
-        "kernels_attributed": kernels,
-        "device_ms_split": split,
-        "device_ms_attributed": sum(split.values()),
-        **floor,
-        "step_over_floor": wall_ms / floor["floor_ms_per_step"],
-        "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
-                          for e in top}}}
+    return {"step_ms": wall_ms, "step_ms_under_profiler": prof_ms,
+            "device_ms_per_step": dev_ms,
+            "device_busy_share": dev_ms / wall_ms if dev_ms else None,
+            "device_kernels_per_step": sum(e.count for e in events),
+            "flash_kernels_per_step": sum(e.count for e in flash),
+            "flash_ms_per_step": sum(e.self_device_time_total
+                                     for e in flash) / 1e3,
+            "kernels_attributed": kernels, "device_ms_split": by_range,
+            "device_ms_attributed": sum(by_range.values()), **floor,
+            "step_over_floor": wall_ms / floor["floor_ms_per_step"],
+            "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                              for e in top}}
+
+
+def moe_decode_profile(T, L, params, cfg, prompt, steps=4):
+    """Dense-cache decode steps (batch 1) after a prefill of ``prompt``,
+    profiled by ``split_decode_profile`` with ``L.moe``, ``_moe_dense``,
+    ``_route`` and ``_expert_ffn`` wrapped in named ranges, the device
+    time split by ``moe_split``."""
+    lp = len(prompt)
+    with torch.no_grad():
+        logits, cache = T.prefill(params, cfg, torch.from_numpy(prompt)[None]
+                                  .to("cuda"), last_only=True)
+        cache = T.pad_prefill_cache(cfg, cache, lp + steps + 1)
+        tok = logits[:, -1].argmax(-1)
+
+    def step(i):
+        T.decode_step(params, cfg, tok, lp + i, cache)
+
+    ranges = ((L, "moe", "moe:layer"), (L, "_moe_dense", "moe:dense"),
+              (L, "_route", "moe:router"), (L, "_expert_ffn", "moe:experts"))
+    out = split_decode_profile(params, cfg, step, ranges, moe_split, steps)
+    return {"moe_decode_profile": {"batch": 1, "ctx": lp, **out}}
 
 
 def greedy_granite_moe(kernels, T, E, L, cfg, smi):
@@ -4253,6 +4352,471 @@ def moe_card_vs_cpu(T, E, L, get_config, kernels):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# the encoder-decoder and vision families: seamless-m4t-medium, pixtral-12b
+# ---------------------------------------------------------------------------
+ENCDEC_SPLIT = ("memory_kv_projection", "cross_attention", "self_attention",
+                "mlp", "head", "rest")
+
+
+def decode_split(prof):
+    """Device time of one profiled decode step by where each kernel was
+    launched (the ranges ``split_decode_profile`` wraps around the layers'
+    functions): ``_qkv`` inside ``cross_attention`` (the memory's k and v
+    projections, with the step's one-row q projection), the rest of
+    ``cross_attention`` (the flash kernel, the layout copies, ``wo``),
+    ``attention_decode`` (self attention with its cache write), ``mlp``,
+    ``_logits`` (final norm and head) and everything else (embedding,
+    norms, residual adds)."""
+    split = dict.fromkeys(ENCDEC_SPLIT, 0.0)
+    kernels = 0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU or not ev.kernels:
+            continue
+        names, a = set(), ev
+        while a is not None:
+            names.add(a.name)
+            a = a.cpu_parent
+        if "ed:cross" in names:
+            key = ("memory_kv_projection" if "ed:qkv" in names
+                   else "cross_attention")
+        elif "ed:self" in names:
+            key = "self_attention"
+        elif "ed:mlp" in names:
+            key = "mlp"
+        elif "ed:head" in names:
+            key = "head"
+        else:
+            key = "rest"
+        split[key] += sum(k.duration for k in ev.kernels) / 1e3
+        kernels += len(ev.kernels)
+    return split, kernels
+
+
+# the ranges of an encoder-decoder or decoder decode step, for decode_split
+DECODE_RANGES = (("cross_attention", "ed:cross"), ("_qkv", "ed:qkv"),
+                 ("attention_decode", "ed:self"), ("mlp", "ed:mlp"))
+
+
+def encdec_decode_profile(T, L, params, cfg, step):
+    """``split_decode_profile`` of ``step`` split by ``decode_split``: the
+    layers' functions and ``T._logits`` in named ranges.  The flash
+    kernel, launched through ctypes, is tied to no op of the trace: its
+    device time is added to ``cross_attention``, the one place a decode
+    step launches it."""
+    ranges = tuple((L, n, label) for n, label in DECODE_RANGES) \
+        + ((T, "_logits", "ed:head"),)
+    out = split_decode_profile(params, cfg, step, ranges, decode_split)
+    out["device_ms_split"]["cross_attention"] += out["flash_ms_per_step"]
+    out["device_ms_attributed"] += out["flash_ms_per_step"]
+    return out
+
+
+SEAMLESS_PROMPT, SEAMLESS_NEW = 256, 64
+
+
+def seamless(fl, T, E, L, cfg, smi):
+    """seamless-m4t-medium at full width and depth in bf16, its source
+    frames a seeded (1, 3072, 1024) × 0.02 (the reference's stub for the
+    audio frontend): ``encode`` (one non-causal flash launch an encoder
+    layer), then ``greedy_generate(memory=...)`` on a 256-token prompt
+    with 64 new tokens (a prefill of one causal and one cross launch a
+    decoder layer, Lq 256 against Lk 3072, then one cross launch a layer a
+    decode step, Lq 1) with a profiled decode step split by
+    ``decode_split`` (``greedy_seamless``); then ``DecodeEngine`` with 8
+    slots over the memory of 8 seeded source rows, 16 requests
+    (``dense_serve_seamless``).  The parameters are freed at the end."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = T.init_model(torch.Generator(device="cuda").manual_seed(23),
+                          cfg, device="cuda")
+    rng = np.random.default_rng(23)
+    s_enc, d, v = cfg.encoder_seq_len, cfg.d_model, cfg.vocab_size
+    n_enc, n_dec = cfg.num_encoder_layers, cfg.num_layers
+    src = torch.from_numpy(0.02 * rng.standard_normal(
+        (1, s_enc, d), dtype=np.float32)).to("cuda")
+    prompt = rng.integers(0, v, SEAMLESS_PROMPT).astype(np.int32)
+    lp, new = SEAMLESS_PROMPT, SEAMLESS_NEW
+    with torch.no_grad():  # the allocator's growth and the GEMM heuristics
+        memory = T.encode(params, cfg, embeds=src)
+        t = time.perf_counter()
+        E.greedy_generate(params, cfg, prompt, 2, device="cuda",
+                          memory=memory)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t
+    del memory
+    rec, undo = timed_calls(T, ("prefill", "decode_step"))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fl.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            memory = T.encode(params, cfg, embeds=src)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        enc_launches = fl.flash_attention.launches
+        toks = E.greedy_generate(params, cfg, prompt, new, device="cuda",
+                                 memory=memory)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fl.flash_attention.launches
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated()
+    want = n_enc + 2 * n_dec + n_dec * (new - 1)
+    if enc_launches != n_enc or launches != want:
+        raise AssertionError(f"greedy_seamless: flash launches {enc_launches}"
+                             f" encode, {launches} in all; expected {n_enc}, "
+                             f"{want}")
+    if tuple(memory.shape) != (1, s_enc, d) or memory.dtype != torch.bfloat16 \
+            or not torch.isfinite(memory).all():
+        raise AssertionError(f"greedy_seamless: memory {memory.dtype}"
+                             f"{tuple(memory.shape)} not finite")
+    (pf_s, (logits, cache)), = rec["prefill"]
+    if tuple(logits.shape) != (1, 1, v) or not torch.isfinite(logits).all():
+        raise AssertionError("greedy_seamless: prefill logits "
+                             f"{tuple(logits.shape)} not finite")
+    if len(toks) != new or not all(0 <= x < v for x in toks):
+        raise AssertionError(f"greedy_seamless: tokens {toks}")
+    steps = [s for s, _ in rec["decode_step"]]
+    del logits, cache, rec
+
+    with torch.no_grad():
+        logits, cache = T.prefill(params, cfg, torch.from_numpy(prompt)[None]
+                                  .to("cuda"), last_only=True, memory=memory)
+        cache = T.pad_prefill_cache(cfg, cache, lp + 8)
+        tok = logits[:, -1].argmax(-1)
+
+    def step(i):
+        T.decode_step(params, cfg, tok, lp + i, cache, memory=memory)
+
+    profile = encdec_decode_profile(T, L, params, cfg, step)
+    # the memory's k and v a decode step: 2 products of S x D x (KV Dh) a
+    # decoder layer
+    kv_flops = 2 * 2 * s_enc * d * cfg.num_kv_heads \
+        * cfg.resolved_head_dim * n_dec
+    profile["memory_kv_flops_per_step"] = kv_flops
+    profile["memory_kv_bound_ms"] = 1e3 * kv_flops / BF16_OPS_PER_S
+    del cache, logits, memory
+    greedy_out = {
+        "phase": "greedy_seamless", "arch": cfg.name,
+        "layers": n_dec, "encoder_layers": n_enc, "d_model": d,
+        "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+        "head_dim": cfg.resolved_head_dim, "dtype": cfg.compute_dtype,
+        "params_b": cfg.param_count() / 1e9,
+        "params_gb": tree_bytes(params) / 1e9,
+        "source_frames": s_enc, "prompt_tokens": lp, "new_tokens": new,
+        "flash_launches_encode": enc_launches,
+        "flash_launches": launches, "flash_launches_expected": want,
+        "encode_ms": 1e3 * enc_s, "prefill_ms": 1e3 * pf_s,
+        "first_call_ms": 1e3 * cold_s, "decode_steps": len(steps),
+        "decode_step_ms_median": 1e3 * statistics.median(steps),
+        "decode_tok_per_s": len(steps) / sum(steps),
+        "wall_s": wall, "peak_mem_gb": peak / 1e9, "tokens": toks[:8],
+        "profile_decode": profile, "card": smi}
+
+    src8 = torch.from_numpy(0.02 * rng.standard_normal(
+        (8, s_enc, d), dtype=np.float32)).to("cuda")
+    fl.flash_attention.launches = 0
+    with torch.no_grad():
+        memory8 = T.encode(params, cfg, embeds=src8)
+    enc8 = fl.flash_attention.launches
+    if enc8 != n_enc:
+        raise AssertionError(f"dense_serve_seamless: encode launched flash "
+                             f"{enc8} times, expected {n_enc}")
+    serve_out = dense_serve(T, E, cfg, smi, phase="dense_serve_seamless",
+                            params=params, memory=memory8, prompt=(16, 256),
+                            new=(16, 64), flash=fl.flash_attention)
+    serve_out["flash_launches_encode"] = enc8
+    serve_out["flash_launches"] += enc8
+    serve_out["flash_launches_expected"] += enc8
+    del params, memory8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return greedy_out, serve_out
+
+
+PIXTRAL_PATCHES, PIXTRAL_TEXT, PIXTRAL_NEW = 1024, 256, 32
+
+
+def greedy_pixtral(fl, T, L, cfg, smi):
+    """pixtral-12b at full width and depth (40 layers), its parameters
+    drawn in bf16 (24.5 GB; f32 would be 49 GB): ``prefill(embeds=...)``
+    over 1024 seeded patch embeddings × 0.02 (the reference's stub for the
+    vision frontend) followed by the ``embed`` rows of 256 text tokens
+    (one flash launch a layer), ``pad_prefill_cache``, then 32 greedy
+    ``decode_step``s on tokens, each beside the floor of reading every
+    weight once, one of them profiled.  The parameters are freed at the
+    end."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = T.init_model(torch.Generator(device="cuda").manual_seed(25),
+                          cfg, device="cuda")
+    torch.cuda.synchronize()
+    init = {"init_s": time.perf_counter() - t,
+            "init_peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "params_gb": tree_bytes(params) / 1e9,
+            "params_b": sum(x.numel() for x in _leaves(params)) / 1e9}
+    rng = np.random.default_rng(25)
+    d, v = cfg.d_model, cfg.vocab_size
+    patches = torch.from_numpy(0.02 * rng.standard_normal(
+        (1, PIXTRAL_PATCHES, d), dtype=np.float32)).to("cuda")
+    text = torch.from_numpy(rng.integers(0, v, PIXTRAL_TEXT)).to("cuda")
+    embeds = torch.cat([patches.to(params["embed"].dtype),
+                        params["embed"][text][None]], dim=1)
+    lp, new = embeds.shape[1], PIXTRAL_NEW
+
+    def run(n):
+        """A prefill and ``n`` greedy decode steps, each timed."""
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = T.prefill(params, cfg, embeds=embeds,
+                                      last_only=True)
+            torch.cuda.synchronize()
+            pf_s = time.perf_counter() - t
+            if tuple(logits.shape) != (1, 1, v) \
+                    or not torch.isfinite(logits).all():
+                raise AssertionError("greedy_pixtral: prefill logits "
+                                     f"{tuple(logits.shape)} not finite")
+            cache = T.pad_prefill_cache(cfg, cache, lp + n)
+            tok = logits[:, -1].argmax(-1)
+            toks, steps = [int(tok[0])], []
+            for i in range(n):
+                t = time.perf_counter()
+                logits = T.decode_step(params, cfg, tok, lp + i, cache)
+                tok = logits.argmax(-1)
+                toks.append(int(tok[0]))  # a host read: synchronises
+                steps.append(time.perf_counter() - t)
+        return pf_s, toks, steps, cache, tok
+
+    cold_s = run(1)[0]
+    torch.cuda.reset_peak_memory_stats()
+    fl.flash_attention.launches = 0
+    pf_s, toks, steps, cache, tok = run(new)
+    launches = fl.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.num_layers:
+        raise AssertionError(f"greedy_pixtral: flash launches {launches}, "
+                             f"expected {cfg.num_layers}")
+    if len(toks) != new + 1 or not all(0 <= x < v for x in toks):
+        raise AssertionError(f"greedy_pixtral: tokens {toks}")
+    cache = T.pad_prefill_cache(cfg, cache, lp + new + 8)
+
+    def step(i):
+        T.decode_step(params, cfg, tok, lp + new + i, cache)
+
+    profile = encdec_decode_profile(T, L, params, cfg, step)
+    floor = decode_floor(params, cfg)
+    out = {"phase": "greedy_pixtral", "arch": cfg.name,
+           "layers": cfg.num_layers, "d_model": d, "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim,
+           "dtype": cfg.compute_dtype, **init,
+           "patch_embeds": PIXTRAL_PATCHES, "text_tokens": PIXTRAL_TEXT,
+           "prompt_positions": lp, "decode_steps": new,
+           "flash_launches": launches, "prefill_ms": 1e3 * pf_s,
+           "prefill_tok_per_s": lp / pf_s, "prefill_ms_first_call":
+           1e3 * cold_s, "decode_step_ms_median":
+           1e3 * statistics.median(steps),
+           "decode_tok_per_s": len(steps) / sum(steps), **floor,
+           "all_weights_read_ms": 1e3 * tree_bytes(params) / HBM_BYTES_PER_S,
+           "step_over_floor": 1e3 * statistics.median(steps)
+           / floor["floor_ms_per_step"],
+           "peak_mem_gb": peak / 1e9, "tokens": toks[:8],
+           "profile_decode": profile, "card": smi}
+    del params, cache, embeds, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def loss_and_grads(LOOP, TR, params, cfg, batch):
+    """``make_loss_fn``'s loss (no remat) and the gradient of every leaf of
+    ``params``, on their device; a leaf the loss does not read (pixtral's
+    ``embed`` under ``embeds``) gets zeros, as ``jax.grad`` gives."""
+    leaves = [x.detach().clone().requires_grad_() for x in TR.leaves(params)]
+    p = TR.unflatten(TR.flatten(params)[1], leaves)
+    loss = LOOP.make_loss_fn(cfg, remat=False)(p, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.item(), [(torch.zeros_like(x) if g is None else g).cpu()
+                         for x, g in zip(leaves, grads)]
+
+
+GRAD_RTOL = 1e-4
+
+
+def grads_close(name, paths, a, b):
+    """Each leaf of the card's gradients ``a`` against the CPU's ``b``:
+    max |a - b| within 1e-4 of the leaf's largest |g| (an element-wise
+    rtol fails on the elements near 0 that every leaf has: the two
+    devices sum in other orders).  Returns each leaf's max |a - b| /
+    max |b|, by path."""
+    ratios = {}
+    for path, x, y in zip(paths, a, b):
+        scale = y.abs().max().item()
+        ratios[path] = (x - y).abs().max().item() / scale if scale else 0.0
+    bad = {k: r for k, r in ratios.items() if not r <= GRAD_RTOL}
+    if bad:
+        raise AssertionError(f"{name}: gradients differ card vs CPU past "
+                             f"{GRAD_RTOL} of the leaf's largest: {bad}")
+    return ratios
+
+
+def encdec_card_vs_cpu(fl, T, E, get_config):
+    """f32, TF32 off, the same parameters on the card and the CPU.
+    seamless-m4t-medium cut to d_model 256 (Dh 64 and every other width
+    the config's), 2 + 2 layers, 300 source frames (not a multiple of the
+    64-row tile): ``encode`` of 4 rows within 1e-4, prefill logits within
+    1e-3, ``greedy_generate`` tokens identical, and a 4-slot
+    ``DecodeEngine`` given 4 requests (request i in slot i, memory row i)
+    giving each request ``greedy_generate``'s tokens with memory row i, on
+    both devices.  pixtral-12b ``.reduced()``: ``prefill(embeds=...)``
+    then 8 decode steps, logits within 1e-3 and tokens identical.  Both:
+    ``make_loss_fn``'s loss within 1e-4 and every leaf's gradient (the
+    encoder and cross leaves included) within 1e-4 of the leaf's largest
+    (``grads_close``).
+    Returns the phase line and the flash launches of the card's runs."""
+    from repro_torch.core import tree as TR
+    from repro_torch.train import loop as LOOP
+
+    out = {"phase": "encdec_card_vs_cpu", "dtype": "float32",
+           "tol_encode": 1e-4, "tol_logits": 1e-3, "tol_loss": 1e-4,
+           "grad_tol_of_leaf_max": GRAD_RTOL, "archs": {}}
+    launches = 0
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium"), d_model=256,
+                              head_dim=64, num_layers=2, num_encoder_layers=2,
+                              encoder_seq_len=300)
+    params = T.init_model(torch.Generator().manual_seed(26), cfg,
+                          device="cpu")
+    rng = np.random.default_rng(26)
+    s, d, v = cfg.encoder_seq_len, cfg.d_model, cfg.vocab_size
+    src = torch.from_numpy(0.02 * rng.standard_normal((4, s, d),
+                                                      dtype=np.float32))
+    prompts = [rng.integers(0, v, int(n)).astype(np.int32)
+               for n in rng.integers(16, 48, 4)]
+    news = [int(n) for n in rng.integers(4, 12, 4)]
+    labels = torch.from_numpy(rng.integers(0, v, (2, 32)))
+    batch = {"tokens": labels, "labels": labels, "source_embeds": src[:2]}
+    res = {}
+    for dev in ("cuda", "cpu"):
+        prm = _tree(params, lambda t, d=dev: t.to(d))
+        fl.flash_attention.launches = 0
+        with torch.no_grad():
+            mem = T.encode(prm, cfg, embeds=src.to(dev))
+            lg, _ = T.prefill(prm, cfg, torch.from_numpy(prompts[0])[None]
+                              .to(dev), last_only=True, memory=mem[:1])
+        gens = [E.greedy_generate(prm, cfg, p, n, device=dev,
+                                  memory=mem[i:i + 1])
+                for i, (p, n) in enumerate(zip(prompts, news))]
+        eng = E.DecodeEngine(prm, cfg, batch_slots=4, max_seq=64, device=dev,
+                             memory=mem)
+        for i, (p, n) in enumerate(zip(prompts, news)):
+            eng.submit(E.Request(rid=i, prompt=p, max_new_tokens=n))
+        eng_gens = {r.rid: r.generated for r in eng.run()}
+        if eng_gens != dict(enumerate(gens)):
+            raise AssertionError(f"seamless cut on {dev}: DecodeEngine "
+                                 f"{eng_gens} vs greedy_generate {gens} with "
+                                 "memory row i in slot i")
+        if dev == "cuda":
+            want = (cfg.num_encoder_layers + 2 * cfg.num_layers
+                    + sum(2 * cfg.num_layers + cfg.num_layers * (n - 1)
+                          for n in news) + cfg.num_layers * eng.steps)
+            if fl.flash_attention.launches != want:
+                raise AssertionError(f"seamless cut: flash launches "
+                                     f"{fl.flash_attention.launches}, "
+                                     f"expected {want}")
+            launches += want
+        loss, grads = loss_and_grads(LOOP, TR, prm, cfg, _tree(
+            batch, lambda t, d=dev: t.to(d)))
+        res[dev] = {"memory": mem.cpu(), "logits": lg.cpu(), "gens": gens,
+                    "loss": loss, "grads": grads, "steps": eng.steps}
+        del prm, mem, lg, eng
+    a, b = res["cuda"], res["cpu"]
+    enc_err = (a["memory"] - b["memory"]).abs().max().item()
+    logit_err = (a["logits"] - b["logits"]).abs().max().item()
+    loss_err = abs(a["loss"] - b["loss"])
+    if not (enc_err <= 1e-4 and logit_err <= 1e-3 and loss_err <= 1e-4):
+        raise AssertionError(f"seamless cut card vs CPU: encode {enc_err}, "
+                             f"logits {logit_err}, loss {loss_err}")
+    if a["gens"] != b["gens"]:
+        raise AssertionError(f"seamless cut: card vs CPU greedy tokens "
+                             f"{a['gens']} vs {b['gens']}")
+    out["archs"][cfg.name] = {
+        "d_model": d, "layers": cfg.num_layers,
+        "encoder_layers": cfg.num_encoder_layers, "source_frames": s,
+        "heads": cfg.num_heads, "head_dim": cfg.resolved_head_dim,
+        "prompt_tokens": [len(p) for p in prompts], "new_tokens": news,
+        "encode_max_abs_err": enc_err, "prefill_logits_max_abs_err":
+        logit_err, "loss": a["loss"], "loss_abs_err": loss_err,
+        "grad_leaves": len(a["grads"]),
+        "grad_max_err_over_leaf_max": grads_close(
+            cfg.name, [".".join(x) for x in _paths(params)], a["grads"],
+            b["grads"]),
+        "tokens_card_eq_cpu": True, "engine_slot_i_eq_generate_row_i": True,
+        "engine_steps": a["steps"], "tokens": a["gens"]}
+    del params, res
+
+    cfg = get_config("pixtral-12b").reduced()
+    params = T.init_model(torch.Generator().manual_seed(27), cfg,
+                          device="cpu")
+    rng = np.random.default_rng(27)
+    d, v = cfg.d_model, cfg.vocab_size
+    emb = torch.from_numpy(0.02 * rng.standard_normal((1, 48, d),
+                                                      dtype=np.float32))
+    labels = torch.from_numpy(rng.integers(0, v, (2, 32)))
+    batch = {"embeds": torch.from_numpy(0.02 * rng.standard_normal(
+        (2, 32, d), dtype=np.float32)), "labels": labels}
+    res = {}
+    for dev in ("cuda", "cpu"):
+        prm = _tree(params, lambda t, d=dev: t.to(d))
+        fl.flash_attention.launches = 0
+        with torch.no_grad():
+            lg, cache = T.prefill(prm, cfg, embeds=emb.to(dev),
+                                  last_only=True)
+            cache = T.pad_prefill_cache(cfg, cache, 48 + 8)
+            logits, toks = [lg[:, -1].cpu()], [int(lg[0, -1].argmax())]
+            for i in range(8):
+                tok = torch.tensor(toks[-1:], device=dev)
+                lg = T.decode_step(prm, cfg, tok, 48 + i, cache)
+                logits.append(lg.cpu())
+                toks.append(int(lg[0].argmax()))
+        if dev == "cuda":
+            if fl.flash_attention.launches != cfg.num_layers:
+                raise AssertionError(f"pixtral reduced: flash launches "
+                                     f"{fl.flash_attention.launches}")
+            launches += cfg.num_layers
+        loss, grads = loss_and_grads(LOOP, TR, prm, cfg, _tree(
+            batch, lambda t, d=dev: t.to(d)))
+        res[dev] = {"logits": logits, "toks": toks, "loss": loss,
+                    "grads": grads}
+        del prm, cache
+    a, b = res["cuda"], res["cpu"]
+    logit_err = max((x - y).abs().max().item()
+                    for x, y in zip(a["logits"], b["logits"]))
+    loss_err = abs(a["loss"] - b["loss"])
+    if not (logit_err <= 1e-3 and loss_err <= 1e-4):
+        raise AssertionError(f"pixtral reduced card vs CPU: logits "
+                             f"{logit_err}, loss {loss_err}")
+    if a["toks"] != b["toks"]:
+        raise AssertionError(f"pixtral reduced: card vs CPU tokens "
+                             f"{a['toks']} vs {b['toks']}")
+    out["archs"][cfg.name] = {
+        "d_model": d, "layers": cfg.num_layers, "heads": cfg.num_heads,
+        "kv_heads": cfg.num_kv_heads, "patch_embeds": 48, "decode_steps": 8,
+        "logits_max_abs_err": logit_err, "loss": a["loss"],
+        "loss_abs_err": loss_err, "grad_leaves": len(a["grads"]),
+        "grad_max_err_over_leaf_max": grads_close(
+            cfg.name, [".".join(x) for x in _paths(params)], a["grads"],
+            b["grads"]),
+        "tokens_card_eq_cpu": True, "tokens": a["toks"]}
+    out["flash_launches_on_card"] = launches
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--mamba-before", type=Path, default=None,
@@ -4404,6 +4968,21 @@ def main(argv=None) -> int:
     emit(moe_cmp)
     flash_launches += moe_launches["flash_attention"]
     mamba_launches += moe_launches["mamba_scan"]
+
+    # the encoder-decoder and vision families at full width and depth in
+    # bf16: the encoder's and the cross attention's attention on the flash
+    # kernel, non-causal; then f32 cuts card against CPU
+    greedy_s2s, serve_s2s = seamless(fl, T, E, L, bf16("seamless-m4t-medium"),
+                                     smi)
+    emit(greedy_s2s)
+    emit(serve_s2s)
+    flash_launches += greedy_s2s["flash_launches"] + serve_s2s["flash_launches"]
+    result = greedy_pixtral(fl, T, L, bf16("pixtral-12b"), smi)
+    emit(result)
+    flash_launches += result["flash_launches"]
+    encdec_cmp, encdec_launches = encdec_card_vs_cpu(fl, T, E, get_config)
+    emit(encdec_cmp)
+    flash_launches += encdec_launches
 
     # the leaf-wise codec (its counts zeroed inside, read just after)
     codec = codec_path(ob, tk, get_config, smi)
@@ -4583,7 +5162,8 @@ def main(argv=None) -> int:
             name: {k: flash_timing["kernels"][name][k]
                    for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms")}
-            for name, *_ in FLASH_PATH_SHAPES[1:]},
+            for name in [n for n, *_ in FLASH_PATH_SHAPES[1:]]
+            + list(FLASH_ENCDEC_TIMED)},
     }, {
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
@@ -4608,7 +5188,8 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+                                 "count": torch.cuda.device_count()}},
+         phase_s=False)
     return 0
 
 

@@ -330,9 +330,8 @@ def _ensure_loaded():
     if _LOADED:
         return
     _LOADED = True
-    # the other configs of the JAX package arrive with their model families
-    # (encoder-decoder, vision) in later slices
     from repro_torch.configs import (deepseek_67b,  # noqa: F401
                                      gemma3_1b, granite_moe_1b,
-                                     jamba_15_large, qwen2_15b,
-                                     qwen2_moe_a27b, qwen25_14b, xlstm_125m)
+                                     jamba_15_large, pixtral_12b, qwen2_15b,
+                                     qwen2_moe_a27b, qwen25_14b,
+                                     seamless_m4t_medium, xlstm_125m)

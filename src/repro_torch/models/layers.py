@@ -1,6 +1,7 @@
-"""Decoder layers: norms, RoPE, GQA attention (bias, qk-norm, softcap,
-sliding window) for training, for prefill and decode over a dense KV cache
-and over a paged KV cache, the SwiGLU MLP and the capacity-dispatch MoE.
+"""Transformer layers: norms, RoPE, GQA attention (bias, qk-norm, softcap,
+sliding window, bidirectional, cross) for training, for prefill and decode
+over a dense KV cache and over a paged KV cache, the SwiGLU MLP and the
+capacity-dispatch MoE.
 
 Port of the training and serving paths of ``repro/models/layers.py``.
 Layers are plain functions on tensors over parameter dicts with the
@@ -21,6 +22,9 @@ Differences from the reference, none of which changes a result:
     reference's ``_sdpa`` does there except that PV stays in f32 (the
     reference casts the probabilities to v's dtype first): the same in
     f32, within bf16 rounding in bf16;
+  * the reference's cross-attention branch (``attention(..., memory=)``)
+    is ``cross_attention`` here, which serving runs on the same kernel
+    (``kernel=True``, no mask) and the loss on ``_sdpa`` (``kernel=False``);
   * paged single-token decode always goes through
     ``kernels.ops.paged_attention``; chunked prefill and int8 pools take
     the gather path, as in the reference (``layers.py:457-465``).
@@ -126,10 +130,14 @@ def init_attention(gen, cfg: ModelConfig, dtype, device, lead=()):
     return p
 
 
-def _qkv(p, cfg, x):
+def _qkv(p, cfg, x, xkv=None):
+    """q from ``x``, k and v from ``xkv`` (the encoder's memory for cross
+    attention; ``x`` when None); bias and qk-norm on both, as the
+    reference's ``_qkv(p, cfg, xq, xkv)``."""
+    xkv = x if xkv is None else xkv
     q = torch.einsum("bld,dhk->blhk", x, p["wq"])
-    k = torch.einsum("bld,dhk->blhk", x, p["wk"])
-    v = torch.einsum("bld,dhk->blhk", x, p["wv"])
+    k = torch.einsum("bld,dhk->blhk", xkv, p["wk"])
+    v = torch.einsum("bld,dhk->blhk", xkv, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if "q_norm" in p:
@@ -209,9 +217,10 @@ def _sdpa_banded(cfg: ModelConfig, q, k, v, window: int):
 
 
 def attention(p, cfg: ModelConfig, x, positions, window: int, theta: float,
-              static_window: bool = False):
-    """Training self-attention over the full sequence: causal, plus the
-    sliding window when ``window > 0``.  x: (B, L, D); positions: (B, L).
+              static_window: bool = False, causal: bool = True):
+    """Training self-attention over the full sequence: causal (every key
+    visible with ``causal=False``, the encoder's), plus the sliding window
+    when ``window > 0``.  x: (B, L, D); positions: (B, L).
 
     ``static_window`` says whether the reference would see ``window`` as a
     Python int (``cfg.scan_layers=False``, the unrolled stack) or as a
@@ -223,14 +232,15 @@ def attention(p, cfg: ModelConfig, x, positions, window: int, theta: float,
     q, k, v = _qkv(p, cfg, x)
     q = rope(q, positions, theta)
     k = rope(k, positions, theta)
-    if (static_window and window > 0 and lq % window == 0
+    if (static_window and window > 0 and causal and lq % window == 0
             and lq // window >= 2):
         out = _sdpa_banded(cfg, q, k, v, window)
     else:
         i = positions[:, :, None].long()  # (B, L, 1)
         j = positions[:, None, :].long()  # (B, 1, L)
         w = INT32_MAX if window == FULL_ATTENTION else window
-        mask = (j <= i) & (i - j < w)
+        mask = (j <= i) if causal else torch.ones_like(j <= i)
+        mask = mask & (i - j < w)
         out = _sdpa(cfg, q, k, v, mask[:, None])
     return torch.einsum("blhk,hkd->bld", out, p["wo"])
 
@@ -262,9 +272,11 @@ def init_attn_cache(cfg: ModelConfig, batch, max_seq, dtype, device,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def attention_prefill(p, cfg: ModelConfig, x, window: int, theta: float):
+def attention_prefill(p, cfg: ModelConfig, x, window: int, theta: float,
+                      causal: bool = True):
     """Prefill self-attention over a whole prompt at positions 0..L-1:
-    causal, plus the sliding window when ``window > 0``.  x: (B, L, D).
+    causal (bidirectional with ``causal=False``: the encoder's layers),
+    plus the sliding window when ``window > 0``.  x: (B, L, D).
     Returns (out (B, L, D), {"k", "v"}): the post-RoPE k and v at KV heads,
     (B, L, KV, Dh), the populated decode cache, as the reference's
     ``collect_cache`` branch.
@@ -287,9 +299,41 @@ def attention_prefill(p, cfg: ModelConfig, x, window: int, theta: float):
     k = rope(k, positions, theta)
     v = v.contiguous()
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=True, window=window)
+                              v.transpose(1, 2), causal=causal, window=window)
     out = torch.einsum("blhk,hkd->bld", out.transpose(1, 2), p["wo"])
     return out, {"k": k, "v": v}
+
+
+def cross_attention(p, cfg: ModelConfig, x, memory, kernel: bool):
+    """Cross attention of x (B, Lq, D) over the encoder's ``memory`` (B, S,
+    D), the reference's ``attention(..., memory=memory)``: q from x, k and
+    v from the memory, no RoPE, every query sees every memory position,
+    then ``wo``.  k and v are computed from the memory on every call (no
+    cross-attention cache, as in the reference).
+
+    ``kernel=True`` runs ``kernels.ops.flash_attention(..., causal=False)``
+    on the (B, H, L, Dh) views: one launch a call on CUDA tensors, for any
+    Lq, the plain version on CPU tensors; PV stays in f32 and there is no
+    softcap (a config that sets one raises).  ``kernel=False`` runs
+    ``_sdpa`` with an all-ones mask, the reference's path, which autograd
+    differentiates.  The caller picks: serving the kernel, the loss not."""
+    q, k, v = _qkv(p, cfg, x, memory)
+    if not kernel:
+        mask = torch.ones((1, 1, x.shape[1], memory.shape[1]),
+                          dtype=torch.bool, device=x.device)
+        out = _sdpa(cfg, q, k, v, mask)
+    else:
+        if cfg.attn_logit_softcap:
+            raise ValueError(
+                f"cross attention runs the flash kernel, which has no logit "
+                f"softcap; {cfg.name} sets attn_logit_softcap="
+                f"{cfg.attn_logit_softcap}")
+        # einsum may hand back permuted strides: the kernel reads rows of
+        # the (B, L, H, Dh) layout
+        out = ops.flash_attention(
+            q.contiguous().transpose(1, 2), k.contiguous().transpose(1, 2),
+            v.contiguous().transpose(1, 2), causal=False).transpose(1, 2)
+    return torch.einsum("blhk,hkd->bld", out, p["wo"])
 
 
 def attention_decode(p, cfg: ModelConfig, x, pos, window: int, theta: float,

@@ -1,5 +1,6 @@
-"""Decoder-only models: the training forward, prefill and decode over a
-dense cache, and the steps over a paged KV cache.
+"""Decoder-only and encoder-decoder models: the training forward, the
+encoder, prefill and decode over a dense cache, and the steps over a paged
+KV cache.
 
 Port of the training and serving paths of ``repro/models/transformer.py``.
 Parameters keep the reference's tree layout: ``embed (V, D)``,
@@ -7,7 +8,11 @@ Parameters keep the reference's tree layout: ``embed (V, D)``,
 ``"1"``, ... with every leaf stacked over the ``repeat`` axis, so
 ``bridge.params_from_numpy`` is a pure copy.  The reference's ``lax.scan``
 over that axis is a Python loop here, with each layer's window and RoPE
-theta from ``cfg.layer_windows()``.
+theta from ``cfg.layer_windows()``.  An encoder-decoder model adds
+``cross_norm`` and ``cross_attn`` to every decoder layer and
+``encoder = {"stack", "final_norm"}``, whose ``stack`` is ONE attention +
+MLP layer's dict with every leaf stacked over ``num_encoder_layers`` (no
+``"0"`` key), as the reference's ``vmap``-ed encoder init.
 
 Which stacks run where:
   * dense-cache serving (``init_model``, ``init_cache``, ``prefill``,
@@ -21,7 +26,26 @@ Which stacks run where:
     stacks, MoE FFNs included (training the recurrent families is a later
     slice; recurrent state lives per slot on the dense engine, as in the
     reference);
-  * encoder-decoder stacks raise everywhere: a later slice.
+  * encoder-decoder stacks (any of those mixers) run ``encode`` and the
+    dense-cache entry points, whose decoder layers run mixer → cross
+    attention → FFN; the paged cache rejects them, as the reference's.
+
+Cross attention (``layers.cross_attention``) runs only where a layer has
+``cross_attn`` AND ``memory`` is given, the reference's condition: a
+``prefill`` or ``decode_step`` of an encoder-decoder model without
+``memory`` skips it, as in the reference, while ``forward`` raises.
+Serving (``encode``'s default, ``prefill``, ``decode_step``) runs the
+encoder's and the cross attention through the flash kernel,
+``causal=False``; the training ``forward`` (and the loss's
+``encode(kernel=False)``) through ``_sdpa`` with an all-ones mask, the
+reference's path.  ``decode_step`` recomputes the memory's k and v on
+every step (no cross-attention cache, as in the reference).  Inputs may be
+``embeds`` (B, L, D) instead of tokens (the vision and audio frontends are
+stubs in both packages): cast to the compute dtype and not scaled, except
+that ``decode_step`` takes them as given, without a cast, as the
+reference does.  ``memory`` and ``decode_step``'s ``embeds`` must be in
+the compute dtype (``encode`` returns it): torch's einsum does not promote
+a mixed pair, where ``jnp.einsum`` would.
 
 An MoE layer routes every token its step is given, pad rows and idle
 slots included, so capacity is shared over the same token set as in the
@@ -33,15 +57,19 @@ port casts once when the engine is built.  The numerics are the same.
 
 Public API:
     init_model(gen, cfg, device)                          → params
-    forward(params, cfg, tokens, positions=None, remat=False) → (logits, aux)
+    forward(params, cfg, tokens=None, positions=None, remat=False,
+            embeds=None, memory=None)                     → (logits, aux)
+    encode(params, cfg, embeds=None, tokens=None, kernel=True) → memory
     init_paged_cache(cfg, num_pages, page_size, dtype, device) → cache
     decode_step_paged(params, cfg, token, pos, cache, block_tables) → logits
     prefill_chunk_paged(params, cfg, tokens, positions, cache, block_tables,
                         last_idx)                           → logits
     init_cache(cfg, batch, max_seq, dtype, device)        → cache
-    prefill(params, cfg, tokens, last_only=False)         → (logits, cache)
+    prefill(params, cfg, tokens=None, last_only=False, embeds=None,
+            memory=None)                                  → (logits, cache)
     pad_prefill_cache(cfg, cache, total)                  → cache
-    decode_step(params, cfg, token, pos, cache)           → logits
+    decode_step(params, cfg, token, pos, cache, memory=None,
+                embeds=None)                              → logits
 The step functions update ``cache`` in place and return f32 logits; the
 reference returns a new cache instead.
 """
@@ -54,7 +82,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import FULL_ATTENTION, LayerSpec, ModelConfig
 from repro_torch.core.precision import torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -71,14 +99,11 @@ _RECURRENT = {
 
 
 def _check_stack(cfg: ModelConfig, attention_only=None):
-    """The layer specs, if the port runs this stack: decoder-only, dense
-    MLP, MoE or no FFN, attention or recurrent mixers.  ``attention_only``
-    is ``(entry point, hint)`` for an entry point that takes attention
-    mixers only."""
+    """The layer specs, if the port runs this stack: dense MLP, MoE or no
+    FFN, attention or recurrent mixers, decoder-only or encoder-decoder.
+    ``attention_only`` is ``(entry point, hint)`` for an entry point that
+    takes attention mixers only."""
     specs, _ = cfg.superblock()
-    if cfg.is_encoder_decoder:
-        raise ValueError("the port serves decoder-only models; encoder-"
-                         "decoder stacks are a later slice")
     for spec in specs:
         if spec.ffn not in ("mlp", "moe", "none"):
             raise ValueError(f"the port has no ffn {spec.ffn!r}")
@@ -96,6 +121,10 @@ def _index(tree, r):
             for k, v in tree.items()}
 
 
+# the encoder's layer, as the reference's: bidirectional attention, MLP
+_ENC_SPEC = LayerSpec(mixer="attn", ffn="mlp")
+
+
 # ---------------------------------------------------------------------------
 # model init
 # ---------------------------------------------------------------------------
@@ -111,13 +140,16 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
     def norm(shape):
         return {"scale": torch.ones(shape, dtype=pdt, device=dev)}
 
-    def layer(spec):  # the reference's _init_layer
+    def layer(spec, lead, cross):  # the reference's _init_layer
         p = {"pre_norm": norm(lead + (cfg.d_model,))}
         if spec.mixer == "attn":
             p["attn"] = L.init_attention(gen, cfg, pdt, dev, lead)
         else:
             p[spec.mixer] = _RECURRENT[spec.mixer]["init"](gen, cfg, pdt,
                                                            dev, lead)
+        if cross:
+            p["cross_norm"] = norm(lead + (cfg.d_model,))
+            p["cross_attn"] = L.init_attention(gen, cfg, pdt, dev, lead)
         if spec.ffn != "none":
             p["ffn_norm"] = norm(lead + (cfg.d_model,))
             if spec.ffn == "moe":
@@ -126,7 +158,8 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
                 p["mlp"] = L.init_mlp(gen, cfg, pdt, dev, lead)
         return p
 
-    stack = {str(i): layer(spec) for i, spec in enumerate(specs)}
+    stack = {str(i): layer(spec, lead, cfg.is_encoder_decoder)
+             for i, spec in enumerate(specs)}
     params = {
         "embed": L.dense_init(gen, (cfg.vocab_size, cfg.d_model), pdt, dev),
         "stack": stack,
@@ -135,6 +168,10 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                          pdt, dev)
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "stack": layer(_ENC_SPEC, (cfg.num_encoder_layers,), False),
+            "final_norm": norm((cfg.d_model,))}
     return params
 
 
@@ -155,10 +192,11 @@ def cast_compute(params, cfg: ModelConfig):
 # stack traversal
 # ---------------------------------------------------------------------------
 def _run_stack(params, cfg: ModelConfig, h, attend, recur=None,
-               remat: bool = False):
-    """The layer stack: pre-norm residual (mixer → MLP or MoE) layers, the
-    reference's ``_apply_layer`` per layer; returns (h, aux).  The
-    reference's ``lax.scan`` over the repeat axis is a loop here.
+               remat: bool = False, memory=None, cross_kernel: bool = False):
+    """The layer stack: pre-norm residual (mixer → [cross attention] → MLP
+    or MoE) layers, the reference's ``_apply_layer`` per layer; returns
+    (h, aux).  The reference's ``lax.scan`` over the repeat axis is a loop
+    here.
     ``remat=True`` runs each super-block's body (one layer of a dense
     stack) under ``torch.utils.checkpoint``, where the reference wraps its
     scan body in ``jax.checkpoint``: its activations are recomputed in the
@@ -171,7 +209,10 @@ def _run_stack(params, cfg: ModelConfig, h, attend, recur=None,
     ``recur(mixer, p_mixer, x, key, r)`` is a recurrent mixer (``"mamba"``,
     ``"mlstm"``, ``"slstm"``) with the layer's cache slice, for the
     entry points that run them.  A layer with ffn ``"none"`` (xLSTM) has
-    no MLP.
+    no MLP.  A layer with ``cross_attn`` runs ``layers.cross_attention``
+    over ``memory`` (through the flash kernel with ``cross_kernel``) after
+    its mixer, when ``memory`` is given, and skips it when it is not, as
+    the reference does.
 
     ``aux`` sums, over the super-blocks, the MoE aux loss of each
     super-block's LAST layer only (0 when that layer has no MoE), as the
@@ -192,6 +233,10 @@ def _run_stack(params, cfg: ModelConfig, h, attend, recur=None,
                                float(thetas[r, i]), key, r)
             else:
                 h = h + recur(spec.mixer, p[spec.mixer], x, key, r)
+            if "cross_attn" in p and memory is not None:
+                x = L.rms_norm(h, p["cross_norm"], cfg.norm_eps)
+                h = h + L.cross_attention(p["cross_attn"], cfg, x, memory,
+                                          cross_kernel)
             aux = None  # the layer's aux: None where it has no MoE
             if spec.ffn != "none":
                 x = L.rms_norm(h, p["ffn_norm"], cfg.norm_eps)
@@ -220,7 +265,11 @@ def _logits(params, cfg, h):
     return logits.float()
 
 
-def _embed(params, cfg, tokens):
+def _embed(params, cfg, tokens=None, embeds=None):
+    """``embeds`` cast to the compute dtype, not scaled; else the tokens'
+    rows of ``embed``, scaled by sqrt(d_model) under qk-norm."""
+    if embeds is not None:
+        return embeds.to(torch_dtype(cfg.compute_dtype))
     h = params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
     if cfg.qk_norm:
         # sqrt(d_model) rounded to h's dtype first, as the reference does;
@@ -229,29 +278,64 @@ def _embed(params, cfg, tokens):
     return h
 
 
-def forward(params, cfg: ModelConfig, tokens, positions=None,
-            remat: bool = False):
-    """Training forward pass over (B, L) tokens.  Returns (logits (B, L, V)
-    f32, aux loss): the MoE router's load-balancing loss as ``_run_stack``
-    sums it, 0 for a dense stack.
+def forward(params, cfg: ModelConfig, tokens=None, positions=None,
+            remat: bool = False, embeds=None, memory=None):
+    """Training forward pass over (B, L) tokens or (B, L, D) ``embeds``.
+    Returns (logits (B, L, V) f32, aux loss): the MoE router's
+    load-balancing loss as ``_run_stack`` sums it, 0 for a dense stack.
     ``remat=True`` recomputes each super-block's activations in the
-    backward pass (``_run_stack``)."""
+    backward pass (``_run_stack``).  An encoder-decoder model needs the
+    encoder's ``memory`` (B, S, D); its cross attention runs on ``_sdpa``,
+    which autograd differentiates."""
     _check_stack(cfg, ("the training forward",
                        "training the recurrent families is a later slice"))
     params = cast_compute(params, cfg)
-    h = _embed(params, cfg, tokens)
+    h = _embed(params, cfg, tokens, embeds)
     b, l = h.shape[:2]
     if positions is None:
         positions = torch.arange(l, dtype=torch.int32,
                                  device=h.device).expand(b, l)
+    if cfg.is_encoder_decoder and memory is None:
+        raise ValueError("encoder-decoder model requires encoder `memory`")
     static = not cfg.scan_layers
 
     def attend(p, x, window, theta, key, r):
         return L.attention(p, cfg, x, positions, window, theta,
                            static_window=static)
 
-    h, aux = _run_stack(params, cfg, h, attend, remat=remat)
+    h, aux = _run_stack(params, cfg, h, attend, remat=remat, memory=memory)
     return _logits(params, cfg, h), aux
+
+
+def encode(params, cfg: ModelConfig, embeds=None, tokens=None,
+           kernel: bool = True):
+    """The encoder of an encoder-decoder model over (B, S, D) ``embeds``
+    (or (B, S) tokens): ``num_encoder_layers`` pre-norm layers of
+    bidirectional attention (no window, RoPE at ``cfg.rope_theta``,
+    positions 0..S-1) and MLP, then the encoder's ``final_norm``.  Returns
+    the memory (B, S, D) in the compute dtype.  ``kernel=True`` runs each
+    layer's attention as one flash launch (``causal=False``) on CUDA
+    tensors, its plain version on CPU tensors; ``kernel=False`` the
+    reference's masked ``_sdpa``, for the loss."""
+    params = cast_compute(params, cfg)
+    enc = params["encoder"]
+    h = _embed(params, cfg, tokens, embeds)
+    b, l = h.shape[:2]
+    positions = torch.arange(l, dtype=torch.int32,
+                             device=h.device).expand(b, l)
+    for r in range(cfg.num_encoder_layers):
+        p = _index(enc["stack"], r)
+        x = L.rms_norm(h, p["pre_norm"], cfg.norm_eps)
+        if kernel:
+            out, _ = L.attention_prefill(p["attn"], cfg, x, FULL_ATTENTION,
+                                         cfg.rope_theta, causal=False)
+        else:
+            out = L.attention(p["attn"], cfg, x, positions, FULL_ATTENTION,
+                              cfg.rope_theta, causal=False)
+        h = h + out
+        x = L.rms_norm(h, p["ffn_norm"], cfg.norm_eps)
+        h = h + L.mlp(p["mlp"], cfg, x)
+    return L.rms_norm(h, enc["final_norm"], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +348,8 @@ def init_paged_cache(cfg: ModelConfig, num_pages, page_size, dtype=None,
     Attention-only stacks: recurrent mixers keep per-slot dense state and
     stay on the dense ``DecodeEngine``, as in the reference."""
     dev = resolve_device(device)
+    if cfg.is_encoder_decoder:
+        raise ValueError("paged cache does not support encoder-decoder models")
     specs = _check_stack(cfg, ("paged cache", "use the dense DecodeEngine"))
     _, repeat = cfg.superblock()
     dt = torch_dtype(dtype if dtype is not None else cfg.compute_dtype)
@@ -330,16 +416,18 @@ def init_cache(cfg: ModelConfig, batch, max_seq, dtype=None, device="cuda"):
     return {str(i): one(spec) for i, spec in enumerate(specs)}
 
 
-def prefill(params, cfg: ModelConfig, tokens, last_only=False):
-    """Full-sequence forward over (B, L) prompt tokens that also returns the
-    populated decode cache (S = L for attention; the recurrent layers'
-    final states), as the reference's ``prefill``.  On CUDA tensors each
-    attention layer is one ``flash_attention`` launch and each Mamba
-    layer one ``mamba_scan`` launch.  Returns (logits f32, (B, 1, V) with
-    ``last_only`` else (B, L, V), cache)."""
+def prefill(params, cfg: ModelConfig, tokens=None, last_only=False,
+            embeds=None, memory=None):
+    """Full-sequence forward over (B, L) prompt tokens or (B, L, D)
+    ``embeds`` that also returns the populated decode cache (S = L for
+    attention; the recurrent layers' final states), as the reference's
+    ``prefill``.  On CUDA tensors each attention layer is one
+    ``flash_attention`` launch, each cross attention over ``memory`` one
+    more, and each Mamba layer one ``mamba_scan`` launch.  Returns (logits
+    f32, (B, 1, V) with ``last_only`` else (B, L, V), cache)."""
     _check_stack(cfg)
     params = cast_compute(params, cfg)
-    h = _embed(params, cfg, tokens)
+    h = _embed(params, cfg, tokens, embeds)
     collected = {}
 
     def attend(p, x, window, theta, key, r):
@@ -353,7 +441,8 @@ def prefill(params, cfg: ModelConfig, tokens, last_only=False):
         collected.setdefault(key, []).append(state)
         return out
 
-    h, _ = _run_stack(params, cfg, h, attend, recur)
+    h, _ = _run_stack(params, cfg, h, attend, recur, memory=memory,
+                      cross_kernel=True)
     if last_only:
         h = h[:, -1:]
     cache = {key: {name: torch.stack([c[name] for c in per_r])
@@ -379,14 +468,18 @@ def pad_prefill_cache(cfg: ModelConfig, cache, total):
     return out
 
 
-def decode_step(params, cfg: ModelConfig, token, pos, cache):
+def decode_step(params, cfg: ModelConfig, token, pos, cache, memory=None,
+                embeds=None):
     """One decode token per row against the dense cache, updated in place.
-    token: (B,) int; pos: a Python int write position for every row, or a
-    (B,) int tensor of ragged positions (continuous batching); recurrent
-    layers advance their state one step whatever the position.  Expects
-    parameters in ``cfg.compute_dtype`` (``cast_compute``), as the paged
-    steps.  Returns logits (B, V) f32."""
-    h = _embed(params, cfg, token[:, None])
+    token: (B,) int, or None with ``embeds`` (B, 1, D), taken as given
+    (no cast, as the reference); pos: a Python int write position for
+    every row, or a (B,) int tensor of ragged positions (continuous
+    batching); recurrent layers advance their state one step whatever the
+    position.  Each cross attention attends over ``memory`` (B, S, D),
+    one flash launch on CUDA tensors, its k and v recomputed from the
+    memory.  Expects parameters in ``cfg.compute_dtype``
+    (``cast_compute``), as the paged steps.  Returns logits (B, V) f32."""
+    h = embeds if embeds is not None else _embed(params, cfg, token[:, None])
 
     def attend(p, x, window, theta, key, r):
         return L.attention_decode(p, cfg, x, pos, window, theta,
@@ -396,5 +489,6 @@ def decode_step(params, cfg: ModelConfig, token, pos, cache):
         return _RECURRENT[mixer]["layer"](p, cfg, x,
                                           cache=_index(cache[key], r))[0]
 
-    h, _ = _run_stack(params, cfg, h, attend, recur)
+    h, _ = _run_stack(params, cfg, h, attend, recur, memory=memory,
+                      cross_kernel=True)
     return _logits(params, cfg, h)[:, 0]

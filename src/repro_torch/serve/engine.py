@@ -14,15 +14,22 @@ Differences from the reference:
     ``greedy_generate``'s prefill attention the CUDA flash-attention
     kernel; on ``"cpu"`` their plain PyTorch versions.  int8 pools take the
     gather path on either device, as in the reference.
-  * ``DecodeEngine`` and ``greedy_generate`` take decoder-only stacks:
-    attention and the recurrent families (jamba's Mamba layers, with or
-    without experts, xLSTM), with dense MLP or MoE FFNs;
-    ``PagedDecodeEngine`` takes the attention stacks, MoE included.
-    Encoder-decoder ``memory`` comes with that model family
-    (``_check_stack`` raises).  On ``"cuda"`` the prefill's Mamba scans
-    run the CUDA ``mamba_scan`` kernel.  An MoE step routes every row it
-    is given, pads and idle slots included, so capacity drops what the
+  * ``DecodeEngine`` and ``greedy_generate`` take attention and the
+    recurrent families (jamba's Mamba layers, with or without experts,
+    xLSTM), with dense MLP or MoE FFNs, decoder-only or encoder-decoder;
+    ``PagedDecodeEngine`` takes the decoder-only attention stacks, MoE
+    included (``init_paged_cache`` rejects an encoder-decoder stack, as
+    the reference's).  On ``"cuda"`` the prefill's Mamba scans run the
+    CUDA ``mamba_scan`` kernel.  An MoE step routes every row it is
+    given, pads and idle slots included, so capacity drops what the
     reference's step drops.
+  * an encoder-decoder model's ``memory`` (the output of ``encode``, in
+    the compute dtype) is a keyword after the port's other parameters,
+    moved to the engine's device; every decode step and the prefill
+    attend over it, each cross attention one flash launch on the card.
+    As in the reference, ``DecodeEngine``'s memory is (batch_slots, S,
+    D) and slot i attends to row i whatever request it holds;
+    ``greedy_generate``'s is (1, S, D).
   * parameters are cast to ``cfg.compute_dtype`` once, here, instead of on
     every step;
   * the caches are updated in place;
@@ -88,16 +95,19 @@ class DecodeEngine:
     carries its own position (ragged (B,) writes), a freed slot is refilled
     from the queue at once (its recurrent state zeroed) and ingests its
     prompt one token per step while the other slots generate.  One decode
-    call serves both phases."""
+    call serves both phases.  An encoder-decoder model's ``memory``
+    (batch_slots, S, D) is attended by every step: slot i reads row i,
+    whatever request it holds, as in the reference."""
 
     def __init__(self, params, cfg: ModelConfig, batch_slots: int,
                  max_seq: int, pad_token: int = 0, cache_dtype=None,
-                 device="cuda"):
+                 device="cuda", memory=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = T.cast_compute(_to_device(params, self.device), cfg)
         self.b = batch_slots
         self.max_seq = max_seq
+        self.memory = None if memory is None else memory.to(self.device)
         self.pad = pad_token
         self.cache_dtype = torch_dtype(cache_dtype if cache_dtype is not None
                                        else cfg.compute_dtype)
@@ -122,7 +132,8 @@ class DecodeEngine:
         """One decode call; returns the greedy token of every row."""
         dev = self.device
         logits = T.decode_step(self.params, self.cfg, _tensor(toks, dev),
-                               _tensor(pos, dev), self.cache)
+                               _tensor(pos, dev), self.cache,
+                               memory=self.memory)
         return logits.argmax(-1).to(torch.int32).cpu().numpy()
 
     def submit(self, req: Request):
@@ -418,23 +429,27 @@ class PagedDecodeEngine:
 
 @torch.no_grad()
 def greedy_generate(params, cfg: ModelConfig, prompt, max_new_tokens: int,
-                    device="cuda"):
+                    device="cuda", memory=None):
     """Single-sequence generation: one prefill over the whole prompt (on
-    the card each attention layer one flash-attention launch, each Mamba
-    layer one mamba_scan launch), the attention cache grown to prompt +
-    ``max_new_tokens``, then greedy decode.  Returns the
-    generated token ids; the first comes from the prefill, so at least one
-    is returned, as in the reference."""
+    the card each attention layer one flash-attention launch, each cross
+    attention over ``memory`` (1, S, D) one more, each Mamba layer one
+    mamba_scan launch), the attention cache grown to prompt +
+    ``max_new_tokens``, then greedy decode, each step attending over
+    ``memory`` too.  Returns the generated token ids; the first comes from
+    the prefill, so at least one is returned, as in the reference."""
     dev = resolve_device(device)
     params = T.cast_compute(_to_device(params, dev), cfg)
+    memory = None if memory is None else memory.to(dev)
     prompt = torch.as_tensor(np.asarray(prompt, np.int32), device=dev)[None]
     lp = prompt.shape[1]
-    logits, cache = T.prefill(params, cfg, prompt, last_only=True)
+    logits, cache = T.prefill(params, cfg, prompt, last_only=True,
+                              memory=memory)
     cache = T.pad_prefill_cache(cfg, cache, lp + max_new_tokens)
     tok = logits[:, -1].argmax(-1)
     out = [int(tok[0])]
     for i in range(max_new_tokens - 1):
-        logits = T.decode_step(params, cfg, tok, lp + i, cache)
+        logits = T.decode_step(params, cfg, tok, lp + i, cache,
+                               memory=memory)
         tok = logits.argmax(-1)
         out.append(int(tok[0]))
     return out

@@ -88,12 +88,20 @@ from repro_torch.train.losses import lm_loss
 
 
 def make_loss_fn(cfg, remat: bool = True):
-    """loss_fn(params, batch) -> scalar for ONE replica of a decoder-only
-    model; ``batch`` holds "tokens" and "labels".  ``remat`` recomputes
-    each super-block's activations in the backward pass (the reference's
-    default; the trainer CLI passes ``remat=False``)."""
+    """loss_fn(params, batch) -> scalar for ONE replica; ``batch`` holds
+    "labels" and "tokens" or "embeds" (B, L, D), and for an
+    encoder-decoder model "source_embeds" (B, S, D), which ``encode``
+    turns into the memory first, on the reference's ``_sdpa`` path
+    (``kernel=False``) so that autograd differentiates it.  ``remat``
+    recomputes each super-block's activations in the backward pass (the
+    reference's default; the trainer CLI passes ``remat=False``)."""
     def loss_fn(params, batch):
-        logits, aux = TM.forward(params, cfg, tokens=batch["tokens"],
+        memory = None
+        if cfg.is_encoder_decoder:
+            memory = TM.encode(params, cfg, embeds=batch["source_embeds"],
+                               kernel=False)
+        logits, aux = TM.forward(params, cfg, tokens=batch.get("tokens"),
+                                 embeds=batch.get("embeds"), memory=memory,
                                  remat=remat)
         return lm_loss(logits, batch["labels"], aux)
 

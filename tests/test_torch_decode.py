@@ -343,8 +343,9 @@ def test_dense_entry_points_default_to_cuda_and_raise_without_it():
 def test_dense_engine_rejects_recurrent_stacks():
     """The dense engine serves jamba ``.reduced()`` with its experts (MoE
     FFNs inside the hybrid Mamba stack: tokens against JAX in
-    tests/test_torch_moe.py) and still rejects a hybrid encoder-decoder
-    stack."""
+    tests/test_torch_moe.py) and a hybrid encoder-decoder stack with the
+    encoder's memory (against JAX in tests/test_torch_encdec.py), which
+    the paged cache rejects with the reference's message."""
     from repro_torch.configs import get_config
 
     jamba = dataclasses.replace(get_config("jamba-1.5-large-398b").reduced(),
@@ -358,10 +359,22 @@ def test_dense_engine_rejects_recurrent_stacks():
     (done,) = eng.run()
     assert done.done and len(done.generated) == 2
     enc_dec = dataclasses.replace(jamba, num_experts=0,
-                                  is_encoder_decoder=True)
-    with pytest.raises(ValueError, match="encoder-decoder"):
-        TE.DecodeEngine(params, enc_dec, batch_slots=1, max_seq=8,
-                        device="cpu")
+                                  is_encoder_decoder=True,
+                                  num_encoder_layers=2)
+    params = TT.init_model(torch.Generator().manual_seed(1), enc_dec, "cpu")
+    memory = TT.encode(params, enc_dec, embeds=torch.randn(2, 5, 64),
+                       kernel=False)
+    eng = TE.DecodeEngine(params, enc_dec, batch_slots=2, max_seq=8,
+                          device="cpu", memory=memory)
+    for rid in range(3):
+        eng.submit(TE.Request(rid=rid, prompt=np.arange(1, 4, dtype=np.int32),
+                              max_new_tokens=2))
+    done = eng.run()
+    assert len(done) == 3 and all(r.done and len(r.generated) == 2
+                                  for r in done)
+    with pytest.raises(ValueError, match="paged cache does not support "
+                                         "encoder-decoder models"):
+        TT.init_paged_cache(enc_dec, num_pages=4, page_size=4, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 
 ``flash_attention_plain`` (PyTorch, CPU) is held against the Pallas kernel
 in interpret mode, on the shape, window and non-causal cases of
-tests/test_kernels.py, against the oracle ``flash_attention_ref`` on
+tests/test_kernels.py and on cross attention's (Lq != Lk), against the oracle ``flash_attention_ref`` on
 grouped (GQA) heads, and against the model's dense attention.  Inputs are
 made with numpy from a seed.  Tolerances are the JAX package's own: 2e-5
 in f32 and 2e-2 in bf16.  The CUDA kernel itself runs only on a card: its
@@ -89,6 +89,22 @@ def test_plain_matches_interpret_kernel_noncausal():
     out = fa.flash_attention_plain(*_torch(arrs, torch.float32),
                                    causal=False)
     _close(out, ref, 2e-5)
+
+
+@pytest.mark.parametrize("lq,lk", [(1, 300), (37, 300), (64, 130)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_plain_matches_interpret_kernel_cross(lq, lk, dtype):
+    """Cross attention's shapes: non-causal, Lq != Lk, a single query row
+    and ragged key tails (the Pallas kernel pads the keys and masks past
+    kv_len)."""
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(lq + lk)
+    arrs = [rng.standard_normal((2, 4, n, 64)).astype(np.float32)
+            for n in (lq, lk, lk)]
+    ref = pallas_flash(*_jax(arrs, jdt), causal=False, interpret=True)
+    out = fa.flash_attention_plain(*_torch(arrs, tdt), causal=False)
+    assert tuple(out.shape) == (2, 4, lq, 64)
+    _close(out, ref, tol)
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +245,24 @@ def test_tensor_core_numerics_match_plain_within_bf16_gate(b, h, kv, l, d,
     out = _tensor_core_emulation(q, k, v, causal, window)
     ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
     assert out.dtype == torch.bfloat16
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("b,h,kv,lq,lk,d", [
+    (1, 4, 4, 1, 300, 64),     # a decode step's cross attention
+    (2, 4, 2, 37, 130, 64),    # a tail q tile, GQA, ragged Lk
+    (1, 2, 1, 70, 200, 128),   # two q tiles, the second ragged
+])
+def test_tensor_core_numerics_cross_match_plain_within_bf16_gate(b, h, kv,
+                                                                 lq, lk, d):
+    """The bf16 kernel's tiles at Lq != Lk, non-causal: every q tile reads
+    every key tile, only the last edged by Lk."""
+    rng = np.random.default_rng(lq * lk)
+    q, k, v = _torch([rng.standard_normal(s).astype(np.float32) for s in
+                      ((b, h, lq, d), (b, kv, lk, d), (b, kv, lk, d))],
+                     torch.bfloat16)
+    out = _tensor_core_emulation(q, k, v, False, -1)
+    ref = fa.flash_attention_plain(q, k, v, causal=False)
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
 
 

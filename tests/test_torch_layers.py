@@ -31,13 +31,16 @@ ARCHS = ["qwen2-1.5b", "gemma3-1b"]
 # brings qk-norm, the sliding window (16 once reduced) and two rope thetas;
 # the MoE cuts keep their routing shape at a small width: granite 8 experts
 # top 4 with GQA, qwen2-moe 6 experts padded to 8, top 2, one shared
-# expert, MHA with qkv bias
+# expert, MHA with qkv bias; seamless an encoder-decoder with MHA (its
+# reduced 2 encoder layers), pixtral GQA
 TINY = {"qwen2-1.5b": dict(num_heads=4, num_kv_heads=2),
         "gemma3-1b": dict(num_heads=2, num_kv_heads=1),
         "granite-moe-1b-a400m": dict(num_heads=4, num_kv_heads=2,
                                      moe_d_ff=32, num_experts=8, top_k=4),
         "qwen2-moe-a2.7b": dict(num_heads=4, num_kv_heads=4, moe_d_ff=32,
-                                num_experts=6, expert_pad_to=8, top_k=2)}
+                                num_experts=6, expert_pad_to=8, top_k=2),
+        "seamless-m4t-medium": dict(num_heads=4, num_kv_heads=4),
+        "pixtral-12b": dict(num_heads=4, num_kv_heads=2)}
 
 
 def tiny_cfgs(arch, **over):

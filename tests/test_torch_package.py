@@ -105,7 +105,8 @@ def test_build_targets_sm90a_and_every_source():
 @pytest.mark.parametrize("name", ["qwen2-1.5b", "gemma3-1b", "qwen2.5-14b",
                                   "jamba-1.5-large-398b", "xlstm-125m",
                                   "deepseek-67b", "granite-moe-1b-a400m",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "seamless-m4t-medium",
+                                  "pixtral-12b"])
 def test_configs_copy_the_reference_field_for_field(name):
     ours, ref = get_config(name), jax_config(name)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
@@ -145,10 +146,14 @@ def test_config_members_are_the_reference_source(member):
 
 
 def test_config_registry_and_dtype_check():
+    from repro.configs import list_configs as jax_list_configs
+
     assert list_configs() == ["deepseek-67b", "gemma3-1b",
                               "granite-moe-1b-a400m", "jamba-1.5-large-398b",
-                              "qwen2-1.5b", "qwen2-moe-a2.7b", "qwen2.5-14b",
+                              "pixtral-12b", "qwen2-1.5b", "qwen2-moe-a2.7b",
+                              "qwen2.5-14b", "seamless-m4t-medium",
                               "xlstm-125m"]
+    assert list_configs() == jax_list_configs()
     with pytest.raises(KeyError):
         get_config("llama-7b")
     with pytest.raises(ValueError, match="supported precision"):
@@ -175,6 +180,30 @@ def test_qwen25_14b_reduced_tree_round_trips_bitwise():
     back = params_to_numpy(params_from_numpy(tree, "cpu"))
     for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
         assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+@pytest.mark.parametrize("name", ["seamless-m4t-medium", "pixtral-12b"])
+def test_encdec_and_vision_reduced_trees_round_trip_bitwise(name):
+    """seamless's encoder subtree (one layer's dict stacked over the
+    encoder layers) and cross leaves, and pixtral's untied head, in the
+    reference's tree layout, through the bridge and back: a pure copy."""
+    import jax
+
+    from repro.models import transformer as JT
+    from repro_torch.bridge import params_to_numpy
+
+    cfg = get_config(name).reduced()
+    ours = TT.init_model(torch.Generator().manual_seed(2), cfg, "cpu")
+    shapes = jax.eval_shape(lambda k: JT.init_model(k, jax_config(
+        name).reduced()), jax.random.PRNGKey(0))
+    tree = params_to_numpy(ours)
+    assert jax.tree.structure(tree) == jax.tree.structure(shapes)
+    for a, s in zip(jax.tree.leaves(tree), jax.tree.leaves(shapes)):
+        assert a.shape == s.shape and a.dtype == s.dtype
+    assert ("encoder" in tree) == cfg.is_encoder_decoder
+    back = params_to_numpy(params_from_numpy(tree, "cpu"))
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
         np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
 
 
