@@ -95,7 +95,18 @@ then drives the main paths through their entry points:
     the card against the CPU on a seamless cut (d_model 256, 2 + 2 layers,
     300 frames) and pixtral ``.reduced()``: ``encode``, logits, tokens, a
     4-slot ``DecodeEngine`` against ``greedy_generate`` row by row, the
-    loss and every leaf's gradient (``encdec_card_vs_cpu``).
+    loss and every leaf's gradient (``encdec_card_vs_cpu``);
+  * training the recurrent families: the trainer's body on
+    jamba-1.5-large without experts at full width, cut to one super-block
+    (8 layers, 8.9 B parameters: 1 attention, 7 Mamba), bf16-pure, SGD,
+    W = 1, 1 x 2048 tokens (``train_jamba``: each Mamba layer one launch
+    of ``mamba_scan`` and one of the backward kernel ``mamba_scan_bwd`` a
+    step), and on xlstm-125m whole in f32 under ``sync --compressor
+    onebit --fused-adam`` at W = 2 (``train_xlstm``: the sLSTM loop's
+    host share); and in f32 the card against the CPU on jamba
+    ``.reduced()`` with and without its experts and a 4-layer xlstm-125m
+    cut: the loss, every leaf's gradient, 3 train steps, and remat's
+    gradients bitwise (``recurrent_train_card_vs_cpu``).
 
 Each kernel's launches are counted from zero over the paths that run it,
 and each is timed against its bound, its plain version and one PyTorch
@@ -108,11 +119,21 @@ are checked bitwise on rows that drive both paths of their selection
 path is timed at the timing size; the build line counts the tensor-core
 instructions in each library's SASS (the bf16 flash kernel runs on
 wgmma: HGMMA).  The scan kernel's h_last is held bitwise against its
-plain version, its library must build without spills, and
-``time_mamba`` reports the SASS of its loop (instructions a state-step,
-MUFU.EX2); ``--mamba-before PATH`` builds an earlier design's
+plain version, its library must build without spills (its backward's
+too at N 8 and 16, every config's), and ``time_mamba`` reports the SASS
+of its loop (instructions a state-step, MUFU.EX2); ``--mamba-before
+PATH`` builds an earlier design's
 ``mamba_scan.cu`` beside it and times both in the same run
-(``ms_before``).  Each line of output is a JSON object, except the raw
+(``ms_before``).  The scan's backward kernel, which replaces no TPU
+kernel (the reference differentiates its jnp chunked scan), is held
+against its plain version on the same shapes in f32 and bf16, each output
+within a share of its largest value and bitwise across two calls
+(``kernel_check_mamba_bwd``), and timed at jamba's scan
+(``time_mamba_bwd``).  The CPU side of ``train_card_vs_cpu`` and
+``strategies_card_vs_cpu`` runs from the build on in a spawned worker at
+the lowest priority, beside the card's phases; each line of a phase it
+ran beside carries ``cpu_worker``, since its host-timed numbers shared
+the host's cores.  Each line of output is a JSON object, except the raw
 ``nvidia-smi --query-gpu=name,power.limit`` line just before the last;
 every JSON line but the last carries ``phase_s``, the wall seconds since
 the line before it; the last line is ``{"ok": true, "device": {...}}``.  Any failed phase
@@ -130,12 +151,15 @@ import gc
 import io
 import json
 import math
+import multiprocessing
 import os
+import queue
 import re
 import statistics
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -148,14 +172,26 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 _LAST_LINE = [time.perf_counter()]
+# the ``cpu_half`` worker while it runs, and whether it was alive at the
+# previous line
+_CPU_WORKER = {"proc": None, "alive": False}
 
 
 def emit(obj, phase_s=True):
     """Print ``obj`` as one JSON line; with ``phase_s``, add the wall
-    seconds since the previous line (the phase that emits it)."""
+    seconds since the previous line (the phase that emits it), and, where
+    the ``cpu_half`` worker ran during that phase, ``cpu_worker``:
+    "started", "alive" (the whole phase) or "ended".  Host-timed numbers
+    of such a line were taken beside the worker's threads."""
     now = time.perf_counter()
     if phase_s:
         obj = {**obj, "phase_s": now - _LAST_LINE[0]}
+        proc, was = _CPU_WORKER["proc"], _CPU_WORKER["alive"]
+        alive = proc is not None and proc.is_alive()
+        if was or alive:
+            obj["cpu_worker"] = ("alive" if was and alive else
+                                 "ended" if was else "started")
+        _CPU_WORKER["alive"] = alive
     _LAST_LINE[0] = now
     print(json.dumps(obj), flush=True)
 
@@ -1438,6 +1474,18 @@ def ptxas_functions(log):
     return out
 
 
+def bwd_spills(funcs):
+    """Spill bytes of the backward library's kernels by N (both dtypes
+    summed), from ``ptxas_functions``."""
+    out = {}
+    for name, f in funcs.items():
+        m = re.search(r"mamba_scan_bwd_kernel.*?Li(\d+)E", name)
+        if m:
+            n = int(m.group(1))
+            out[n] = out.get(n, 0) + f["spill_bytes"]
+    return out
+
+
 def scan_function(names):
     """The bf16, N = 16 scan kernel among mangled names: jamba's (its
     16-byte staging instance, ``kVec`` true, where the design has one)."""
@@ -2057,14 +2105,17 @@ TRAIN_W, TRAIN_B, TRAIN_L, TRAIN_LAYERS, TRAIN_STEPS = 4, 4, 64, 4, 10
 ZERO_STRATEGIES = ("sync_zero1", "sync_zero2", "sync_zero3")
 
 
-def meta_partition(get_config, layers, w=TRAIN_W, arch="qwen2-1.5b"):
-    """The ``PartitionedLayout`` of the stacked ``arch`` cut at full width,
-    built over meta tensors: shapes only, nothing allocated."""
+def meta_partition(get_config, layers, w=TRAIN_W, arch="qwen2-1.5b",
+                   cfg_over=None):
+    """The ``PartitionedLayout`` of the stacked ``arch`` cut at full width
+    (``cfg_over``: more config fields), built over meta tensors: shapes
+    only, nothing allocated."""
     from repro_torch.core.comm import LocalComm
     from repro_torch.core.fabric import Fabric
     from repro_torch.models import transformer as T
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              **(cfg_over or {}))
     comm = LocalComm(w)
     return Fabric(comm).partitioned_layout(comm.replicate(
         T.init_model(torch.Generator(), cfg, device="meta")))
@@ -2084,25 +2135,33 @@ def zero2_wire(flat, accum):
 # comm_events a step under the CLI's defaults (local_sgd averages every 8
 # steps, easgd every 4, gossip mixes both ways every step, downpour pushes
 # one replica in 4 a step)
-def events_closed_form(strategy, t):
+def events_closed_form(strategy, t, workers=TRAIN_W):
     if strategy in ("local_sgd", "easgd"):
         return float((t + 1) % {"local_sgd": 8, "easgd": 4}[strategy] == 0)
     if strategy == "gossip":
         return 2.0
     if strategy == "downpour":
-        return sum((t + w) % 4 == 0 for w in range(TRAIN_W)) / TRAIN_W
+        return sum((t + w) % 4 == 0 for w in range(workers)) / workers
     return 1.0
+
+
+def mamba_layers(cfg):
+    """Mamba layers of a config's stack: one scan launch each a forward."""
+    specs, repeat = cfg.superblock()
+    return sum(s.mixer == "mamba" for s in specs) * repeat
 
 
 def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
                layers=TRAIN_LAYERS, precision="f32", accum=1, depth=2,
                steps=TRAIN_STEPS, phase=None, profile=True,
-               arch="qwen2-1.5b"):
-    """The trainer CLI's body on ``arch`` at full width, depth cut, on the
-    card: each kernel's launch count set to 0 just before and read just
-    after.  Under the ZeRO strategies ``fused_adam`` runs once a shard
-    bucket, on ``(W, chunk)`` buckets.  Returns (result, the profiled last
-    step's summary or None)."""
+               arch="qwen2-1.5b", workers=TRAIN_W, batch=TRAIN_B,
+               seq_len=TRAIN_L, optimizer="adam", cfg_over=None):
+    """The trainer CLI's body on ``arch`` at full width, depth cut
+    (``cfg_over``: more config fields), on the card: each kernel's launch
+    count set to 0 just before and read just after.  Under the ZeRO
+    strategies ``fused_adam`` runs once a shard bucket, on ``(W, chunk)``
+    buckets.  A Mamba layer launches ``mamba_scan`` and ``mamba_scan_bwd``
+    once a replica a step (the CLI trains without remat).  Returns (result, the profiled last step's summary or None)."""
     from repro_torch.core.comm import LocalComm
     from repro_torch.core.compression import get_compressor
     from repro_torch.core.fabric import Fabric
@@ -2113,15 +2172,18 @@ def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
     phase = phase or (f"train_{compressor}" if strategy == "sync" else
                       f"train_{strategy}")
     argv = ["--arch", arch, "--strategy", strategy, "--compressor",
-            compressor, "--fused-adam", "--workers", str(TRAIN_W),
-            "--batch-per-worker", str(TRAIN_B), "--seq-len", str(TRAIN_L),
+            compressor, "--fused-adam", "--workers", str(workers),
+            "--batch-per-worker", str(batch), "--seq-len", str(seq_len),
             "--steps", str(steps), "--log-every", "1",
             "--precision", precision, "--accum-steps", str(accum),
-            "--prefetch-depth", str(depth), "--device", "cuda"]
+            "--prefetch-depth", str(depth), "--optimizer", optimizer,
+            "--device", "cuda"]
     args = CLI.build_argparser().parse_args(argv)
-    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              **(cfg_over or {}))
     zero = strategy in ZERO_STRATEGIES
-    play = meta_partition(get_config, layers, arch=arch)
+    play = meta_partition(get_config, layers, w=workers, arch=arch,
+                          cfg_over=cfg_over)
     comp = None if compressor == "none" else (
         get_compressor("topk", ratio=0.01) if compressor == "topk"
         else get_compressor(compressor))
@@ -2147,10 +2209,10 @@ def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
         if t == 0:
             # the closed form: the f32 layout's bytes; a narrow wire halves
             # the uncompressed exchange, the compressors keep their format
-            fab = Fabric(LocalComm(TRAIN_W))
+            fab = Fabric(LocalComm(workers))
             lay = play.layout
             f32 = fab.wire_bytes(lay, comp) if comp else fab.flat_bytes(lay)
-            narrow = Fabric(LocalComm(TRAIN_W), wire_dtype=torch.bfloat16)
+            narrow = Fabric(LocalComm(workers), wire_dtype=torch.bfloat16)
             params = state["params"]
             rec["lay"] = (lay.n_buckets, lay.n_leaves, f32,
                           f32 / 2 if precision != "f32" and comp is None
@@ -2213,8 +2275,11 @@ def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
 
     n_buckets, n_leaves, f32_send, per_send, narrow_flat, pdtype = rec["lay"]
     applied = [o == 0.0 for o in rec["overflow"]]
-    expect = {"fused_adam": (n_buckets if zero else n_leaves) * sum(applied)}
-    shard_sizes = {TRAIN_W * c for c in play.shard_sizes}
+    expect = {"fused_adam": (n_buckets if zero else n_leaves) * sum(applied)
+              if optimizer == "adam" else 0,
+              "mamba_scan": mamba_layers(cfg) * workers * accum * steps,
+              "mamba_scan_bwd": mamba_layers(cfg) * workers * accum * steps}
+    shard_sizes = {workers * c for c in play.shard_sizes}
     if zero and adam_sizes != shard_sizes:
         raise AssertionError(f"{phase}: fused_adam ran on {adam_sizes} "
                              f"elements, not the shard buckets "
@@ -2248,7 +2313,7 @@ def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
         raise AssertionError(f"{phase}: replica divergence {rec['div']} "
                              f"(must be 0 at steps {list(zero_div)})")
     # a skipped boundary ships nothing
-    events = [events_closed_form(strategy, t) * float(applied[t])
+    events = [events_closed_form(strategy, t, workers) * float(applied[t])
               for t in range(steps)]
     wire_closed = [float(np.float32(per_send) * np.float32(e))
                    for e in events]
@@ -2269,16 +2334,17 @@ def train_path(kernels, get_config, smi, strategy="sync", compressor="none",
         "fused_adam_p_dtypes": sorted(adam_dtypes),
         "fused_adam_p_elements": sorted(adam_sizes),
         **({"fused_adam_bf16_leaf_vs_plain": leaf} if leaf else {}),
-        "workers": TRAIN_W, "batch_per_worker": TRAIN_B,
-        "seq_len": TRAIN_L, "accum_steps": accum, "prefetch_depth": depth,
-        "steps": steps, "fused_adam": True,
+        "workers": workers, "batch_per_worker": batch,
+        "seq_len": seq_len, "accum_steps": accum, "prefetch_depth": depth,
+        "steps": steps, "optimizer": optimizer,
+        "fused_adam": optimizer == "adam",
         "params_per_replica": cfg.param_count(),
         "n_buckets": n_buckets, "n_leaves": n_leaves,
         "launches": launches, "launches_expected": expect,
         "launches_per_step": {k: v / steps for k, v in launches.items()},
         "step_ms_median": step_ms,
         "step_ms_all": rec["ms"],
-        "tokens_per_s": TRAIN_W * TRAIN_B * TRAIN_L * accum
+        "tokens_per_s": workers * batch * seq_len * accum
         / (step_ms / 1e3),
         "loss": rec["loss"], "loss_scale": rec["scale"],
         "overflow": rec["overflow"], "wire_bytes": rec["wire"][0],
@@ -3553,7 +3619,8 @@ def profile_summary(prof, step_ms, phase):
     ours = {name: sum(e.self_device_time_total for e in events
                       if name in e.key) / 1e3
             for name in ("onebit_quant_packed_kernel",
-                         "topk_encode_ef_kernel", "fused_adam_kernel")}
+                         "topk_encode_ef_kernel", "fused_adam_kernel",
+                         "mamba_scan_kernel", "mamba_scan_bwd_kernel")}
     return {"phase": "profile_train", "train_phase": phase,
             "step_ms_under_profiler": step_ms,
             "device_ms_per_step": dev_ms,
@@ -3574,18 +3641,22 @@ def rel_diff(a, b):
     return abs(a - b) / abs(b) if b else abs(a)
 
 
-def card_vs_cpu_steps(get_config, strategy, compressor, w=2, steps=3,
-                      precision="f32", accum=1, batch=2, boom_step=None):
+def card_vs_cpu_steps(get_config, cpu_init, strategy, compressor, w=2,
+                      steps=3, precision="f32", accum=1, batch=2,
+                      boom_step=None, devices=("cuda", "cpu")):
     """The same initial state and batches through the train step on the
     card and on the CPU: qwen2-1.5b at full width cut to 2 layers, fused
     Adam, TF32 off, the strategy and policy as the CLI builds them,
     ``accum`` microbatches of ``batch`` sequences a replica a step.  At
     ``boom_step`` the loss is multiplied by inf (a boundary that must be
-    skipped).  Returns {device: (losses, divergences, wire bytes, seconds,
-    loss scales, overflows)}."""
+    skipped).  ``cpu_init`` keeps the replicated f32 parameters on the
+    CPU by W: one draw serves every case.  Returns {device: (losses,
+    divergences, wire bytes, seconds, loss scales, overflows)} for each
+    of ``devices``."""
     from repro_torch.core import tree as TT
     from repro_torch.core.comm import LocalComm
-    from repro_torch.core.precision import apply_policy, get_policy
+    from repro_torch.core.precision import (apply_policy, get_policy,
+                                            torch_dtype)
     from repro_torch.data.pipeline import DataConfig, microbatch_stack
     from repro_torch.launch import train as CLI
     from repro_torch.models import transformer as T
@@ -3611,13 +3682,21 @@ def card_vs_cpu_steps(get_config, strategy, compressor, w=2, steps=3,
 
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
                       batch_per_worker=batch, seed=3)
-    params = comm.replicate(T.init_model(torch.Generator().manual_seed(3),
-                                         cfg, device="cpu"))
+    if w not in cpu_init:  # every case starts from the same f32 draw
+        cpu_init[w] = comm.replicate(T.init_model(
+            torch.Generator().manual_seed(3), dataclasses.replace(
+                get_config("qwen2-1.5b"), num_layers=2), device="cpu"))
+    # init_model draws in f32 and casts: a bf16 policy's params are the
+    # f32 draw cast, bit for bit
+    pdt = torch_dtype(cfg.param_dtype)
+    params = TT.tree_map(lambda x: x.to(pdt) if x.is_floating_point()
+                         else x, cpu_init[w])
     runs = {}
-    for dev in ("cuda", "cpu"):
-        state = init_train_state(TT.tree_map(lambda x, d=dev: x.to(d),
-                                             params), opt, strat, comm,
-                                 policy=pol)
+    for dev in devices:
+        # a copy on both devices: the fused Adam updates in place
+        state = init_train_state(TT.tree_map(
+            lambda x, d=dev: x.to(d, copy=True), params), opt, strat, comm,
+            policy=pol)
         step = make_replica_train_step(loss_fn, opt, strat, comm,
                                        policy=pol, accum_steps=accum)
         losses, divs, wires, scales, overflows = [], [], [], [], []
@@ -3648,14 +3727,87 @@ def card_vs_cpu_steps(get_config, strategy, compressor, w=2, steps=3,
 CARD_VS_CPU_TOL = {"f32": 1e-4, "bf16": 1e-4}
 
 
-def train_card_vs_cpu(get_config, cases, phase):
-    """``cases``: (strategy, compressor, options of ``card_vs_cpu_steps``).
-    Wire bytes, loss scales and skipped boundaries must be identical."""
+# the two phases' cases: (strategy, compressor, options of
+# ``card_vs_cpu_steps``)
+CARD_VS_CPU_CASES = {
+    "train_card_vs_cpu": [
+        ("sync", "onebit", {}),
+        ("sync", "none", {"accum": 2, "batch": 1, "steps": 2}),
+        ("sync", "onebit", {"precision": "bf16", "accum": 2, "batch": 1,
+                            "boom_step": 1})],
+    "strategies_card_vs_cpu": [("downpour", "onebit", {}),
+                               ("ssp", "none", {})]}
+# threads of the worker that runs those cases' CPU side; the card's phases
+# keep the rest of the host's 8 cores
+CPU_HALF_THREADS = 6
+
+
+def cpu_half(results, threads):
+    """Run in a spawned worker while the card's phases run: the CPU side
+    of every CARD_VS_CPU_CASES case, put on ``results`` as ("ok", {phase:
+    [CPU run of each case]}) or ("error", traceback).  It runs at the
+    lowest priority, so the card's phases' host threads go first, and
+    reaches no CUDA call (it would make the worker a context on the
+    card)."""
+    try:
+        os.nice(19)
+        sys.path.insert(0, str(ROOT / "src"))
+        from repro_torch.configs import get_config
+
+        torch.set_num_threads(threads)
+        cpu_init = {}
+        results.put(("ok", {
+            phase: [card_vs_cpu_steps(get_config, cpu_init, strategy,
+                                      compressor, devices=("cpu",),
+                                      **kw)["cpu"]
+                    for strategy, compressor, kw in cases]
+            for phase, cases in CARD_VS_CPU_CASES.items()}))
+    except Exception:  # the parent raises it
+        results.put(("error", traceback.format_exc()))
+
+
+def start_cpu_half():
+    """The ``cpu_half`` worker (daemonic: it ends with this process) and
+    the queue it answers on; ``emit`` marks each line it runs beside."""
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    proc = ctx.Process(target=cpu_half, args=(results, CPU_HALF_THREADS),
+                       daemon=True)
+    proc.start()
+    _CPU_WORKER["proc"] = proc
+    return proc, results
+
+
+def cpu_half_result(proc, results):
+    """The worker's runs, waiting for them; raises on its error or if it
+    died without an answer."""
+    while True:
+        try:
+            status, value = results.get(timeout=10)
+            break
+        except queue.Empty:
+            if not proc.is_alive():
+                raise RuntimeError(f"the CPU worker exited with code "
+                                   f"{proc.exitcode} and no result")
+    proc.join(timeout=60)
+    if status != "ok":
+        raise RuntimeError(f"the CPU worker failed:\n{value}")
+    return value
+
+
+def train_card_vs_cpu(get_config, phase, cpu_init, cpu_runs):
+    """The cases of ``CARD_VS_CPU_CASES[phase]`` on the card, from the
+    parameters ``cpu_init`` keeps, against ``cpu_runs``, their CPU side
+    (``cpu_half``'s).  Wire bytes, loss scales and skipped boundaries must
+    be identical."""
     out = {"phase": phase, "arch": "qwen2-1.5b", "layers": 2, "workers": 2,
-           "fused_adam": True, "tol_rel": CARD_VS_CPU_TOL, "cases": {}}
-    for strategy, compressor, kw in cases:
-        runs = card_vs_cpu_steps(get_config, strategy, compressor, **kw)
-        cuda, cpu = runs["cuda"], runs["cpu"]
+           "fused_adam": True, "tol_rel": CARD_VS_CPU_TOL,
+           "cpu_side": f"a spawned worker, {CPU_HALF_THREADS} threads at "
+                       "nice 19, beside the card's phases", "cases": {}}
+    for (strategy, compressor, kw), cpu in zip(CARD_VS_CPU_CASES[phase],
+                                               cpu_runs):
+        cuda = card_vs_cpu_steps(get_config, cpu_init, strategy, compressor,
+                                 devices=("cuda",), **kw)["cuda"]
         what = f"{strategy}+{compressor}" + "".join(
             f" {k}={v}" for k, v in kw.items())
         tol = CARD_VS_CPU_TOL[kw.get("precision", "f32").split("-")[0]]
@@ -4633,13 +4785,13 @@ def greedy_pixtral(fl, T, L, cfg, smi):
     return out
 
 
-def loss_and_grads(LOOP, TR, params, cfg, batch):
-    """``make_loss_fn``'s loss (no remat) and the gradient of every leaf of
+def loss_and_grads(LOOP, TR, params, cfg, batch, remat=False):
+    """``make_loss_fn``'s loss and the gradient of every leaf of
     ``params``, on their device; a leaf the loss does not read (pixtral's
     ``embed`` under ``embeds``) gets zeros, as ``jax.grad`` gives."""
     leaves = [x.detach().clone().requires_grad_() for x in TR.leaves(params)]
     p = TR.unflatten(TR.flatten(params)[1], leaves)
-    loss = LOOP.make_loss_fn(cfg, remat=False)(p, batch)
+    loss = LOOP.make_loss_fn(cfg, remat=remat)(p, batch)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return loss.item(), [(torch.zeros_like(x) if g is None else g).cpu()
                          for x, g in zip(leaves, grads)]
@@ -4817,6 +4969,387 @@ def encdec_card_vs_cpu(fl, T, E, get_config):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# the scan's backward (a port-side kernel: the reference differentiates its
+# jnp chunked scan) and the recurrent families on the trainer
+# ---------------------------------------------------------------------------
+# each output of the backward kernel against the plain version's, as a
+# share of that output's largest |value|: f32 outputs (and the f32 dA, dD
+# of a bf16 run) 1e-4, the JAX package's Mamba tolerance; bf16 outputs
+# 1e-2, one bf16 rounding (2^-8 of the element) of values that agree in
+# f32 to ~1e-6
+MAMBA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+BWD_NAMES = ("du", "ddelta", "da", "db", "dc", "dd")
+
+
+def mamba_dy(rng, b, l, d, dtype):
+    return torch.from_numpy(rng.standard_normal(
+        (b, l, d), dtype=np.float32)).to("cuda").to(dtype)
+
+
+def mamba_bwd_err(ms, args, dy, what):
+    """Each output of the backward kernel against the plain version's:
+    ({name: max |kernel - plain| / max |plain|}, {name: max |kernel -
+    plain|}); raises outside MAMBA_BWD_TOL, on a wrong dtype or shape, or
+    when a second call is not bitwise the first."""
+    got = ms.mamba_scan_bwd(*args, dy)
+    again = ms.mamba_scan_bwd(*args, dy)
+    want = ms.mamba_scan_bwd_plain(*args, dy)
+    torch.cuda.synchronize()
+    errs, abs_errs = {}, {}
+    for name, g, a2, w in zip(BWD_NAMES, got, again, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"mamba_scan_bwd {what}: {name} {g.dtype}"
+                                 f"{tuple(g.shape)}, plain {w.dtype}"
+                                 f"{tuple(w.shape)}")
+        if not torch.equal(g, a2):
+            raise AssertionError(f"mamba_scan_bwd {what}: {name} differs "
+                                 "between two calls on the same inputs")
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        errs[name] = err / scale if scale else err
+        abs_errs[name] = err
+        if not errs[name] <= MAMBA_BWD_TOL[g.dtype]:
+            raise AssertionError(f"mamba_scan_bwd {what}: {name} leaves "
+                                 f"{MAMBA_BWD_TOL[g.dtype]} of its largest "
+                                 f"(max abs err {err}, largest {scale})")
+    return errs, abs_errs
+
+
+def check_mamba_bwd(ms):
+    """The backward kernel against its plain version on the card, f32 and
+    bf16: the reference's sweep shapes and the long case, the narrow B/C
+    shapes of MAMBA_RAGGED (ragged D, B/C at odd columns) and jamba's
+    prefill shape with B/C strided slices of the x_proj output; two calls
+    bitwise equal."""
+    err, abs_err = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        shapes = [s + (0, None) for s in MAMBA_SHAPES] \
+            + [JAMBA_SCAN + (JAMBA_DT_RANK, None)] \
+            + [s[:4] + (0, s[4]) for s in MAMBA_RAGGED]
+        for si, (b, l, d, n, r, cols) in enumerate(shapes):
+            rng = np.random.default_rng(60 + si)
+            args = mamba_inputs(rng, b, l, d, n, dt, dt_rank=r, bc_cols=cols)
+            dy = mamba_dy(rng, b, l, d, dt)
+            what = f"B={b} L={l} D={d} N={n}" + (" model layout" if r else "") \
+                + (f" B/C at columns {cols}" if cols else "")
+            key = f"{str(dt)[6:]} {what}"
+            err[key], abs_err[key] = mamba_bwd_err(ms, args, dy, what)
+            del args, dy
+            torch.cuda.empty_cache()
+    worst, worst_abs = {}, {}
+    for dt in MAMBA_BWD_TOL:
+        key = str(dt)[6:]
+        worst[key] = max(max(e.values()) for k, e in err.items()
+                         if k.startswith(key))
+        worst_abs[key] = max(max(e.values()) for k, e in abs_err.items()
+                             if k.startswith(key))
+    return {"phase": "kernel_check_mamba_bwd", "cases": len(err),
+            "state_dims": list(ms.STATE_DIMS),
+            "max_rel_err_f32": worst["float32"],
+            "tol_f32": MAMBA_BWD_TOL[torch.float32],
+            "max_rel_err_bf16": worst["bfloat16"],
+            "tol_bf16": MAMBA_BWD_TOL[torch.bfloat16],
+            "max_abs_err": max(worst_abs.values()),
+            "max_abs_err_by_dtype": worst_abs,
+            "deterministic": True,
+            "tol_note": "each output: max |kernel - plain| over its largest "
+                        "|plain|; bf16 outputs 1e-2, f32 outputs (dA and dD "
+                        "always) 1e-4; two calls torch.equal",
+            "max_rel_err_per_case": err}
+
+
+def time_mamba_bwd(ms, launches, smi):
+    """The backward at jamba's scan (bf16, B/C slices of the x_proj
+    output), L2 flushed before each call: the wrapper (the kernel and the
+    fixed-order sums of its partials) by events in two turns, the kernel
+    alone by the profiler's device time, the plain version once; the
+    output held against the plain version's."""
+    b, l, d, n = JAMBA_SCAN
+    rng = np.random.default_rng(10)
+    args = mamba_inputs(rng, b, l, d, n, torch.bfloat16,
+                        dt_rank=JAMBA_DT_RANK)
+    dy = mamba_dy(rng, b, l, d, torch.bfloat16)
+    flush = l2_flush()
+    saved = ms.mamba_scan_bwd.launches
+
+    def call():
+        return ms.mamba_scan_bwd(*args, dy)
+
+    plain_ms = cuda_ms(lambda: ms.mamba_scan_bwd_plain(*args, dy), 1, flush)
+    turns = [cuda_ms(call, 20, flush)]
+    dev = profiled_ms(call, 5, flush, "mamba_scan_bwd_kernel")
+    turns.append(cuda_ms(call, 20, flush))
+    if turn_spread(turns) > TURN_SPREAD:
+        raise AssertionError(f"mamba_scan_bwd: the timing turns disagree: "
+                             f"{turns} ms")
+    errs, _ = mamba_bwd_err(ms, args, dy, "jamba prefill shape (time)")
+    ms.mamba_scan_bwd.launches = saved  # timing launches are not the path's
+    # read u, delta, dy, B, C, D (bf16) and A (f32); write du, ddelta, dB,
+    # dC (bf16), dA and dD (f32)
+    nbytes = (5 * b * l * d * 2 + 4 * b * l * n * 2 + d * n * 4 + d * 2
+              + d * n * 4 + d * 4)
+    exps = b * l * d * n  # abar_t once for every state and step
+    b_ms, o_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * exps / SFU_EXP_PER_S
+    kernel_ms = statistics.mean(turns)
+    del args, dy, flush
+    torch.cuda.empty_cache()
+    return {"phase": "time_mamba_bwd", "name": "mamba_scan_bwd",
+            "shape": {"B": b, "L": l, "D": d, "N": n, "dtype": "bfloat16",
+                      "b_c": "slices of a (B, L, dt_rank + 2N) tensor"},
+            "ms": kernel_ms, "ms_turns": turns,
+            "device_ms": sum(dev.values()) if dev else None,
+            "device_ms_by_kernel": dev, "plain_ms": plain_ms,
+            "max_rel_err": errs,
+            "tol": {str(k)[6:]: v for k, v in MAMBA_BWD_TOL.items()},
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes the gradient "
+                            "of a selective scan",
+            "bytes": nbytes, "exps": exps, "bound_ms": max(b_ms, o_ms),
+            "bound_by": "operations" if o_ms >= b_ms else "bytes",
+            "bytes_ms": b_ms, "exps_ms": o_ms,
+            "design_exps_ms": 2 * o_ms,
+            "design_note": "the kernel takes 2 exps a state-step (forward "
+                           "sweep and recomputation)",
+            "launches_on_main_path": launches, "card": smi}
+
+
+# bytes a jamba trainer step holds at its peak, as counted before the run:
+# params, the stacked gradient, autograd's own gradient and the optimizer's
+# new params (SGD builds the new tree before the old one goes), all bf16
+def jamba_train_bytes(cfg):
+    return 4 * 2 * cfg.param_count()
+
+
+def train_jamba(kernels, get_config, smi):
+    """The trainer's body on jamba-1.5-large-398b without experts at full
+    width, cut to one super-block (8 layers: 1 attention, 7 Mamba, 8 dense
+    MLPs), ``--precision bf16-pure --optimizer sgd --workers 1``, 1 x 2048
+    tokens, 3 steps.  ``local_sgd``: at W = 1 it is ``sync`` without the
+    exchange, and within 3 steps it averages never; ``sync``'s exchange
+    would hold every gradient again as f32 buckets, twice (the Fabric
+    widens to f32, then rounds to the wire and back), 71 GB for these
+    8.9 B parameters.  Gates: ``mamba_scan`` and ``mamba_scan_bwd`` 7
+    launches a step each; the loss finite (``train_path``'s gates)."""
+    arch = "jamba-1.5-large-398b"
+    over = {"num_experts": 0}
+    cfg = dataclasses.replace(get_config(arch), num_layers=8, **over)
+    count = jamba_train_bytes(cfg)
+    if count > 75e9:
+        raise AssertionError(f"train_jamba: {count / 1e9:.1f} GB counted")
+    result, prof = train_path(kernels, get_config, smi,
+                              strategy="local_sgd", layers=8,
+                              precision="bf16-pure", steps=3,
+                              phase="train_jamba", arch=arch, workers=1,
+                              batch=1, seq_len=2048, optimizer="sgd",
+                              cfg_over=over)
+    per_step = {k: v / 3 for k, v in result["launches"].items()}
+    if per_step["mamba_scan"] != 7 or per_step["mamba_scan_bwd"] != 7:
+        raise AssertionError(f"train_jamba: launches a step {per_step}")
+    scan = prof["port_kernels_ms"]
+    result.update(params_b=cfg.param_count() / 1e9,
+                  mamba_layers=mamba_layers(cfg),
+                  bytes_counted_gb=count / 1e9,
+                  scan_bwd_share_of_device=scan["mamba_scan_bwd_kernel"]
+                  / prof["device_ms_per_step"],
+                  scan_fwd_share_of_device=scan["mamba_scan_kernel"]
+                  / prof["device_ms_per_step"])
+    return result, prof
+
+
+def train_xlstm(kernels, get_config, smi):
+    """xlstm-125m whole (12 layers: 6 mLSTM, 6 sLSTM, full width), f32,
+    ``sync --compressor onebit --fused-adam``, W = 2, 2 x 256 tokens a
+    replica, 5 steps: ``train_path``'s wire, events, divergence and launch
+    gates (no scan launch: xLSTM has no Mamba layer).  The host clock
+    around each sLSTM layer's forward (no synchronize: the time its loop
+    takes to launch its kernels) gives the loop's host share of a step.
+    Not profiled: a step launches ~225,000 kernels, and reading such a
+    trace took ~140 s on the H100's host."""
+    from repro_torch.models import transformer as T
+
+    layer = T._RECURRENT["slstm"]["layer"]
+    host = {"s": 0.0, "calls": 0}
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = layer(*args, **kw)
+        host["s"] += time.perf_counter() - t0
+        host["calls"] += 1
+        return out
+
+    T._RECURRENT["slstm"]["layer"] = timed
+    try:
+        result, _ = train_path(kernels, get_config, smi,
+                               compressor="onebit", layers=12, steps=5,
+                               phase="train_xlstm", arch="xlstm-125m",
+                               workers=2, batch=2, seq_len=256,
+                               profile=False)
+    finally:
+        T._RECURRENT["slstm"]["layer"] = layer
+    per_step = 1e3 * host["s"] / result["steps"]
+    result.update(slstm_forward_calls=host["calls"],
+                  slstm_forward_host_ms_per_step=per_step,
+                  slstm_forward_share_of_step=per_step
+                  / result["step_ms_median"],
+                  slstm_note="the host time of the sLSTM layers' forward "
+                  "(6 layers x 2 replicas x 256 steps a train step); their "
+                  "backward runs in autograd's engine and is not timed")
+    return result, None
+
+
+def recurrent_train_card_vs_cpu(get_config, smi):
+    """f32, TF32 off, the same parameters and batches on the card and the
+    CPU: jamba ``.reduced()`` with its experts (16 layers) and without
+    (one super-block, 8 layers), xlstm-125m at full width cut to 4 layers
+    (its sLSTM weights made contractive, ``contractive_slstm``).  One
+    ``make_loss_fn`` loss and gradient (2 x 64 tokens): loss within 1e-4,
+    every leaf within GRAD_RTOL of its largest |g|; then 3 steps of
+    ``make_replica_train_step`` (``sync``, W = 2, SGD at lr 1e-2: Adam's
+    first update, lr * sign(g), would turn last-bit differences on
+    elements near 0 into whole steps, tests/test_torch_recurrent_train.py),
+    each step's loss within 1e-4.  On the card each Mamba layer launches
+    the scan and its backward once a gradient; on the jamba cut the
+    gradients with remat (the scan twice) must be ``torch.equal`` to those
+    without, except on a leaf whose two runs without remat differ
+    themselves (an atomic sum), where rtol 1e-5 holds."""
+    from repro_torch.core import tree as TR
+    from repro_torch.core.comm import LocalComm
+    from repro_torch.core.strategies import get_strategy
+    from repro_torch.data.pipeline import DataConfig, microbatch_stack
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import sgd
+    from repro_torch.train import loop as LOOP
+
+    jamba = get_config("jamba-1.5-large-398b").reduced()
+    cases = [("jamba_moe", jamba, 41),
+             ("jamba", dataclasses.replace(jamba, num_experts=0,
+                                           num_layers=8), 42),
+             ("xlstm", dataclasses.replace(get_config("xlstm-125m"),
+                                           num_layers=4), 43)]
+    out = {"phase": "recurrent_train_card_vs_cpu", "dtype": "float32",
+           "tol_loss_rel": 1e-4, "grad_tol_of_leaf_max": GRAD_RTOL,
+           "steps": 3, "workers": 2, "optimizer": "sgd lr 1e-2",
+           "archs": {}}
+    launches = {"mamba_scan": 0, "mamba_scan_bwd": 0}
+    for name, cfg, seed in cases:
+        params = T.init_model(torch.Generator().manual_seed(seed), cfg,
+                              device="cpu")
+        params = contractive_slstm(params, cfg)
+        rng = np.random.default_rng(seed)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                          batch_per_worker=2, seed=seed)
+        lf = LOOP.make_loss_fn(cfg, remat=False)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            prm = _tree(params, lambda t, d=dev: t.to(d))
+            batch = {"tokens": toks.to(dev), "labels": toks.to(dev)}
+            ms.mamba_scan.launches = ms.mamba_scan_bwd.launches = 0
+            t0 = time.perf_counter()
+            loss, grads = loss_and_grads(LOOP, TR, prm, cfg, batch)
+            got = (ms.mamba_scan.launches, ms.mamba_scan_bwd.launches)
+            want = (mamba_layers(cfg), mamba_layers(cfg)) \
+                if dev == "cuda" else (0, 0)
+            if got != want:
+                raise AssertionError(f"{name} on {dev}: scan launches "
+                                     f"(forward, backward) {got}, expected "
+                                     f"{want}")
+            comm = LocalComm(2)
+            opt = sgd(1e-2)
+            strat = get_strategy("sync")
+            state = LOOP.init_train_state(comm.replicate(prm), opt, strat,
+                                          comm)
+            step = LOOP.make_replica_train_step(
+                lambda p, x: lf(p, {"tokens": x, "labels": x}), opt, strat,
+                comm)
+            losses = []
+            for t in range(3):
+                state, m = step(state, microbatch_stack(dcfg, 2, t, 1,
+                                                        device=dev)[0])
+                losses.append(float(m["loss"]))
+            res[dev] = {"loss": loss, "grads": grads, "losses": losses,
+                        "s": time.perf_counter() - t0}
+            if dev == "cuda":
+                launches["mamba_scan"] += ms.mamba_scan.launches
+                launches["mamba_scan_bwd"] += ms.mamba_scan_bwd.launches
+            del prm, state, step
+        a, b = res["cuda"], res["cpu"]
+        loss_rel = rel_diff(a["loss"], b["loss"])
+        step_rel = max(rel_diff(x, y) for x, y in zip(a["losses"],
+                                                      b["losses"]))
+        if not (loss_rel <= 1e-4 and step_rel <= 1e-4):
+            raise AssertionError(f"{name} card vs CPU: loss {a['loss']} vs "
+                                 f"{b['loss']}, steps {a['losses']} vs "
+                                 f"{b['losses']}")
+        paths = [".".join(x) for x in _paths(params)]
+        ratios = grads_close(name, paths, a["grads"], b["grads"])
+        entry = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                 "experts": cfg.num_experts,
+                 "mamba_layers": mamba_layers(cfg), "tokens": [2, 64],
+                 "loss_card": a["loss"], "loss_cpu": b["loss"],
+                 "loss_rel_diff": loss_rel, "step_losses_card": a["losses"],
+                 "step_losses_cpu": b["losses"],
+                 "step_loss_max_rel_diff": step_rel,
+                 "grad_leaves": len(paths),
+                 "grad_max_err_over_leaf_max": max(ratios.values()),
+                 "worst_leaves": dict(sorted(ratios.items(),
+                                             key=lambda kv: -kv[1])[:4]),
+                 "cuda_s": a["s"], "cpu_s": b["s"]}
+        if name == "jamba":
+            entry["remat"] = remat_equal(LOOP, TR, ms, params, cfg, toks)
+            launches["mamba_scan"] += entry["remat"]["scan_launches"]
+            launches["mamba_scan_bwd"] += entry["remat"]["bwd_launches"]
+        out["archs"][name] = entry
+        del params, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches_on_card"] = launches
+    out["card"] = smi
+    return out, launches
+
+
+def remat_equal(LOOP, TR, ms, params, cfg, toks):
+    """On the card: the gradients with remat (each Mamba layer's scan
+    launched twice, its backward once) against those without, run twice
+    without remat to tell an atomic sum's own spread from remat's."""
+    prm = _tree(params, lambda t: t.to("cuda"))
+    batch = {"tokens": toks.to("cuda"), "labels": toks.to("cuda")}
+    runs, total = {}, [0, 0]
+    for key, remat in (("plain", False), ("remat", True), ("again", False)):
+        ms.mamba_scan.launches = ms.mamba_scan_bwd.launches = 0
+        runs[key] = loss_and_grads(LOOP, TR, prm, cfg, batch, remat=remat)
+        if key == "remat":
+            scan = (ms.mamba_scan.launches, ms.mamba_scan_bwd.launches)
+        total[0] += ms.mamba_scan.launches
+        total[1] += ms.mamba_scan_bwd.launches
+    n = mamba_layers(cfg)
+    if scan != (2 * n, n):
+        raise AssertionError(f"remat: scan launches (forward, backward) "
+                             f"{scan}, expected {(2 * n, n)}")
+    paths = [".".join(x) for x in _paths(params)]
+    differ, nondet, worst = [], [], 0.0
+    for path, a, b, c in zip(paths, runs["remat"][1], runs["plain"][1],
+                             runs["again"][1]):
+        if not torch.equal(c, b):
+            nondet.append(path)
+        if not torch.equal(a, b):
+            differ.append(path)
+            worst = max(worst, ((a - b).abs().max()
+                                / b.abs().max().clamp_min(1e-30)).item())
+    bad = [p for p in differ if p not in nondet]
+    if bad or worst > 1e-5 or runs["remat"][0] != runs["plain"][0]:
+        raise AssertionError(f"remat: {bad or differ} differ (rel {worst}); "
+                             f"loss {runs['remat'][0]} vs "
+                             f"{runs['plain'][0]}")
+    return {"loss_equal": True, "leaves": len(paths),
+            "leaves_not_bitwise": differ,
+            "leaves_nondeterministic_without_remat": nondet,
+            "max_rel_diff": worst, "remat_scan_launches": list(scan),
+            "scan_launches": total[0], "bwd_launches": total[1]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--mamba-before", type=Path, default=None,
@@ -4852,10 +5385,11 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     libs = _build.build_all()
     # ptxas -v: registers and spill bytes (stores + loads) of each library
-    per_lib = {}
+    per_lib, per_func = {}, {}
     for name, path in sorted(libs.items()):
         log = path.with_suffix(".log")
-        funcs = ptxas_functions(log.read_text() if log.exists() else "")
+        funcs = per_func[name] = ptxas_functions(
+            log.read_text() if log.exists() else "")
         per_lib[name] = {"kernels": len(funcs),
                          "max_registers": max((f["registers"] or 0
                                                for f in funcs.values()),
@@ -4864,6 +5398,9 @@ def main(argv=None) -> int:
                                             for f in funcs.values()),
                          "tensor_core_instructions":
                              tensor_core_instructions(path, _build._nvcc())}
+    # the CPU side of the two largest card-vs-CPU phases runs from here on
+    # in a worker of its own, beside the card's phases
+    cpu_proc, cpu_results = start_cpu_half()
     emit({"phase": "build", "libs": sorted(libs),
           "s": time.perf_counter() - t,
           "kernels_compiled": sum(v["kernels"] for v in per_lib.values()),
@@ -4874,6 +5411,12 @@ def main(argv=None) -> int:
     if per_lib["mamba_scan"]["spill_bytes"]:
         raise AssertionError("the scan library spills: "
                              f"{per_lib['mamba_scan']}")
+    # the backward's N = 8 and 16 instances (every config's N is 16); its
+    # N = 4 ones, the reference's sweep only, spill at the 128-register cap
+    spills = bwd_spills(per_func["mamba_scan_bwd"])
+    if set(spills) != set(ms.STATE_DIMS) or spills[8] or spills[16]:
+        raise AssertionError(f"the backward's N = 8 or 16 kernels spill, or "
+                             f"are missing: {spills}")
     tc = per_lib["flash_attention"]["tensor_core_instructions"]
     if isinstance(tc, dict) and not tc["HGMMA"] + tc["HMMA"]:
         raise AssertionError("the flash library's SASS holds no tensor-core "
@@ -4891,6 +5434,8 @@ def main(argv=None) -> int:
     emit(check_fl)
     check_ms = check_mamba(ms)
     emit(check_ms)
+    check_mb = check_mamba_bwd(ms)
+    emit(check_mb)
 
     def bf16(name):
         return dataclasses.replace(get_config(name), param_dtype="bfloat16",
@@ -5019,6 +5564,23 @@ def main(argv=None) -> int:
         train_launches[k] += (result["launches"][k]
                               + result["one_batch"]["launches"][k])
     torch.cuda.empty_cache()
+    # the recurrent families on the trainer: jamba without experts at full
+    # width (one super-block), xlstm-125m whole; the scan's backward is a
+    # kernel of its own
+    rec_kernels = {**train_kernels, "mamba_scan": ms.mamba_scan,
+                   "mamba_scan_bwd": ms.mamba_scan_bwd}
+    bwd_launches = 0
+    for run in (train_jamba, train_xlstm):
+        result, prof = run(rec_kernels, get_config, smi)
+        emit(result)
+        if prof is not None:
+            emit(prof)
+        for k in train_launches:
+            train_launches[k] += result["launches"][k]
+        mamba_launches += result["launches"]["mamba_scan"]
+        bwd_launches += result["launches"]["mamba_scan_bwd"]
+        gc.collect()
+        torch.cuda.empty_cache()
     # the rest of the replica trainer: the bf16 policies with an f32
     # master (onebit) and without (bf16 p under fused Adam), microbatch
     # accumulation (each boundary one encode a bucket)
@@ -5069,15 +5631,16 @@ def main(argv=None) -> int:
     emit(finite_read_cost(get_config, smi))
     emit(prefetch(train_kernels, get_config, smi))
     emit(train_remat(get_config, smi))
-    emit(train_card_vs_cpu(get_config, [
-        ("sync", "onebit", {}),
-        ("sync", "none", {"accum": 2, "batch": 1, "steps": 2}),
-        ("sync", "onebit", {"precision": "bf16", "accum": 2, "batch": 1,
-                            "boom_step": 1})],
-        "train_card_vs_cpu"))
-    emit(train_card_vs_cpu(get_config, [("downpour", "onebit", {}),
-                                        ("ssp", "none", {})],
-                           "strategies_card_vs_cpu"))
+    cpu_runs = cpu_half_result(cpu_proc, cpu_results)
+    cpu_init = {}
+    for phase in CARD_VS_CPU_CASES:
+        emit(train_card_vs_cpu(get_config, phase, cpu_init,
+                               cpu_runs[phase]))
+    del cpu_init
+    result, rec_launches = recurrent_train_card_vs_cpu(get_config, smi)
+    emit(result)
+    mamba_launches += rec_launches["mamba_scan"]
+    bwd_launches += rec_launches["mamba_scan_bwd"]
 
     timing = time_kernel(pa, main_path_launches / serve_qwen["decode_steps"],
                          smi)
@@ -5093,6 +5656,8 @@ def main(argv=None) -> int:
     mamba_timing = time_mamba(ms, mamba_launches, smi,
                               before=opts.mamba_before)
     emit(mamba_timing)
+    bwd_timing = time_mamba_bwd(ms, bwd_launches, smi)
+    emit(bwd_timing)
 
     sources = {"onebit_quant_packed": ("onebit_quant.cu",
                                        "src/repro/kernels/onebit_quant.py:101"),
@@ -5184,6 +5749,24 @@ def main(argv=None) -> int:
         "spill_bytes": mamba_timing["build"]["this"]["spill_bytes"],
         "sass": mamba_timing["build"]["this"]["sass"],
         "sass_before": mamba_timing["build"].get("before", {}).get("sass"),
+    }, {
+        "name": "mamba_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:83",
+        "replaces_note": "no pallas_call: the gradient of the reference's "
+                         "jnp chunked scan, which jax.grad differentiates",
+        "launches": bwd_launches,
+        "max_abs_err": check_mb["max_abs_err"],
+        "max_rel_err_f32": check_mb["max_rel_err_f32"],
+        "tol_f32": check_mb["tol_f32"],
+        "max_rel_err_bf16": check_mb["max_rel_err_bf16"],
+        "tol_bf16": check_mb["tol_bf16"],
+        **{k: bwd_timing[k] for k in ("ms", "device_ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "design_exps_ms")},
+        "registers": per_lib["mamba_scan_bwd"]["max_registers"],
+        "spill_bytes": per_lib["mamba_scan_bwd"]["spill_bytes"],
+        "spill_bytes_by_state": bwd_spills(per_func["mamba_scan_bwd"]),
     }], "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

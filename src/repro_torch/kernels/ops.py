@@ -44,6 +44,12 @@ def mamba_scan(u, delta, a, b, c, d_skip):
     return fn(u, delta, a, b, c, d_skip)
 
 
+def mamba_scan_bwd(u, delta, a, b, c, d_skip, dy):
+    fn = _pick("mamba_scan_bwd", u, _mamba.mamba_scan_bwd,
+               _mamba.mamba_scan_bwd_plain)
+    return fn(u, delta, a, b, c, d_skip, dy)
+
+
 def onebit_quant_packed(g, r):
     fn = _pick("onebit_quant_packed", g, _onebit.onebit_quant_packed,
                _onebit.onebit_quant_packed_plain)

@@ -1,10 +1,14 @@
 """Trainer CLI: W stacked model replicas under any strategy of the
 spectrum (``sync``, ``sync_zero1``/``2``/``3``, ``sync_dgc``,
 ``local_sgd``, ``easgd``, ``ssp``, ``downpour``, ``gossip``) with optional
-compression, on one card.  ``--arch`` takes the decoder-only attention
-models of the registry, the MoE ones (granite-moe-1b-a400m,
-qwen2-moe-a2.7b) included: the router and the expert leaves are buckets
-like any other, and the loss adds the router's aux loss.
+compression, on one card.  ``--arch`` takes every decoder-only text
+model of the registry, as the reference's does: the attention models,
+the MoE ones (granite-moe-1b-a400m, qwen2-moe-a2.7b; the router and the
+expert leaves are buckets like any other, and the loss adds the router's
+aux loss) and the recurrent ones (jamba-1.5-large-398b, whose Mamba
+layers' scan and its gradient are CUDA kernels on the card, with or
+without its experts; xlstm-125m).  Encoder-decoder and vision models
+exit as the reference's do.
 
 Port of ``repro/launch/train.py`` (its replica-simulator mode), with the
 reference's flags, printed fields, ``--out`` JSON and exit-2 messages, and
@@ -25,10 +29,12 @@ reference's format; ``--resume auto`` restores the newest valid step of
 skips the batches before it (exit 2 when there is none, or when it does
 not fit the run).
 
-Example:
+Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --reduced --device cpu --zero-stage 1 --precision bf16 \\
       --accum-steps 2 --fused-adam --steps 20 --ckpt-dir /tmp/ck
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
+      --reduced --device cpu --compressor onebit --fused-adam --steps 10
 """
 
 from __future__ import annotations

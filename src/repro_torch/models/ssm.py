@@ -11,12 +11,23 @@ only the projections in and out run in the compute dtype.  Decode caches
 keep their recurrent leaves f32 even when the cache dtype is bf16
 (``init_*_cache`` takes the narrow dtype for the conv state only).
 
+Every layer trains: the full-sequence branches are differentiable, as in
+the reference, whose ``forward`` runs them under ``jax.grad``.  mLSTM's
+parallel form and sLSTM's loop are plain tensor code that autograd
+differentiates (the sLSTM loop launches its ~40 small kernels a step in
+both directions, where the reference runs ``lax.scan``).
+
 Differences from the reference:
   * Mamba's full-sequence scan is ``kernels.ops.mamba_scan``: on a CUDA
     tensor the hand-written kernel (one launch per Mamba layer), on a CPU
-    tensor its plain version.  The reference sums the recurrence with a
-    chunked associative scan (``_selective_scan_chunk``, ``ssm_chunk``
-    steps a chunk); the port sums it step by step.  The kernel forms
+    tensor its plain version.  It goes through
+    ``kernels.mamba_scan.MambaScan``, whose backward is the hand-written
+    ``mamba_scan_bwd`` kernel on the card (one launch per Mamba layer a
+    backward pass) and its plain version on the CPU; without a graph
+    (serving) it records and saves nothing.  The reference sums the
+    recurrence with a chunked associative scan (``_selective_scan_chunk``,
+    ``ssm_chunk`` steps a chunk) and differentiates that; the port sums it
+    step by step.  The kernel forms
     ``delta * u`` in f32, where the reference's model forms it in the
     compute dtype before its f32 cast: the same in f32, within bf16
     rounding in a bf16 model.  The single-token decode update keeps the
@@ -31,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels.mamba_scan import MambaScan
 from repro_torch.models.layers import dense_init, rms_norm
 
 NEG_INF = -2.0e38
@@ -113,7 +124,7 @@ def mamba(p, cfg: ModelConfig, x, cache=None, collect_cache=False):
         u_pre = u  # pre-conv activations: their tail is the conv state
         u, _ = _causal_conv(p, u)
         delta, bb, cc = _mamba_bcdt(p, cfg, u)
-        y, h_last = ops.mamba_scan(u, delta, a_mat, bb, cc, p["D"])
+        y, h_last = MambaScan.apply(u, delta, a_mat, bb, cc, p["D"])
         new_cache = None
         if collect_cache:
             kconv = cfg.ssm_conv_dim

@@ -22,9 +22,12 @@ Which stacks run where:
     reference's: attention ``{"k", "v"}``, Mamba ``{"conv", "ssm"}``,
     mLSTM ``{"C", "n", "m"}``, sLSTM ``{"c", "n", "h", "m"}``, the
     recurrent leaves f32 whatever the cache dtype;
-  * the training ``forward`` and the paged cache take attention-only
-    stacks, MoE FFNs included (training the recurrent families is a later
-    slice; recurrent state lives per slot on the dense engine, as in the
+  * the training ``forward`` takes every stack dense-cache serving
+    takes: attention, Mamba (its scan through ``MambaScan``, whose
+    backward is the ``mamba_scan_bwd`` kernel on the card), mLSTM and
+    sLSTM mixers, with dense MLP, MoE or no FFN;
+  * the paged cache takes attention-only stacks, MoE FFNs included
+    (recurrent state lives per slot on the dense engine, as in the
     reference);
   * encoder-decoder stacks (any of those mixers) run ``encode`` and the
     dense-cache entry points, whose decoder layers run mixer → cross
@@ -284,11 +287,12 @@ def forward(params, cfg: ModelConfig, tokens=None, positions=None,
     Returns (logits (B, L, V) f32, aux loss): the MoE router's
     load-balancing loss as ``_run_stack`` sums it, 0 for a dense stack.
     ``remat=True`` recomputes each super-block's activations in the
-    backward pass (``_run_stack``).  An encoder-decoder model needs the
+    backward pass (``_run_stack``): a Mamba layer's scan kernel then runs
+    twice a step.  Recurrent mixers run their full-sequence branch from
+    the zero state.  An encoder-decoder model needs the
     encoder's ``memory`` (B, S, D); its cross attention runs on ``_sdpa``,
     which autograd differentiates."""
-    _check_stack(cfg, ("the training forward",
-                       "training the recurrent families is a later slice"))
+    _check_stack(cfg)
     params = cast_compute(params, cfg)
     h = _embed(params, cfg, tokens, embeds)
     b, l = h.shape[:2]
@@ -303,7 +307,11 @@ def forward(params, cfg: ModelConfig, tokens=None, positions=None,
         return L.attention(p, cfg, x, positions, window, theta,
                            static_window=static)
 
-    h, aux = _run_stack(params, cfg, h, attend, remat=remat, memory=memory)
+    def recur(mixer, p, x, key, r):  # no cache: the full-sequence branch
+        return _RECURRENT[mixer]["layer"](p, cfg, x)[0]
+
+    h, aux = _run_stack(params, cfg, h, attend, recur, remat=remat,
+                        memory=memory)
     return _logits(params, cfg, h), aux
 
 

@@ -8,8 +8,10 @@ gradients and steps the optimizer.
 
 Per-replica gradients come from a loop over the W replicas with
 ``torch.autograd.grad``, each replica's parameters taken as views of the
-stacked leaves: one replica's activations and gradients are alive at a
-time, and the stacked gradient is written in place, so the peak holds one
+stacked leaves (every model family the forward takes, the recurrent ones
+included: a Mamba layer's scan brings its own backward kernel, and the
+step needs no logic of its own for it): one replica's activations and
+gradients are alive at a time, and the stacked gradient is written in place, so the peak holds one
 replica's temporaries instead of W of them (``torch.func.vmap`` over the
 stacked tree would hold all W).  The step mutates the train state it is
 given where the optimizer updates in place (``adam(fused=True)``), as the

@@ -344,6 +344,31 @@ def test_mamba_scan_argtypes_match_c_prototype():
     assert kinds.count(ctypes.c_void_p) == 9  # 8 tensors and the stream
 
 
+def test_mamba_scan_bwd_argtypes_match_c_prototype():
+    """The backward's B/C strides, its partial-block count and its
+    checkpoint count are 64-bit; 13 tensors and the stream are pointers."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    kinds = _c_argtypes("mamba_scan_bwd.cu", "mamba_scan_bwd")
+    assert kinds == ms._BWD_ARGTYPES
+    assert kinds.count(ctypes.c_longlong) == 6
+    assert kinds.count(ctypes.c_void_p) == 14
+
+
+def test_mamba_scan_bwd_block_shape_matches_the_kernel():
+    """The wrapper sizes the dB/dC partials and the checkpoint scratch from
+    BWD_THREADS and BWD_CHUNK; the kernel indexes them with its own
+    kThreads and kChunk."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    text = (Path(ms.__file__).parent / "csrc"
+            / "mamba_scan_bwd.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (kThreads|kChunk) = (\d+);",
+                             text))
+    assert consts == {"kThreads": str(ms.BWD_THREADS),
+                      "kChunk": str(ms.BWD_CHUNK)}
+
+
 def test_training_kernels_match_plain_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the H100; chip_smoke.py also "

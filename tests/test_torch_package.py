@@ -98,8 +98,8 @@ def test_build_targets_sm90a_and_every_source():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-shared" in flags and "-fPIC" in flags
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) \
-        == ["flash_attention", "fused_adam", "mamba_scan", "onebit_quant",
-            "paged_attention", "topk_sparsify"]
+        == ["flash_attention", "fused_adam", "mamba_scan", "mamba_scan_bwd",
+            "onebit_quant", "paged_attention", "topk_sparsify"]
 
 
 @pytest.mark.parametrize("name", ["qwen2-1.5b", "gemma3-1b", "qwen2.5-14b",

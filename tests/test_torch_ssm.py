@@ -43,6 +43,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import ssm as TS
 from repro_torch.models import transformer as TT
 from repro_torch.serve import engine as TE
+from repro_torch.train import loop as TLOOP
 
 pytestmark = pytest.mark.torch
 
@@ -478,6 +479,13 @@ def test_paged_cache_and_training_reject_recurrent_stacks(arch):
     _, tcfg = cfgs(arch)
     with pytest.raises(ValueError, match="use the dense DecodeEngine"):
         TT.init_paged_cache(tcfg, num_pages=4, page_size=4, device="cpu")
+    # the training forward takes the recurrent stacks since they train
+    # (tests/test_torch_recurrent_train.py holds them against jax.grad)
     params = TT.init_model(torch.Generator().manual_seed(0), tcfg, "cpu")
-    with pytest.raises(ValueError, match="training the recurrent"):
-        TT.forward(params, tcfg, torch.zeros((1, 4), dtype=torch.int32))
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    logits, aux = TT.forward(params, tcfg, toks)
+    assert logits.shape == (1, 4, tcfg.vocab_size)
+    loss = TLOOP.make_loss_fn(tcfg, remat=False)(
+        params, {"tokens": toks, "labels": toks})
+    assert torch.isfinite(logits).all() and torch.isfinite(loss)
+    assert float(aux) == 0.0
