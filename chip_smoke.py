@@ -106,7 +106,23 @@ then drives the main paths through their entry points:
     host share); and in f32 the card against the CPU on jamba
     ``.reduced()`` with and without its experts and a 4-layer xlstm-125m
     cut: the loss, every leaf's gradient, 3 train steps, and remat's
-    gradients bitwise (``recurrent_train_card_vs_cpu``).
+    gradients bitwise (``recurrent_train_card_vs_cpu``);
+  * data-parallel training across processes
+    (``repro_torch.train.loop.make_sharded_train_step`` over
+    ``repro_torch.core.comm.ShardComm``): the stacked ``LocalComm`` runs
+    first in this process, keeping only each leaf's sha256; then ONE
+    pool of 4 rank processes sharing the card over gloo (NCCL refuses
+    two ranks on one card; ``ShardComm`` stages CUDA tensors through
+    host memory): every comm primitive at 4 and 2 ranks bitwise
+    ``LocalComm``'s on the card, and a 4 MiB bucket's ms and GB/s
+    (``shard_comm``); on ranks 0 and 1, qwen2-1.5b at full width, 4
+    layers, 3 steps of sync, accumulation, 1-bit, top-k, ZeRO-1, ZeRO-2,
+    ZeRO-3 and ZeRO-1 under bf16, each rank's final state bitwise its
+    stacked replica's, the kernels' launches in the ranks, the wire a
+    step the closed form (``train_sharded``), and ``local_sgd``,
+    ``gossip`` and ``downpour`` 1-bit on 2 layers
+    (``sharded_strategies``); then one sync step over NCCL at world size
+    1 against the replica step (``nccl_world1``).
 
 Each kernel's launches are counted from zero over the paths that run it,
 and each is timed against its bound, its plain version and one PyTorch
@@ -5350,6 +5366,592 @@ def remat_equal(LOOP, TR, ms, params, cfg, toks):
             "scan_launches": total[0], "bwd_launches": total[1]}
 
 
+# ---------------------------------------------------------------------------
+# the sharded path: rank processes sharing the card over gloo
+# ---------------------------------------------------------------------------
+SHARD_W = 2  # ranks of train_sharded and sharded_strategies
+SHARD_POOL = 4  # the pool: shard_comm at 4 ranks, the rest on ranks 0-1
+SHARD_STEPS = 3
+SHARD_SEED = 25
+SHARD_LR = 1e-3
+# train_sharded: (zero stage, accum steps, compressor, precision)
+SHARD_CASES = {
+    "sync": (0, 1, None, "f32"),
+    "accum2": (0, 2, None, "f32"),
+    "onebit": (0, 1, "onebit", "f32"),
+    "topk": (0, 1, "topk", "f32"),
+    "zero1": (1, 1, None, "f32"),
+    "zero2_accum2": (2, 2, None, "f32"),
+    "zero3": (3, 1, None, "f32"),
+    "zero1_bf16_accum2": (1, 2, None, "bf16"),
+}
+# sharded_strategies on a 2-layer cut: (strategy kwargs, compressor)
+SHARD_STRATEGIES = {"local_sgd": ({"sync_every": 2}, None),
+                    "gossip": ({}, None),
+                    "downpour": ({"push_every": 2}, "onebit")}
+SHARD_STRATEGY_LAYERS = 2
+COMM_ROWS = (3, 40)  # the primitives' rows: 40 divides by 2 and 4
+
+
+def shard_cfg(get_config, layers, precision="f32"):
+    from repro_torch.core.precision import apply_policy, get_policy
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=layers)
+    return cfg if precision == "f32" else apply_policy(
+        cfg, get_policy(precision))
+
+
+def shard_init(cfg):
+    """The seeded full-width parameters, the same in every process."""
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device="cuda").manual_seed(SHARD_SEED)
+    return T.init_model(gen, cfg, "cuda")
+
+
+def shard_compressor(name):
+    from repro_torch.core.compression import get_compressor
+
+    if name is None:
+        return None
+    return get_compressor("topk", ratio=0.01) if name == "topk" \
+        else get_compressor(name)
+
+
+def shard_data(cfg):
+    from repro_torch.data.pipeline import DataConfig
+
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_L,
+                      batch_per_worker=TRAIN_B)
+
+
+def shard_strategy(name, comp_name):
+    from repro_torch.core import strategies as ST
+
+    kw, _ = SHARD_STRATEGIES[name]
+    comp = shard_compressor(comp_name)
+    return ST.get_strategy(name, **kw, **({"compressor": comp}
+                                          if comp is not None else {}))
+
+
+def leaf_digests(state):
+    """sha256 of every leaf's bytes, in tree order, but the step counter:
+    each leaf copied into pinned host memory and hashed in place, 8 leaves
+    at a time (hashlib lets go of the interpreter lock)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core import tree as TT
+
+    def one(x):
+        t = x.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+        host.copy_(t)
+        return hashlib.sha256(
+            memoryview(host.reshape(-1).numpy()).cast("B")).hexdigest()
+
+    leaves = TT.leaves({k: v for k, v in state.items() if k != "step"})
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(one, leaves))
+
+
+def comm_primitives(comm, x):
+    """Every ``Comm`` op of one tensor, by name (a rank's row under
+    ``ShardComm``, the stacked rows under ``LocalComm``)."""
+    out = {"all_gather_tiled": comm.all_gather([x], tiled=True)[0],
+           "ppermute_1": comm.ppermute([x], 1)[0],
+           "ppermute_-1": comm.ppermute([x], -1)[0],
+           "shard_chunk": comm.shard_chunk([x])[0],
+           "all_sum": comm.all_sum([x])[0],
+           "reduce_scatter_sum": comm.reduce_scatter([x])[0]}
+    if x.is_floating_point():
+        out["all_mean"] = comm.all_mean([x])[0]
+        out["reduce_scatter_mean"] = comm.reduce_scatter([x], mean=True)[0]
+    return out
+
+
+def comm_rows(world):
+    """(W, 3, 40) rows of f32, bf16 and uint8 on the card, from a seed."""
+    rng = np.random.default_rng(world)
+    f = torch.from_numpy(rng.standard_normal((world,) + COMM_ROWS)
+                         .astype(np.float32))
+    u = torch.from_numpy(rng.integers(0, 256, (world,) + COMM_ROWS)
+                         .astype(np.uint8))
+    return {"float32": f.cuda(), "bfloat16": f.to(torch.bfloat16).cuda(),
+            "uint8": u.cuda()}
+
+
+def comm_timing(comm, group):
+    """ms (median of 5 after a warm-up, the ranks released together by a
+    barrier) and GB/s of the bytes this rank hands to the backend, for
+    one ``DEFAULT_BUCKET_BYTES`` f32 bucket."""
+    import torch.distributed as dist
+
+    from repro_torch.core.fabric import DEFAULT_BUCKET_BYTES
+
+    n = DEFAULT_BUCKET_BYTES // 4
+    x = torch.randn(n, device="cuda")
+    shard = x[: n // comm.size].clone()
+    ops = {"all_mean": lambda: comm.all_mean([x]),
+           "gather_chunks": lambda: comm.gather_chunks([x]),
+           "all_gather_shard": lambda: comm.all_gather([shard], tiled=True),
+           "all_gather_bucket": lambda: comm.all_gather([x]),
+           "ppermute": lambda: comm.ppermute([x], 1)}
+    out = {}
+    for name, fn in ops.items():
+        times = []
+        for i in range(6):
+            dist.barrier(group=group)
+            torch.cuda.synchronize()
+            before = sum(v[1] for v in comm.stats.values())
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i:
+                times.append(1e3 * (time.perf_counter() - t0))
+            sent = sum(v[1] for v in comm.stats.values()) - before
+        ms = statistics.median(times)
+        out[name] = {"ms": ms, "bytes_sent": sent,
+                     "gb_per_s": sent / ms / 1e6}
+    return out
+
+
+def rank_device_ms(prof):
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in events) / 1e3
+
+
+def rank_train(mesh, rank, run, cfg, steps, accum, kernels):
+    """``steps`` steps of one sharded-step case on this rank: the
+    launches of each kernel (counts zeroed just before), the comm's
+    counters a step, the host ms of each step, the device ms of the last
+    (under the profiler), the peak GB, the losses and the final state's
+    digests."""
+    from repro_torch.data.pipeline import rank_batch
+
+    state, step = run
+    data = shard_data(cfg)
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, stats = [], [], []
+    prof = None
+    for t in range(steps):
+        x = rank_batch(data, rank, t, accum, "cuda")
+        batch = {"tokens": x, "labels": x}
+        torch.cuda.synchronize()
+        if t == steps - 1:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if t == steps - 1:
+            prof.__exit__(None, None, None)
+        losses.append(float(loss))
+        stats.append({k: tuple(v) for k, v in step.comm.stats.items()})
+    t0 = time.perf_counter()
+    digests = leaf_digests(state)
+    return {"launches": {k: fn.launches for k, fn in kernels.items()},
+            "step_ms": ms, "device_ms_last": rank_device_ms(prof),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses": losses, "stats": stats, "digests": digests,
+            "digest_s": time.perf_counter() - t0}
+
+
+def shard_rank(rank, world):
+    """One rank of the pool: ``shard_comm`` at 4 ranks, then on ranks 0
+    and 1 (a 2-rank mesh of the pool) ``shard_comm`` at 2 ranks,
+    ``train_sharded`` and ``sharded_strategies``.  Every kernel's
+    launches are this process's counts."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm import ShardComm
+    from repro_torch.core.fabric import BucketLayout
+    from repro_torch.core.precision import get_policy
+    from repro_torch.kernels import fused_adam as fa
+    from repro_torch.kernels import onebit_quant as ob
+    from repro_torch.kernels import topk_sparsify as tk
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizers as TO
+    from repro_torch.train import loop as LOOP
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = {"fused_adam": fa.fused_adam,
+               "onebit_quant_packed": ob.onebit_quant_packed,
+               "topk_encode_ef": tk.topk_encode_ef}
+    out = {"comm": {}, "seconds": {}}
+    t0 = time.perf_counter()
+    comm4 = ShardComm()
+    mesh2 = make_mesh((SHARD_W,), ("pod",), backend="gloo",
+                      ranks=range(SHARD_W))
+    for w, comm in ((world, comm4),
+                    (SHARD_W, mesh2.comm("pod") if mesh2 else None)):
+        if comm is None:
+            continue
+        rows = comm_rows(w)
+        res = {dt: {k: v.cpu() for k, v in comm_primitives(
+            comm, x[rank]).items()} for dt, x in rows.items()}
+        for dt, x in rows.items():
+            res[dt]["all_gather"] = comm.all_gather([x[rank]])[0].cpu()
+            res[dt]["gather_chunks"] = comm.gather_chunks([x[rank]])[0].cpu()
+        out["comm"][w] = {
+            "results": res, "transport": comm.transport("cuda"),
+            "worker_index": int(comm.worker_index()),
+            "timing": comm_timing(comm, comm.group)}
+    out["seconds"]["shard_comm"] = time.perf_counter() - t0
+    if mesh2 is None:  # ranks 2 and 3 wait for the others to finish
+        dist.barrier()
+        return out
+    t0 = time.perf_counter()
+    out["train"] = {}
+    for case, (zero, accum, comp_name, prec) in SHARD_CASES.items():
+        cfg = shard_cfg(get_config, TRAIN_LAYERS, prec)
+        pol = None if prec == "f32" else get_policy(prec)
+        comp = shard_compressor(comp_name)
+        params = shard_init(cfg)
+        opt = TO.adam(SHARD_LR, fused=True)
+        state = LOOP.init_sharded_state(params, opt, mesh2, zero_stage=zero,
+                                        pod_compressor=comp, policy=pol)
+        template = T.init_model(torch.Generator(), cfg, "meta") \
+            if zero >= 3 else None
+        del params
+        step = LOOP.make_sharded_train_step(
+            cfg, opt, mesh2, remat=False, pod_compressor=comp,
+            zero_stage=zero, accum_steps=accum, policy=pol,
+            param_template=template)
+        lay = BucketLayout.build(
+            T.init_model(torch.Generator(), cfg, "meta"))
+        res = rank_train(mesh2, rank, (state, step), cfg, SHARD_STEPS,
+                         accum, kernels)
+        res["layout"] = {"n_buckets": lay.n_buckets,
+                         "n_leaves": lay.n_leaves,
+                         "bucket_sizes": list(lay.bucket_sizes)}
+        out["train"][case] = res
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"]["train_sharded"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["strategies"] = {}
+    cfg = shard_cfg(get_config, SHARD_STRATEGY_LAYERS)
+    for name, (_, comp_name) in SHARD_STRATEGIES.items():
+        strat = shard_strategy(name, comp_name)
+        comm = mesh2.comm("pod")
+        opt = TO.adam(SHARD_LR, fused=True)
+        state = LOOP.init_train_state(shard_init(cfg), opt, strat, comm)
+        step = LOOP.make_sharded_train_step(cfg, opt, mesh2, strategy=strat,
+                                            comm=comm, remat=False)
+        out["strategies"][name] = rank_train(mesh2, rank, (state, step), cfg,
+                                             SHARD_STEPS, 1, kernels)
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"]["sharded_strategies"] = time.perf_counter() - t0
+    dist.barrier()
+    return out
+
+
+def nccl_rank(rank, world):
+    """One sync step of the sharded path over NCCL at world size 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import rank_batch
+    from repro_torch.kernels import fused_adam as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import optimizers as TO
+    from repro_torch.train import loop as LOOP
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = shard_cfg(get_config, TRAIN_LAYERS)
+    mesh = make_mesh((1,), ("pod",))
+    opt = TO.adam(SHARD_LR, fused=True)
+    state = LOOP.init_sharded_state(shard_init(cfg), opt, mesh)
+    step = LOOP.make_sharded_train_step(cfg, opt, mesh, remat=False)
+    x = rank_batch(shard_data(cfg), 0, 0, 1, "cuda")
+    fa.fused_adam.launches = 0
+    state, loss = step(state, {"tokens": x, "labels": x})
+    return {"loss": float(loss), "digests": leaf_digests(state),
+            "fused_adam_launches": fa.fused_adam.launches,
+            "backend": str(step.comm.backend),
+            "transport": step.comm.transport("cuda"),
+            "stats": {k: tuple(v) for k, v in step.comm.stats.items()}}
+
+
+def sharded_references(get_config):
+    """The stacked ``LocalComm`` runs the rank phases are held to, run in
+    this process first: per case each replica's leaf digests and the
+    losses (the replica step with the matching strategy, the same seeded
+    parameters and batches).  Every state is freed after its digests."""
+    from repro_torch.bridge import rank_state
+    from repro_torch.core import strategies as ST
+    from repro_torch.core.comm import LocalComm
+    from repro_torch.core.precision import get_policy
+    from repro_torch.data.pipeline import microbatch_stack
+    from repro_torch.optim import optimizers as TO
+    from repro_torch.train import loop as LOOP
+
+    def run(cfg, strat, pol, accum, w=SHARD_W, steps=SHARD_STEPS):
+        comm = LocalComm(w)
+        opt = TO.adam(SHARD_LR, fused=True)
+        state = LOOP.init_train_state(comm.replicate(shard_init(cfg)), opt,
+                                      strat, comm, policy=pol)
+        lf = LOOP.make_loss_fn(cfg, remat=False)
+        step = LOOP.make_replica_train_step(
+            lambda p, x: lf(p, {"tokens": x, "labels": x}), opt, strat,
+            comm, policy=pol, accum_steps=accum)
+        data = shard_data(cfg)
+        losses = []
+        for t in range(steps):
+            x = microbatch_stack(data, w, t, accum, "cuda")
+            state, m = step(state, x if accum > 1 else x[0])
+            losses.append(float(m["loss"]))
+        out = {"digests": [leaf_digests(rank_state(state, r))
+                           for r in range(w)], "losses": losses}
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    refs = {"train": {}, "strategies": {}}
+    for case, (zero, accum, comp, prec) in SHARD_CASES.items():
+        pol = None if prec == "f32" else get_policy(prec)
+        strat = (ST.get_strategy(f"sync_zero{zero}", policy=pol) if zero
+                 else ST.sync(shard_compressor(comp), policy=pol))
+        refs["train"][case] = run(shard_cfg(get_config, TRAIN_LAYERS, prec),
+                                  strat, pol, accum)
+    cfg = shard_cfg(get_config, SHARD_STRATEGY_LAYERS)
+    for name, (_, comp) in SHARD_STRATEGIES.items():
+        refs["strategies"][name] = run(cfg, shard_strategy(name, comp),
+                                       None, 1)
+    refs["nccl_world1"] = run(shard_cfg(get_config, TRAIN_LAYERS),
+                              ST.sync(), None, 1, w=1, steps=1)
+    return refs
+
+
+def shard_closed_form(case, lay, play):
+    """(all-to-all, all-gather) (count, bytes) a step of one rank of a
+    ``train_sharded`` case: the Fabric's reductions are an all-to-all of
+    the padded bucket and an all-gather of the 1/W shard, a compressed
+    exchange one all-gather of ``wire_nbytes`` a bucket, ZeRO-2 one
+    all-to-all a bucket a microbatch; a bf16 wire ships 2 bytes an
+    element."""
+    from repro_torch.core.fabric import wire_nbytes
+
+    zero, accum, comp_name, prec = SHARD_CASES[case]
+    nb, item = lay.n_buckets, 2 if prec != "f32" else 4
+    if comp_name is not None:
+        comp = shard_compressor(comp_name)
+        return (0, 0), (nb, sum(wire_nbytes(comp, n)
+                                for n in lay.bucket_sizes))
+    k = accum if zero >= 2 and accum > 1 else 1
+    return ((k * nb, k * item * sum(play.padded_sizes)),
+            (nb, item * sum(play.shard_sizes)))
+
+
+def per_step(stats, t, op):
+    now = stats[t].get(op, (0, 0))
+    before = stats[t - 1].get(op, (0, 0)) if t else (0, 0)
+    return now[0] - before[0], now[1] - before[1]
+
+
+def sharded_phases(get_config, smi):
+    """``shard_comm``, ``train_sharded``, ``sharded_strategies`` and
+    ``nccl_world1``: the stacked references in this process first (only
+    their digests kept, the card freed), then ONE pool of 4 rank
+    processes sharing the card over gloo, then one NCCL rank.  Returns
+    (the phases' JSON lines, the kernels' launches in the ranks)."""
+    from repro_torch.core.comm import LocalComm
+    from repro_torch.core.fabric import BucketLayout, PartitionedLayout
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    refs = sharded_references(get_config)
+    ref_s = time.perf_counter() - t0
+    rows = {w: comm_rows(w) for w in (SHARD_POOL, SHARD_W)}
+    want = {w: {dt: {k: v.cpu() for k, v in comm_primitives(
+        LocalComm(w), x).items()} for dt, x in rows[w].items()}
+        for w in rows}
+    on_cpu = {w: {dt: comm_primitives(LocalComm(w), x.cpu())
+                  for dt, x in rows[w].items()} for w in rows}
+    rows = {w: {dt: x.cpu() for dt, x in r.items()} for w, r in rows.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(shard_rank, SHARD_POOL, backend="gloo", device="cuda",
+                      timeout=900, collective_timeout=900)
+    pool_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (nccl,) = run_ranks(nccl_rank, 1, backend="nccl", device="cuda",
+                        timeout=300)
+    nccl_s = time.perf_counter() - t0
+
+    # shard_comm: every primitive bitwise LocalComm's on the card; the
+    # data-movement ops bitwise the CPU's too
+    movement = ("all_gather_tiled", "ppermute_1", "ppermute_-1",
+                "shard_chunk")
+    comm_line = {"phase": "shard_comm", "pool_ranks": SHARD_POOL,
+                 "worlds": {}, "card": smi}
+    for w in (SHARD_POOL, SHARD_W):
+        cpu_equal = {}
+        for r in range(w):
+            got = ranks[r]["comm"][w]
+            if got["transport"] != "gloo+host" or got["worker_index"] != r:
+                raise AssertionError(f"shard_comm W={w} rank {r}: "
+                                     f"{got['transport']}, "
+                                     f"{got['worker_index']}")
+            for dt, ops in got["results"].items():
+                stacked = rows[w][dt]
+                c = stacked.shape[-1] // w
+                extra = {"all_gather": stacked,
+                         "gather_chunks": stacked[..., r * c:(r + 1) * c]}
+                for op, x in ops.items():
+                    ref = extra[op] if op in extra else want[w][dt][op][r]
+                    if not torch.equal(x, ref) or x.dtype != ref.dtype:
+                        raise AssertionError(f"shard_comm W={w} rank {r} "
+                                             f"{dt} {op} differs from "
+                                             "LocalComm on the card")
+                    if op in extra:
+                        continue
+                    same = torch.equal(x, on_cpu[w][dt][op][r])
+                    cpu_equal[f"{dt}/{op}"] = cpu_equal.get(
+                        f"{dt}/{op}", True) and same
+                    if op in movement and not same:
+                        raise AssertionError(f"shard_comm W={w} {dt} {op}: "
+                                             "the card's differs from the "
+                                             "CPU's")
+        comm_line["worlds"][w] = {
+            "transport": ranks[0]["comm"][w]["transport"],
+            "bitwise_local_comm_on_card": True,
+            "bitwise_cpu": cpu_equal,
+            "bucket_timing_by_rank": [ranks[r]["comm"][w]["timing"]
+                                      for r in range(w)]}
+    comm_line["rank_seconds"] = ranks[0]["seconds"]["shard_comm"]
+
+    # train_sharded
+    launches = {"fused_adam": 0, "onebit_quant_packed": 0,
+                "topk_encode_ef": 0}
+    train_line = {"phase": "train_sharded", "ranks": SHARD_W,
+                  "transport": "gloo+host", "layers": TRAIN_LAYERS,
+                  "batch_per_worker": TRAIN_B, "seq_len": TRAIN_L,
+                  "steps": SHARD_STEPS, "fused_adam": True, "cases": {},
+                  "reference_s": ref_s, "pool_s": pool_s,
+                  "rank_seconds": ranks[0]["seconds"]["train_sharded"],
+                  "card": smi,
+                  "note": "gloo over host memory, W ranks sharing one "
+                          "card: no claim about NCCL over NVLink"}
+    for case, (zero, accum, comp_name, prec) in SHARD_CASES.items():
+        cfg = shard_cfg(get_config, TRAIN_LAYERS, prec)
+        lay = BucketLayout.build(T.init_model(torch.Generator(), cfg,
+                                              "meta"))
+        play = PartitionedLayout.build(lay, SHARD_W)
+        a2a_want, ag_want = shard_closed_form(case, lay, play)
+        ref = refs["train"][case]
+        rec = {"zero_stage": zero, "accum_steps": accum,
+               "compressor": comp_name, "precision": prec, "ranks": []}
+        for r in range(SHARD_W):
+            got = ranks[r]["train"][case]
+            if got["digests"] != ref["digests"][r]:
+                bad = sum(a != b for a, b in zip(got["digests"],
+                                                 ref["digests"][r]))
+                raise AssertionError(f"train_sharded {case} rank {r}: "
+                                     f"{bad} of {len(got['digests'])} "
+                                     "leaves differ from the stacked run")
+            if got["losses"] != ref["losses"]:
+                raise AssertionError(f"train_sharded {case}: losses "
+                                     f"{got['losses']} != {ref['losses']}")
+            applied = sum(math.isfinite(x) for x in got["losses"])
+            expect = {"fused_adam": (len(play.shard_sizes) if zero
+                                     else lay.n_leaves) * applied,
+                      "onebit_quant_packed": lay.n_buckets * applied
+                      if comp_name == "onebit" else 0,
+                      "topk_encode_ef": lay.n_buckets * applied
+                      if comp_name == "topk" else 0}
+            if got["launches"] != expect:
+                raise AssertionError(f"train_sharded {case} rank {r}: "
+                                     f"launches {got['launches']} != "
+                                     f"{expect}")
+            for t in range(SHARD_STEPS):
+                a2a = per_step(got["stats"], t, "all_to_all")
+                ag = per_step(got["stats"], t, "all_gather")
+                if (a2a, ag) != (a2a_want, ag_want):
+                    raise AssertionError(
+                        f"train_sharded {case} rank {r} step {t}: "
+                        f"all-to-all {a2a}, all-gather {ag} != closed "
+                        f"form {a2a_want}, {ag_want}")
+            for k in launches:
+                launches[k] += got["launches"][k]
+            rec["ranks"].append({
+                "step_ms": got["step_ms"], "device_ms_last_step":
+                got["device_ms_last"], "peak_gb": got["peak_gb"],
+                "launches": got["launches"], "digest_s": got["digest_s"]})
+        rec.update(losses=ref["losses"], digests_equal_stacked=True,
+                   leaves=len(ref["digests"][0]),
+                   launches_expected_per_rank=expect,
+                   all_to_all_per_step=a2a_want,
+                   all_gather_per_step=ag_want,
+                   collectives_per_step=a2a_want[0] + ag_want[0],
+                   wire_bytes_per_step=a2a_want[1] + ag_want[1],
+                   scalars_per_step=per_step(
+                       ranks[0]["train"][case]["stats"], 1, "scalars"),
+                   n_buckets=lay.n_buckets, n_leaves=lay.n_leaves)
+        train_line["cases"][case] = rec
+
+    # sharded_strategies
+    strat_line = {"phase": "sharded_strategies", "ranks": SHARD_W,
+                  "layers": SHARD_STRATEGY_LAYERS, "steps": SHARD_STEPS,
+                  "strategies": {}, "card": smi,
+                  "rank_seconds": ranks[0]["seconds"]["sharded_strategies"]}
+    cfg = shard_cfg(get_config, SHARD_STRATEGY_LAYERS)
+    lay = BucketLayout.build(T.init_model(torch.Generator(), cfg, "meta"))
+    for name, (kw, comp_name) in SHARD_STRATEGIES.items():
+        ref = refs["strategies"][name]
+        expect = {"fused_adam": lay.n_leaves * SHARD_STEPS,
+                  "onebit_quant_packed": lay.n_buckets * SHARD_STEPS
+                  if comp_name == "onebit" else 0, "topk_encode_ef": 0}
+        for r in range(SHARD_W):
+            got = ranks[r]["strategies"][name]
+            if got["digests"] != ref["digests"][r] \
+                    or got["losses"] != ref["losses"]:
+                raise AssertionError(f"sharded_strategies {name} rank {r} "
+                                     "differs from the stacked run")
+            if got["launches"] != expect:
+                raise AssertionError(f"sharded_strategies {name} rank {r}: "
+                                     f"launches {got['launches']} != "
+                                     f"{expect}")
+            for k in launches:
+                launches[k] += got["launches"][k]
+        strat_line["strategies"][name] = {
+            "kwargs": kw, "compressor": comp_name,
+            "digests_equal_stacked": True, "losses": ref["losses"],
+            "launches_per_rank": expect,
+            "step_ms_by_rank": [ranks[r]["strategies"][name]["step_ms"]
+                                for r in range(SHARD_W)]}
+
+    # nccl_world1
+    ref = refs["nccl_world1"]
+    launches["fused_adam"] += nccl["fused_adam_launches"]
+    if nccl["loss"] != ref["losses"][0] or nccl["digests"] != \
+            ref["digests"][0]:
+        raise AssertionError(f"nccl_world1: loss {nccl['loss']} (stacked "
+                             f"{ref['losses'][0]}) or the state differs")
+    nccl_line = {"phase": "nccl_world1", "backend": nccl["backend"],
+                 "transport": nccl["transport"], "loss": nccl["loss"],
+                 "loss_equal_replica_step": True,
+                 "state_equal_replica_step": True,
+                 "comm_stats": nccl["stats"], "s": nccl_s, "card": smi}
+    return [comm_line, train_line, strat_line, nccl_line], launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--mamba-before", type=Path, default=None,
@@ -5641,6 +6243,16 @@ def main(argv=None) -> int:
     emit(result)
     mamba_launches += rec_launches["mamba_scan"]
     bwd_launches += rec_launches["mamba_scan_bwd"]
+
+    # the sharded path: rank processes sharing the card over gloo, and one
+    # NCCL rank; each rank counts its own kernels' launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines, shard_launches = sharded_phases(get_config, smi)
+    for line in lines:
+        emit(line)
+    for k, n in shard_launches.items():
+        train_launches[k] += n
 
     timing = time_kernel(pa, main_path_launches / serve_qwen["decode_steps"],
                          smi)

@@ -38,7 +38,16 @@ for ``sm_90a`` (``kernels/csrc/``):
     ``optim.adam``'s ``kernels.ops.fused_adam`` on ``(W′, …)`` leaves),
     and ``resize_state``, the live W → W′ re-partition of dense and
     ZeRO-1/2/3 state (``core.resharding`` on tensors, bitwise the
-    checkpoint restore's re-shard).
+    checkpoint restore's re-shard);
+  * data-parallel training across processes: ``launch.mesh.run_ranks``
+    starts W rank processes, ``launch.mesh.make_mesh`` lays "pod"/"data"
+    axes over them, and ``train.loop.make_sharded_train_step`` runs one
+    replica a rank through ``core.fabric.Fabric`` over
+    ``core.comm.ShardComm`` (a ``torch.distributed`` group): sync,
+    accumulation, the pod compressor (the encode kernels on the rank's
+    buckets), ZeRO-1/2/3 (``fused_adam`` on the rank's shard buckets)
+    and the strategies, bitwise the stacked replica step (but for the
+    bf16 microbatch wire of ZeRO-2/3 under accumulation).
 
 Every entry point takes an explicit ``device``, defaulting to ``"cuda"``.
 With no card a ``"cuda"`` default raises; nothing moves quietly to the

@@ -13,6 +13,13 @@ leaf is copied into storage of its own, so a broadcast view (the
 replicated params ``unpartition`` returns) comes back as W rows.  bfloat16
 leaves go through a 16-bit integer view: ``torch.from_numpy`` rejects
 ml_dtypes' ``bfloat16``.
+
+The sharded step (``train/loop.py::make_sharded_train_step``) keeps each
+rank's chunk of the partitioned state: ``sharded_state_from_numpy`` cuts
+a global state of the JAX package's sharded step (the padded flat shard
+buckets of ZeRO-1/2/3's optimizer state and master, ZeRO-3's params) into
+rank r's, and ``sharded_state_to_numpy`` joins the ranks' states back;
+``rank_state`` takes replica r of a stacked (``LocalComm``) train state.
 """
 
 from __future__ import annotations
@@ -130,4 +137,65 @@ def train_state_to_numpy(state):
         state["comm_state"] = _map_rings(state["comm_state"], _ring_to_stack)
     out = params_to_numpy({k: v for k, v in state.items() if k != "step"})
     out["step"] = np.asarray(int(state["step"]), np.int32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the per-rank states of the sharded step
+# ---------------------------------------------------------------------------
+def shard_chunks(tree, rank: int, n_parts: int):
+    """Every leaf's chunk ``rank`` of ``n_parts`` along its last axis, in
+    storage of its own (a global padded shard bucket → the rank's)."""
+    def one(x):
+        c = x.shape[-1] // n_parts
+        if c * n_parts != x.shape[-1]:
+            raise ValueError(f"last axis {x.shape[-1]} does not divide "
+                             f"into {n_parts} chunks")
+        return x[..., rank * c:(rank + 1) * c].clone()
+
+    return T.tree_map(one, tree)
+
+
+def unshard_chunks(trees):
+    """Inverse of ``shard_chunks``: the ranks' trees (in rank order) joined
+    along the last axis."""
+    return T.tree_map(lambda *xs: torch.cat(xs, dim=-1), *trees)
+
+
+def _sharded_keys(zero_stage: int):
+    return (("opt_state",) if zero_stage else ()) + \
+        (("params",) if zero_stage >= 3 else ())
+
+
+def sharded_state_from_numpy(state, rank: int, n_parts: int,
+                             zero_stage: int = 0, device="cuda"):
+    """A GLOBAL train state of the JAX package's sharded step after
+    ``np.asarray`` → rank ``rank``'s state of the port's: the replicated
+    leaves copied, the padded flat shard buckets (ZeRO's ``opt_state``,
+    ZeRO-3's ``params``) cut to the rank's chunk."""
+    out = train_state_from_numpy(state, device)
+    for key in _sharded_keys(zero_stage):
+        out[key] = shard_chunks(out[key], rank, n_parts)
+    return out
+
+
+def sharded_state_to_numpy(states, zero_stage: int = 0):
+    """The ranks' states (in rank order) → one global state in the JAX
+    package's layout: the shard buckets joined, the rest from rank 0."""
+    out = dict(states[0])
+    for key in _sharded_keys(zero_stage):
+        out[key] = unshard_chunks([s[key] for s in states])
+    return train_state_to_numpy(out)
+
+
+def rank_state(state, rank: int):
+    """Replica ``rank`` of a stacked train state (every leaf of ``params``,
+    ``opt_state``, ``comm_state`` and ``master`` carries the replica axis
+    first), copied; ``step`` and ``loss_scale`` are shared."""
+    out = {}
+    for k, v in state.items():
+        if k in ("step", "loss_scale"):
+            out[k] = v
+        else:
+            out[k] = T.tree_map(lambda x: x[rank].clone(), v)
     return out

@@ -1,7 +1,9 @@
 """Bucketed flat-buffer exchange fabric.
 
-Port of ``repro/core/fabric.py`` for the stacked-replica simulator
-(``LocalComm``).  The ``Fabric`` flattens a gradient tree into size-capped
+Port of ``repro/core/fabric.py``, over both realizations of the comm:
+the stacked-replica simulator (``LocalComm``) and the per-rank one
+(``ShardComm``, one process a rank).  The ``Fabric`` flattens a gradient
+tree into size-capped
 flat f32 buckets (leaves in ``jax.tree`` order, ``core/tree.py``) and
 drives each ``Comm`` primitive once per bucket.  Compression with error
 feedback runs on the flat buffer: by default through the compressor's
@@ -24,8 +26,22 @@ f32, and counted at 2 bytes an element) and the microbatch accumulator
 ``PartitionedLayout`` (each bucket zero-padded to a multiple of W, worker
 w owning chunk w), the reduce-scatter exchange, the shard slice of a
 replicated tree, the all-gather back (``unpartition``) and the 1/W shard
-accumulator of ZeRO-2/3.  The ``ShardComm`` branches, the narrow sharded
-wire among them, are a later slice of the port.
+accumulator of ZeRO-2/3.
+
+The ``ShardComm`` branches are the reference's:
+  * a compressed bucket is encoded on this rank (the fused encode, one
+    kernel launch a bucket), packed into ONE uint8 buffer of exactly
+    ``wire_nbytes`` bytes, and all-gathered once; every peer's buffer is
+    unpacked and decoded locally, and the decodes are averaged by the
+    same ``mean`` over a stacked rank axis that ``LocalComm`` runs over
+    its replica axis, so both realizations agree bitwise;
+  * the narrow (bf16) wire ships the narrow buffer itself: a reduction is
+    ONE all-to-all of the bf16 chunks (``gather_chunks``), an f32 local
+    accumulate and a 16-bit all-gather of the result (the ring bytes of
+    the all-reduce it replaces); a ring shift or a gather moves the 16-bit
+    image (an int16 view: gloo refuses uint16).  The dense all-mean then
+    hands back bf16-rounded means where ``LocalComm`` keeps them in f32;
+    the partitioned exchange and ``unpartition`` agree bitwise.
 
 ``LocalComm.all_gather`` returns a broadcast view: the tree
 ``unpartition`` hands back holds ONE copy of each bucket behind stride 0
@@ -43,6 +59,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core import tree as T
+from repro_torch.core.comm import ShardComm
 from repro_torch.core.compression import (Compressor, _narrow_wire, _pack,
                                           _unpack, packed_nbytes)
 from repro_torch.core.precision import torch_dtype
@@ -205,9 +222,10 @@ def wire_nbytes(compressor: Optional[Compressor], n: int,
 # fabric
 # ---------------------------------------------------------------------------
 class Fabric:
-    """Bucket-fused tensor moving over a ``LocalComm``: every public op
-    issues at most one collective per bucket.  Residual state stays
-    param-shaped f32 trees."""
+    """Bucket-fused tensor moving over a ``LocalComm`` or a ``ShardComm``:
+    every public op issues at most one collective per bucket (one
+    all-to-all and one all-gather a bucket for a reduction over a
+    ``ShardComm``).  Residual state stays param-shaped f32 trees."""
 
     def __init__(self, comm, bucket_bytes: int = DEFAULT_BUCKET_BYTES,
                  wire_dtype=None, fused: bool = True):
@@ -223,12 +241,54 @@ class Fabric:
         self.fused = fused
 
     def _wire_cast(self, buckets):
-        """Round flat f32 buckets to the wire dtype and back to f32, so the
-        axis reduction accumulates in f32: a bf16 wire with f32 ring
-        accumulation, as the reference's stacked simulator computes it."""
+        """Round flat f32 buckets to the wire dtype.  On the stacked
+        simulator the rounded values come back to f32, so the axis
+        reduction accumulates in f32 (a bf16 wire with f32 ring
+        accumulation, as the reference's simulator computes it); a
+        ``ShardComm`` ships the narrow buffer itself."""
         if self.wire_dtype == torch.float32:
             return buckets
-        return [b.to(self.wire_dtype).float() for b in buckets]
+        narrowed = [b.to(self.wire_dtype) for b in buckets]
+        if self._sharded:
+            return narrowed
+        return [b.float() for b in narrowed]
+
+    @property
+    def _sharded(self) -> bool:
+        return isinstance(self.comm, ShardComm)
+
+    @property
+    def _narrow_sharded(self) -> bool:
+        """A 16-bit wire on the per-rank realization: every reduction is
+        an all-to-all of narrow chunks plus a local f32 accumulate, and
+        every gather or ring shift moves the 16-bit image."""
+        return self.wire_dtype.itemsize == 2 and self._sharded
+
+    def _bitcast16(self, buckets):
+        """The wire-dtype buckets as int16 images (the reference's
+        uint16 bitcast; gloo refuses uint16)."""
+        return [b.to(self.wire_dtype).view(torch.int16) for b in buckets]
+
+    def _reduce_narrow_sharded(self, buckets, mean: bool):
+        """All-reduce(-mean) of each flat bucket over a narrow wire: pad
+        to a multiple of W, ONE all-to-all of the narrowed chunks, the W
+        received chunks accumulated in f32 on this rank (the stacked
+        simulator's reduction over its replica axis), and one all-gather
+        of the reduced shard's 16-bit image.  Returns f32 buckets."""
+        w = self.comm.size
+        out = []
+        for b in buckets:
+            n = b.shape[-1]
+            p = -(-n // w) * w
+            bb = b if n == p else torch.nn.functional.pad(b, (0, p - n))
+            (stacked,) = self.comm.gather_chunks([bb.to(self.wire_dtype)])
+            stacked = stacked.float()
+            red = stacked.mean(dim=0) if mean else stacked.sum(dim=0)
+            del stacked
+            (full,) = self.comm.all_gather(self._bitcast16([red]),
+                                           tiled=True)
+            out.append(full.view(self.wire_dtype)[..., :n].float())
+        return out
 
     def layout(self, tree) -> BucketLayout:
         return BucketLayout.build(tree, self.bucket_bytes,
@@ -245,8 +305,11 @@ class Fabric:
         lay = self.layout(tree)
         if lay.n_leaves == 0:
             return tree
+        gb = lay.bucketize(tree)
+        if self._narrow_sharded:
+            return lay.debucketize(self._reduce_narrow_sharded(gb, mean))
         op = self.comm.all_mean if mean else self.comm.all_sum
-        return lay.debucketize(op(self._wire_cast(lay.bucketize(tree))))
+        return lay.debucketize(op(self._wire_cast(gb)))
 
     def ppermute(self, tree, shift: int = 1):
         """Ring shift of every bucket: worker w receives worker
@@ -254,8 +317,12 @@ class Fabric:
         lay = self.layout(tree)
         if lay.n_leaves == 0:
             return tree
-        return lay.debucketize(self.comm.ppermute(
-            self._wire_cast(lay.bucketize(tree)), shift))
+        gb = lay.bucketize(tree)
+        if self._narrow_sharded:  # pure data movement: shift the 16 bits
+            out = self.comm.ppermute(self._bitcast16(gb), shift)
+            return lay.debucketize([b.view(self.wire_dtype) for b in out])
+        return lay.debucketize(self.comm.ppermute(self._wire_cast(gb),
+                                                  shift))
 
     # -- wire accounting ----------------------------------------------------
     def flat_bytes(self, tree_or_layout) -> float:
@@ -342,12 +409,41 @@ class Fabric:
 
         return self._vmap_replicas(dec)(arrs), new_r
 
+    def _gather_mean(self, arrs, dec):
+        """ShardComm: ONE all-gather of this rank's narrow arrays packed
+        into a uint8 buffer (``wire_nbytes`` bytes), every peer's buffer
+        unpacked and decoded here.  Returns (the mean of the decodes over
+        the stacked rank axis, ``LocalComm``'s reduction; this rank's own
+        decode)."""
+        buf, specs = _pack(arrs)
+        (gathered,) = self.comm.all_gather([buf])
+        decs = torch.stack([dec(_unpack(gathered[i], specs))
+                            for i in range(self.comm.size)])
+        return decs.mean(dim=0), decs[self.comm.rank]
+
     def _bucket_ef_round(self, g, r, compressor):
-        """``_bucket_encode`` and one axis-mean of the replicas' decodes:
-        (mean, own decode, new residual)."""
-        dec_self, new_r = self._bucket_encode(g, r, compressor)
-        (mean,) = self.comm.all_mean([dec_self])
-        return mean, dec_self, new_r
+        """One compressed error-feedback round of a flat bucket: (mean of
+        the replicas' decodes, own decode, new residual).  LocalComm:
+        ``_bucket_encode``, then one axis-mean.  ShardComm: the encode on
+        this rank, then ``_gather_mean`` of the packed bytes."""
+        if not self._sharded:
+            dec_self, new_r = self._bucket_encode(g, r, compressor)
+            (mean,) = self.comm.all_mean([dec_self])
+            return mean, dec_self, new_r
+        n = g.shape[-1]
+        fe = compressor.fused_encode if self.fused else None
+        if fe is None:  # the codec's round on t = g + r
+            t = g + r
+            wire, meta = compressor.compress(t)
+            arrs, widen = _narrow_wire(compressor.name, wire)
+        else:
+            (arrs, widen, new_r), meta = fe(g, r), None
+
+        def dec(a):
+            return compressor.decompress(widen(a), meta, (n,), torch.float32)
+
+        mean, dec_self = self._gather_mean(arrs, dec)
+        return mean, dec_self, (t - dec_self if fe is None else new_r)
 
     # -- flat-bucket gradient accumulation ----------------------------------
     # The microbatched train step (train/loop.py) keeps its gradient
@@ -430,7 +526,9 @@ class Fabric:
         instead of a tree; one collective per bucket.  Returns (mean_tree,
         new_residual_tree, metrics)."""
         if compressor is None or compressor.name == "none":
-            out = self.comm.all_mean(self._wire_cast(buckets))
+            out = (self._reduce_narrow_sharded(buckets, mean=True)
+                   if self._narrow_sharded
+                   else self.comm.all_mean(self._wire_cast(buckets)))
             return (lay.debucketize(out), residual,
                     self.metrics(self.flat_bytes(lay), events))
         rb = lay.bucketize(residual)
@@ -501,9 +599,16 @@ class Fabric:
         """``exchange_partitioned`` from PADDED flat f32 buckets (the
         accumulator of ``init_accum(lay, play=play)``): one reduce-scatter
         a bucket.  The stacked simulator rounds the buckets to the wire
-        dtype and reduces in f32.  Returns (shard_buckets, metrics)."""
-        shards = self.comm.reduce_scatter(self._wire_cast(buckets),
-                                          mean=True)
+        dtype and reduces in f32; over a ``ShardComm`` a narrow wire is
+        one all-to-all of the narrowed chunks and an f32 local mean.
+        Returns (f32 shard_buckets, metrics)."""
+        if self._narrow_sharded:
+            stacked = self.comm.gather_chunks(
+                [b.to(self.wire_dtype) for b in buckets])
+            shards = [s.float().mean(dim=0) for s in stacked]
+        else:
+            shards = [s.float() for s in self.comm.reduce_scatter(
+                self._wire_cast(buckets), mean=True)]
         return shards, self.metrics(self.flat_bytes(play.layout), events)
 
     def unpartition(self, shards, play: PartitionedLayout):
@@ -512,7 +617,11 @@ class Fabric:
         the wire-dtype image of f32 master shards), padding sliced away,
         leaf dtypes restored.  The leaves are broadcast views on the
         replica axis (module docstring)."""
-        full = self.comm.all_gather(self._wire_cast(shards), tiled=True)
+        if self._narrow_sharded:  # the 16-bit image of the shards
+            full = [b.view(self.wire_dtype) for b in self.comm.all_gather(
+                self._bitcast16(shards), tiled=True)]
+        else:
+            full = self.comm.all_gather(self._wire_cast(shards), tiled=True)
         full = [b[..., :n] for b, n in zip(full, play.layout.bucket_sizes)]
         return play.layout.debucketize(full)
 

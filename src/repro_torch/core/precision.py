@@ -206,6 +206,17 @@ def tree_finite(tree) -> torch.Tensor:
     return torch.stack(flags).all() if flags else torch.tensor(True)
 
 
+def tree_finite_across(tree, comm=None) -> torch.Tensor:
+    """``tree_finite`` of this rank's tree, MIN-reduced over the ranks of a
+    per-rank comm (one with ``all_min``: ``core/comm.py::ShardComm``), as
+    the reference's ``pmin``: every rank then takes the same skip
+    decision.  A stacked comm's tree already holds every replica."""
+    flag = tree_finite(tree)
+    if comm is None or not hasattr(comm, "all_min"):
+        return flag
+    return comm.all_min(flag.float()) > 0.5
+
+
 def next_scale_state(policy: PrecisionPolicy, sstate: dict, finite) -> dict:
     """Overflow → halve (never below 1) and reset the streak; a finite
     step extends the streak and every ``growth_interval``-th doubles."""

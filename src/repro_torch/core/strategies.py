@@ -32,6 +32,12 @@ Differences from the reference, none of which changes a result:
   * the unused ``compressor`` arguments of ``local_sgd`` and ``gossip``
     are not ported.
 
+Every strategy runs unchanged over both realizations of the comm: the
+stacked ``LocalComm`` and the per-rank ``ShardComm`` (``lead_axes`` 0,
+one replica a process), where ``easgd``'s center is the rank's own copy,
+``downpour``'s push reads the rank from ``worker_index`` and ``gossip``
+and ``ssp`` move their buckets through the ring and the reductions.
+
 Every strategy takes the precision policy (``policy=``, ``core/precision.py``):
 its Fabric rounds the uncompressed exchanges (``all_mean``, ``all_sum``,
 ``ppermute``) to the policy's wire dtype and counts their bytes at that
@@ -116,12 +122,15 @@ def _shard_update(fab, play, params, g_shards, opt_state, t, opt,
     """The shard step of ZeRO-1/2: the optimizer on this worker's 1/W
     shard buckets (the f32 master shards under a master-keeping policy),
     then the all-gather of the updated shards into the replicated params.
-    Returns (params, opt_state)."""
+    The list ``g_shards`` is emptied once the optimizer has read it, so
+    the gradient shards are freed before the all-gather.  Returns
+    (params, opt_state)."""
     if keeps_master:
         inner, p_shards = opt_state["opt"], opt_state["master"]
     else:
         inner, p_shards = opt_state, fab.shard_params(params, play)
     p_shards, inner = opt.update(g_shards, inner, p_shards, t)
+    g_shards.clear()
     params = fab.unpartition(p_shards, play)
     return params, ({"opt": inner, "master": p_shards} if keeps_master
                     else inner)
@@ -338,7 +347,9 @@ def easgd(alpha: float = 0.1, sync_every: int = 4,
                 ax = getattr(comm, "axis", comm.lead_axes - 1)
                 return (p.float().mean(dim=ax, keepdim=True)
                         + torch.zeros_like(p, dtype=torch.float32))
-            return p.float()
+            # one rank (ShardComm): its own copy, never the params' storage,
+            # which a fused optimizer updates in place
+            return p.to(torch.float32, copy=True)
 
         return {"center": T.tree_map(center, params)}
 

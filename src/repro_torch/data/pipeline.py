@@ -13,7 +13,9 @@ depend on W: an elastic fleet keyed by stable worker ids draws, for
 members ``(0, …, W-1)``, exactly the trainer's tokens.  A batch is a few
 KB, so the host draws it and one non-blocking copy moves it to the card.
 
-``microbatch_stack`` stacks the microbatches of one accumulation boundary
+``global_batch`` is the flat batch of the production step (the workers'
+rows in order) and ``rank_batch`` one rank's rows of it, which a rank
+process of the sharded step draws on its own.  ``microbatch_stack`` stacks the microbatches of one accumulation boundary
 (microbatch j of optimizer step T is plain step ``T*accum_steps + j``),
 and ``prefetch_batches`` keeps ``depth`` batches in flight: on the card
 batch t+1 is drawn on the host and its pinned copy enqueued on a side
@@ -119,6 +121,32 @@ def microbatch_stack(cfg: DataConfig, n_workers: int, opt_step: int,
     dev = resolve_device(device)
     return _to_device(_host_stack(cfg, n_workers, opt_step, accum_steps),
                       dev)
+
+
+def global_batch(cfg: DataConfig, step: int, global_batch_size: int,
+                 device="cuda"):
+    """One flat (global_batch_size, seq_len) batch of ``step``: the
+    workers' rows concatenated in worker order, as the reference's."""
+    n = global_batch_size // cfg.batch_per_worker
+    return worker_batches(cfg, n, step, device).reshape(global_batch_size,
+                                                         cfg.seq_len)
+
+
+def rank_batch(cfg: DataConfig, rank: int, step: int, accum_steps: int = 1,
+               device="cuda"):
+    """Rank ``rank``'s rows of ``global_batch`` at optimizer step ``step``:
+    ``sample_batch`` of worker ``rank`` (bitwise replica ``rank``'s batch
+    of the stacked step); with ``accum_steps > 1`` the
+    ``(accum_steps, batch_per_worker, seq_len)`` stack of plain steps
+    ``step * accum_steps + j``, replica ``rank``'s rows of
+    ``microbatch_stack``."""
+    dev = resolve_device(device)
+    if accum_steps == 1:
+        return _to_device(_host_rows(cfg, (rank,), step)[0], dev)
+    rows = torch.stack([_host_rows(cfg, (rank,), s)[0]
+                        for s in range(step * accum_steps,
+                                       (step + 1) * accum_steps)])
+    return _to_device(rows, dev)
 
 
 def prefetch_batches(cfg: DataConfig, n_workers: int, steps: int,

@@ -68,7 +68,18 @@ reduce-scatter bytes its microbatches shipped before the decision.
 ``zero3_param_template`` build the global (unstacked) shard-bucket state
 of the partitioned layout.
 
-The sharded production step is a later slice.
+``make_sharded_train_step`` is the reference's production step realized
+per rank: each rank process holds ONE replica (or, under ZeRO, its 1/W
+shard buckets of the optimizer state, the master and ZeRO-3's params)
+and its own batch rows, and the gradients cross the ranks through the
+``Fabric`` over a ``ShardComm`` (``core/comm.py``).  It runs the replica
+step's body with the matching strategy (``sync``, ``sync`` with a
+compressor, ``sync_zero1/2/3``), rank for replica: the same local
+gradients, the same bucket adds and division, the same reductions in
+rank order, so a run of W ranks is bitwise ``make_replica_train_step``
+with that strategy, except where a bf16 policy's ZeRO-2/3 accumulation
+reduce-scatters each microbatch on the bf16 wire (the reference's
+sharded step; its replica step ships f32).
 """
 
 from __future__ import annotations
@@ -78,12 +89,14 @@ from typing import Optional
 import torch
 
 from repro_torch.core import precision as PR
+from repro_torch.core import strategies as ST
 from repro_torch.core import tree as T
-from repro_torch.core.comm import HierComm
+from repro_torch.core.comm import HierComm, ShardComm
 from repro_torch.core.fabric import (DEFAULT_BUCKET_BYTES, BucketLayout,
                                      Fabric, PartitionedLayout)
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.strategies import Strategy
+from repro_torch.launch.mesh import BATCH_AXES
 from repro_torch.models import transformer as TM
 from repro_torch.optim.optimizers import Optimizer, state_template
 from repro_torch.train.losses import lm_loss
@@ -145,6 +158,15 @@ def _replica(batches, w):
     return T.tree_map(lambda b: b[w], batches)
 
 
+def _local_grads(loss_fn, params, batch):
+    """(loss, grads) of ``loss_fn`` on one replica's params and batch."""
+    leaves, tdef = T.flatten(params)
+    pw = [x.detach().requires_grad_() for x in leaves]
+    loss = loss_fn(T.unflatten(tdef, pw), batch)
+    gws = torch.autograd.grad(loss, pw)
+    return loss.detach(), T.unflatten(tdef, list(gws))
+
+
 def _replica_grads(loss_fn, params, batches, add=None):
     """Per-replica (losses, stacked grads) of ``loss_fn`` for the stacked
     ``params`` and per-replica ``batches``, replica by replica over axis
@@ -154,16 +176,16 @@ def _replica_grads(loss_fn, params, batches, add=None):
     grads = None if add else [torch.empty_like(x) for x in leaves]
     losses = []
     for w in range(leaves[0].shape[0]):
-        pw = [x[w].detach().requires_grad_() for x in leaves]
-        loss = loss_fn(T.unflatten(tdef, pw), _replica(batches, w))
-        gws = torch.autograd.grad(loss, pw)
+        loss, gw = _local_grads(loss_fn,
+                                T.unflatten(tdef, [x[w] for x in leaves]),
+                                _replica(batches, w))
         if add:
-            add(w, T.unflatten(tdef, list(gws)))
+            add(w, gw)
         else:
-            for out, gw in zip(grads, gws):
-                out[w].copy_(gw)
-        del gws
-        losses.append(loss.detach())
+            for out, g in zip(grads, T.leaves(gw)):
+                out[w].copy_(g)
+        del gw
+        losses.append(loss)
     return torch.stack(losses), (None if add else T.unflatten(tdef, grads))
 
 
@@ -383,6 +405,265 @@ def zero3_param_template(params, n_parts: int,
         return [torch.empty((p,), dtype=torch.float32, device="meta")
                 for p in play.padded_sizes]
     return zero1_master_buckets(params, n_parts, bucket_bytes)
+
+
+# ---------------------------------------------------------------------------
+# the sharded production step: one replica a rank process
+# ---------------------------------------------------------------------------
+def data_comm(mesh) -> ShardComm:
+    """The data-parallel ``ShardComm`` of a mesh: the group over its batch
+    axes ("pod" and/or "data"; both together act as one group of their
+    product).  A "model" axis of more than one rank raises: the sharded
+    step's tensor-parallel half is not ported."""
+    if mesh.sizes.get("model", 1) > 1:
+        raise NotImplementedError(
+            "make_sharded_train_step: a 'model' mesh axis (tensor "
+            "parallelism, models/tensor_parallel.py) is not ported; use a "
+            "mesh of 'pod' and/or 'data' axes")
+    axes = tuple(a for a in BATCH_AXES if a in mesh.axes)
+    if not axes:
+        raise ValueError(f"mesh axes {mesh.axes} hold no batch axis "
+                         f"({BATCH_AXES})")
+    return mesh.comm(axes)
+
+
+def _sync_strategy(zero_stage: int, pod_compressor, bucket_bytes: int,
+                   policy: Optional[PrecisionPolicy]) -> Strategy:
+    """The strategy of the sharded step's own paths: ``sync`` (with the
+    pod compressor) or ``sync_zero{1,2,3}``."""
+    if zero_stage:
+        return ST.get_strategy(f"sync_zero{zero_stage}",
+                               bucket_bytes=bucket_bytes, policy=policy)
+    return ST.sync(pod_compressor, bucket_bytes=bucket_bytes, policy=policy)
+
+
+def make_sharded_train_step(cfg, optimizer: Optimizer, mesh,
+                            strategy: Optional[Strategy] = None,
+                            comm=None, remat: bool = True,
+                            pod_compressor=None,
+                            partition_grads: bool = False,
+                            bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                            policy: Optional[PrecisionPolicy] = None,
+                            accum_steps: int = 1, zero_stage: int = 0,
+                            param_template=None, loss_fn=None):
+    """Port of ``repro/train/loop.py::make_sharded_train_step``: the step of
+    ONE rank of ``mesh`` (``launch/mesh.py``).  ``step(state, batch)``
+    takes this rank's state and batch rows (a dict of "tokens" and
+    "labels", each with a leading ``accum_steps`` axis when it is > 1) and
+    returns ``(new_state, loss)``, the loss the mean over the batch ranks
+    (the replica step's order: over the ranks, then over the
+    microbatches).
+
+    ``strategy=None``: synchronous data parallelism, the gradients
+    all-meaned over the batch ranks by the ``Fabric``, one collective
+    pair a bucket a boundary.  ``pod_compressor``: the same exchange
+    compressed with error feedback (``state["comm_state"]["residual"]``).
+    ``zero_stage`` 1/2/3 (``partition_grads`` is stage 1): the gradients
+    are reduce-scattered, ``state["opt_state"]`` holds this rank's chunk
+    of ``zero1_opt_template``'s buckets, the shard update is all-gathered
+    back (stages 1/2); stage 2 reduce-scatters every microbatch into a
+    1/W accumulator; stage 3's ``state["params"]`` are this rank's chunks
+    of ``zero3_param_template`` and ``param_template`` (the full model's
+    tensors, meta ones will do) gives their layout.  These paths run the
+    strategy of the same name (``sync``, ``sync_zero1/2/3``) over the
+    mesh's batch group.  With a ``strategy`` and its ``comm`` (a
+    ``ShardComm`` or ``ShardHierComm``) that strategy exchanges and steps
+    (the reference's tree-space accumulation is the same f32 adds in the
+    same order, here in the flat buckets).
+
+    One body serves every path, the replica step's, rank for replica:
+    the same local gradients, the same bucket adds and division, the same
+    strategy update, whose reductions sum in rank order; so a run of W
+    ranks is bitwise ``make_replica_train_step`` with the matching
+    strategy.  One exception, as in the reference: under a policy with a
+    narrow wire, ZeRO-2/3's per-microbatch reduce-scatter ships the
+    policy's wire dtype here (the reference's sharded step) and f32 in
+    the replica step (the reference's replica step).
+
+    A policy that scales decides the skip before anything is written, as
+    the replica step: the finite flag of this rank's gradients (ZeRO-2/3
+    at accum > 1: of its reduced shards) is MIN-reduced over the ranks,
+    read on the host, and a skipped boundary runs no exchange and no
+    update.  ``loss_fn`` (default ``make_loss_fn(cfg, remat)``) takes
+    ``(params, batch)``."""
+    if partition_grads:  # the reference's spelling of the first stage
+        zero_stage = max(zero_stage, 1)
+    if zero_stage not in (0, 1, 2, 3):
+        raise ValueError(f"zero_stage must be 0..3, got {zero_stage}")
+    if zero_stage and (pod_compressor is not None or strategy is not None):
+        raise ValueError("partition_grads composes with the plain sync "
+                         "path only (no pod_compressor / strategy)")
+    if zero_stage >= 3 and param_template is None:
+        raise ValueError("zero_stage=3 needs param_template (the FULL "
+                         "model's tensors, meta ones will do) for the "
+                         "shard-bucket layout")
+    if strategy is not None and pod_compressor is not None:
+        raise ValueError("pod_compressor is the plain sync path's; a "
+                         "strategy brings its own compressor")
+    if strategy is not None and comm is None:
+        raise ValueError("a strategy needs its comm (ShardComm or "
+                         "ShardHierComm)")
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    policy = None if policy is None else PR.get_policy(policy)
+    if policy is not None and policy.is_noop:
+        policy = None  # f32: the policy-less path bit for bit
+    scaling = policy is not None and policy.uses_scaling
+    loss_fn = loss_fn or make_loss_fn(cfg, remat=remat)
+    dp = data_comm(mesh)
+    if strategy is None:
+        strategy = _sync_strategy(zero_stage, pod_compressor, bucket_bytes,
+                                  policy)
+        comm = dp
+    part_accum = accum_steps > 1 and strategy.partitioned_accum
+    # the accumulator (and ZeRO-2/3's microbatch reduce-scatter, on the
+    # policy's wire as the reference's sharded step) over the batch ranks
+    fab = Fabric(dp, bucket_bytes,
+                 wire_dtype=policy.wire_dt if policy is not None else None)
+    z3_play = (PartitionedLayout.build(
+        BucketLayout.build(param_template, bucket_bytes, lead_axes=0),
+        dp.size) if zero_stage >= 3 else None)
+    host = {"tensor": None, "t": 0}
+
+    def gather(src):
+        """The full params of the forward: ZeRO-3 all-gathers its shard
+        buckets (a temporary of the step, never state)."""
+        if z3_play is not None:
+            return fab.unpartition(src, z3_play)
+        return strategy.gather_params(src, comm) if strategy.owns_params \
+            else src
+
+    def value_and_grad(params, batch, scale):
+        """cast-params → forward → scaled loss → this rank's gradients."""
+        def lfn(p, b):
+            if policy is not None:
+                p = policy.cast_to_param(p)
+            loss = loss_fn(p, b)
+            return loss * scale if scaling else loss
+        return _local_grads(lfn, params, batch)
+
+    def micro(batch, j):
+        return T.tree_map(lambda b: b[j], batch)
+
+    def boundary_divisor(dev, scale):
+        # a device tensor, as the replica step's: CUDA divides by a host
+        # scalar through its reciprocal, which rounds differently
+        k = torch.as_tensor(accum_steps, dtype=torch.float32).to(dev)
+        return k * scale if scaling else k
+
+    def accum_grads(full, batch, scale):
+        """The microbatches' gradients added into flat f32 buckets, no
+        collective, divided once at the boundary: ZeRO-2/3 reduce-scatter
+        each microbatch's buckets as they come and only the 1/W shard
+        accumulates.  Returns (gradient tree, or shard buckets under
+        ZeRO-2/3; the per-microbatch losses)."""
+        dev = T.leaves(full)[0].device
+        if part_accum:
+            play = fab.partitioned_layout(full)
+            acc = fab.init_accum_partitioned(play, dev)
+        else:
+            lay = fab.layout(full)
+            acc = fab.init_accum(lay, dev)
+        losses = []
+        for j in range(accum_steps):
+            loss, grads = value_and_grad(full, micro(batch, j), scale)
+            if part_accum:
+                mb = fab.init_accum(play.layout, dev, play=play)
+                fab.accumulate(mb, grads, play.layout)
+                del grads
+                fab.accumulate_partitioned_buckets(acc, mb, play)
+                del mb
+            else:
+                fab.accumulate(acc, grads, lay)
+                del grads
+            losses.append(loss)
+        ks = boundary_divisor(dev, scale)
+        acc = [a.div_(ks) for a in acc]
+        return (acc if part_accum else lay.debucketize(acc, cast=False),
+                losses)
+
+    def mean_loss(losses):
+        """The replica step's loss from every rank's microbatch losses:
+        the rank mean of each microbatch, summed, over ``accum_steps``."""
+        every = dp.gather_scalars(torch.stack(losses))  # (W, accum)
+        if accum_steps == 1:
+            return every[:, 0].mean()
+        total = torch.zeros((), dtype=torch.float32, device=every.device)
+        for j in range(accum_steps):
+            total = total + every[:, j].mean()
+        return total / torch.as_tensor(accum_steps, dtype=torch.float32
+                                       ).to(every.device)
+
+    def next_t(state):
+        return host["t"] if state["step"] is host["tensor"] \
+            else int(state["step"])
+
+    def step(state, batch):
+        sstate = state.get("loss_scale")
+        scale = sstate["scale"] if scaling else None
+        t = next_t(state)
+        src = state.get("master", state["params"])
+        full = gather(src)
+        if accum_steps == 1:
+            loss, grads = value_and_grad(full, batch, scale)
+            losses = [loss]
+            grads = (PR.unscale_grads(grads, scale) if scaling
+                     else PR.cast_floats(grads, torch.float32))
+        else:
+            grads, losses = accum_grads(full, batch, scale)
+        del full
+        # the skip is decided before anything is written, by every rank
+        # alike: the update writes params, master, m, v and residuals in
+        # place
+        finite = bool(PR.tree_finite_across(grads, dp)) if scaling else True
+        if not finite:
+            new_src, opt_state, cstate = (src, state["opt_state"],
+                                          state["comm_state"])
+        elif part_accum:
+            new_src, opt_state, cstate, _ = strategy.update_partitioned(
+                src, grads, state["opt_state"], state["comm_state"], t,
+                optimizer, comm)
+        else:
+            new_src, opt_state, cstate, _ = strategy.update(
+                src, grads, state["opt_state"], state["comm_state"], t,
+                optimizer, comm)
+        del grads
+        new_state = {"opt_state": opt_state, "comm_state": cstate,
+                     "step": state["step"] + 1}
+        if "master" in state:
+            new_state["master"] = new_src
+            new_state["params"] = (policy.cast_to_param(new_src) if finite
+                                   else state["params"])
+        else:
+            new_state["params"] = new_src
+        loss = mean_loss(losses)
+        if scaling:
+            dev = sstate["scale"].device
+            new_state["loss_scale"] = PR.next_scale_state(
+                policy, sstate, torch.tensor(finite, device=dev))
+            loss = loss / sstate["scale"]
+        host.update(tensor=new_state["step"], t=t + 1)
+        return new_state, loss
+
+    step.comm = dp  # its counters say what the step shipped
+    return step
+
+
+def init_sharded_state(params, optimizer: Optimizer, mesh,
+                       zero_stage: int = 0, pod_compressor=None,
+                       policy: Optional[PrecisionPolicy] = None,
+                       bucket_bytes: int = DEFAULT_BUCKET_BYTES):
+    """This rank's train state for ``make_sharded_train_step``'s sync,
+    pod-compressor and ZeRO paths from the full (replicated) ``params``:
+    the replica step's ``init_train_state`` over the rank's ``ShardComm``
+    with the matching strategy, so a ZeRO state holds the rank's chunk of
+    every global shard bucket (the optimizer state, the master, ZeRO-3's
+    params), a compressed one the residual.  The strategy path takes
+    ``init_train_state`` with its strategy and comm."""
+    pol = None if policy is None else PR.get_policy(policy)
+    strategy = _sync_strategy(zero_stage, pod_compressor, bucket_bytes, pol)
+    return init_train_state(params, optimizer, strategy, data_comm(mesh),
+                            policy=policy)
 
 
 def _stack_divergence(params):

@@ -116,7 +116,11 @@ def test_fused_adam_plain_matches_interpret_kernel(n, p_dtype):
     tt = torch.tensor(float(t))
     consts = torch.stack([torch.tensor(lr, dtype=torch.float32),
                           1.0 - 0.9 ** tt, 1.0 - 0.999 ** tt])
-    tp = torch.from_numpy(p).to(getattr(torch, p_dtype))
+    # every numpy input is copied before the in-place update: on the CPU
+    # ``jnp.asarray`` of an f32 numpy array shares its buffer, and JAX's
+    # dispatch is asynchronous, so writing into ``p`` could reach the
+    # reference's operands before they are read
+    tp = torch.from_numpy(p.copy()).to(getattr(torch, p_dtype))
     tg, tm, tv = (torch.from_numpy(a.copy()) for a in (g, m, v))
     out = fa.fused_adam_plain(tp, tg, tm, tv, consts)
     assert out[0] is tp and out[1] is tm and out[2] is tv  # in place

@@ -61,6 +61,32 @@ def test_sources_import_no_jax_and_nothing_of_repro(path):
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
 
 
+def _imports(path):
+    names = set()
+    for node in ast.walk(ast.parse((ROOT / path).read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("module,path", [
+    ("repro_torch.core.comm", "src/repro_torch/core/comm.py"),
+    ("repro_torch.launch.mesh", "src/repro_torch/launch/mesh.py"),
+    ("repro_torch.train.loop", "src/repro_torch/train/loop.py")])
+def test_multiprocess_modules_take_torch_distributed_never_jax(module, path):
+    """The per-rank comm, the mesh and launcher, and the sharded step are
+    in the import check above; ``torch.distributed`` is theirs to use."""
+    assert module in MODULES
+    names = _imports(path)
+    assert not any(n.split(".")[0] in ("jax", "jaxlib", "repro")
+                   for n in names), names
+    if module != "repro_torch.train.loop":
+        assert any(n.startswith("torch.distributed")
+                   or n == "torch.multiprocessing" for n in names), names
+
+
 def _no_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
