@@ -122,7 +122,16 @@ then drives the main paths through their entry points:
     step the closed form (``train_sharded``), and ``local_sgd``,
     ``gossip`` and ``downpour`` 1-bit on 2 layers
     (``sharded_strategies``); then one sync step over NCCL at world size
-    1 against the replica step (``nccl_world1``).
+    1 against the replica step (``nccl_world1``);
+  * the "model" mesh axis on the same pool of 4 ranks as data 2 x model
+    2: tensor parallelism on qwen2-1.5b at full width, 4 layers, 3 steps
+    under fused Adam with the 1-bit pod compressor and under ZeRO-1,
+    each rank's unsplit params against the one-process replica step at
+    tp_degree 2, W = 2 (``train_tp``); expert parallelism on
+    granite-moe-1b-a400m at full width, 4 layers, 4096 tokens a data
+    rank: step 0's loss and MoE gradients at capacity factor 8 against
+    the one-device dispatch, then 3 steps at the config's, with the
+    drop share and the all-to-all bytes a layer (``train_ep``).
 
 Each kernel's launches are counted from zero over the paths that run it,
 and each is timed against its bound, its plain version and one PyTorch
@@ -171,6 +180,7 @@ import multiprocessing
 import os
 import queue
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2626,14 +2636,15 @@ def prefetch(kernels, get_config, smi):
     """``--prefetch-depth 1`` and ``2`` on the ``train_bf16``
     configuration (8 steps each, no profiler) and the host's time to draw
     one boundary's microbatches.  A third arm repeats ``train_bf16``'s own
-    call (depth 2, 10 steps, the last profiled), in turns with the
-    others: it tells a slower main-path median that comes from the call's
-    settings from one that comes from its place in the process."""
+    call (depth 2, 10 steps, the last profiled) after the others: it
+    tells a slower main-path median that comes from the call's settings
+    from one that comes from its place in the process.  One turn of the
+    three arms, for the run's time budget."""
     from repro_torch.data import pipeline as DP
 
     out = {"phase": "prefetch", "card": smi, "depths": {},
            "train_bf16_repeat": []}
-    for depth in (1, 2, "main", 1, 2, "main"):  # in turns
+    for depth in (1, 2, "main"):
         main = depth == "main"
         result, _ = train_path(kernels, get_config, smi, compressor="onebit",
                                precision="bf16", accum=2,
@@ -5569,8 +5580,10 @@ def rank_train(mesh, rank, run, cfg, steps, accum, kernels):
 def shard_rank(rank, world):
     """One rank of the pool: ``shard_comm`` at 4 ranks, then on ranks 0
     and 1 (a 2-rank mesh of the pool) ``shard_comm`` at 2 ranks,
-    ``train_sharded`` and ``sharded_strategies``.  Every kernel's
-    launches are this process's counts."""
+    ``train_sharded`` and ``sharded_strategies``, then on all 4 ranks as
+    data 2 x model 2 ``train_tp`` and ``train_ep``
+    (``model_axis_rank``).  Every kernel's launches are this process's
+    counts."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -5609,9 +5622,16 @@ def shard_rank(rank, world):
             "worker_index": int(comm.worker_index()),
             "timing": comm_timing(comm, comm.group)}
     out["seconds"]["shard_comm"] = time.perf_counter() - t0
-    if mesh2 is None:  # ranks 2 and 3 wait for the others to finish
+
+    def model_axis():  # every rank of the pool, once the others are done
         dist.barrier()
+        t0 = time.perf_counter()
+        out["model_axis"] = model_axis_rank(rank, kernels)
+        out["seconds"]["model_axis"] = time.perf_counter() - t0
         return out
+
+    if mesh2 is None:  # ranks 2 and 3 wait for the others to finish
+        return model_axis()
     t0 = time.perf_counter()
     out["train"] = {}
     for case, (zero, accum, comp_name, prec) in SHARD_CASES.items():
@@ -5657,8 +5677,7 @@ def shard_rank(rank, world):
         gc.collect()
         torch.cuda.empty_cache()
     out["seconds"]["sharded_strategies"] = time.perf_counter() - t0
-    dist.barrier()
-    return out
+    return model_axis()
 
 
 def nccl_rank(rank, world):
@@ -5684,6 +5703,308 @@ def nccl_rank(rank, world):
             "backend": str(step.comm.backend),
             "transport": step.comm.transport("cuda"),
             "stats": {k: tuple(v) for k, v in step.comm.stats.items()}}
+
+
+# ---------------------------------------------------------------------------
+# the model axis: tensor and expert parallelism on data 2 x model 2
+# ---------------------------------------------------------------------------
+MODEL_MESH = (2, 2)  # ("data", "model") over the pool's 4 ranks
+TP_N = 2
+# train_tp (qwen2-1.5b, 4 layers, fused Adam): (zero stage, compressor);
+# each rank's unsplit params after SHARD_STEPS steps within (atol, share of
+# the elements beyond 1e-6) of the one-process replica step at tp_degree
+# 2, W = 2: the CPU tests' bounds under Adam
+# (tests/test_torch_sharded_step.py::TP_BOUNDS)
+TP_CASES = {"onebit": (0, "onebit"), "zero1": (1, None)}
+TP_TOL = {"onebit": (2e-2, 2e-2), "zero1": (2e-3, 2e-3)}
+# train_ep (granite-moe-1b-a400m, 4 layers): a data rank's rows, 4096
+# tokens (8192 global, so the EP branch); step 0's loss and MoE gradients
+# at capacity factor 8 against the one-device dispatch at
+# tests/test_torch_ep.py's bounds (loss 1e-4 relative, each gradient
+# within 1e-3 of its leaf's largest), with the router's aux coefficient 0
+# there: the EP aux is the mean of each model rank's slice's aux (the
+# reference's), which is not the one-device aux over the same tokens
+EP_LAYERS, EP_B, EP_L, EP_SEED, EP_DENSE_CF = 4, 4, 1024, 26, 8.0
+EP_TOL = {"loss": 1e-4, "grad_rel": 1e-3}
+MODEL_REF_DIR = ROOT / "build" / "model_axis"
+
+
+def tp_cfg(get_config):
+    return dataclasses.replace(shard_cfg(get_config, TRAIN_LAYERS),
+                               tp_degree=TP_N)
+
+
+def ep_cfg(get_config, cf=None):
+    """granite cut to EP_LAYERS; with ``cf`` the comparison's config: that
+    capacity factor and no aux term."""
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              num_layers=EP_LAYERS)
+    return cfg if cf is None else dataclasses.replace(
+        cfg, capacity_factor=cf, router_aux_coef=0.0)
+
+
+def ep_init(cfg):
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device="cuda").manual_seed(EP_SEED)
+    return T.init_model(gen, cfg, "cuda")
+
+
+def ep_data(cfg):
+    from repro_torch.data.pipeline import DataConfig
+
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=EP_L,
+                      batch_per_worker=EP_B)
+
+
+def _moe_leaves(tree):
+    """The MoE subtrees of a param (or gradient) tree, in its layout."""
+    return {"stack": {k: {"moe": v["moe"]}
+                      for k, v in tree["stack"].items() if "moe" in v}}
+
+
+def tp_reference(get_config, case):
+    """``train_tp``'s one-process reference: the replica step at tp_degree
+    2 and W = 2 (``LocalComm``), fused Adam, run per (model rank, part) as
+    tests/_torch_model_ranks.py::tp_replica_run: each part's loss is the
+    blocked form's on the full tree assembled from it and, from the
+    batch, a copy of every other part before the step, so each part's
+    buckets (and the 1-bit blocks) are the ranks'.  Saves each data
+    replica's full params after SHARD_STEPS steps for the ranks
+    (``MODEL_REF_DIR``) and returns the losses."""
+    from repro_torch.core import strategies as ST
+    from repro_torch.core import tree as TT
+    from repro_torch.core.comm import LocalComm
+    from repro_torch.data.pipeline import microbatch_stack
+    from repro_torch.models import tensor_parallel as TP
+    from repro_torch.optim import optimizers as TO
+    from repro_torch.train import loop as LOOP
+
+    zero, comp = TP_CASES[case]
+    cfg = tp_cfg(get_config)
+    comm = LocalComm(SHARD_W)
+    lf = LOOP.make_loss_fn(cfg, remat=False)
+    full = shard_init(cfg)
+    runs = {}
+    for m in range(TP_N):
+        parts = TP._partition_replicated(TP.tp_rank_params(full, TP_N, m))
+        for n, sub in zip(("rep", "split"), parts):
+            strat = (ST.get_strategy("sync_zero1") if zero
+                     else ST.sync(shard_compressor(comp)))
+            opt = TO.adam(SHARD_LR, fused=True)
+            state = LOOP.init_train_state(comm.replicate(sub), opt, strat,
+                                          comm)
+
+            def loss(p, b, m=m, n=n):
+                trees = [TP._merge_trees(
+                    p if n == "rep" else b["others"][r]["rep"],
+                    p if (n == "split" and r == m) else b["others"][r]["split"])
+                    for r in range(TP_N)]
+                return lf(TP.tp_unsplit_ranks(trees), b)
+
+            runs[(m, n)] = [state, LOOP.make_replica_train_step(
+                loss, opt, strat, comm)]
+        del parts, sub
+    del full
+    data = shard_data(cfg)
+    losses = []
+    for t in range(SHARD_STEPS):
+        x = microbatch_stack(data, SHARD_W, t, 1, "cuda")[0]
+        # copies: fused Adam updates the params in place
+        others = [{n: TT.tree_map(torch.clone, runs[(r, n)][0]["params"])
+                   for n in ("rep", "split")} for r in range(TP_N)]
+        for run in runs.values():
+            run[0], met = run[1](run[0], {"tokens": x, "labels": x,
+                                          "others": others})
+        losses.append(float(met["loss"]))
+        del others
+    MODEL_REF_DIR.mkdir(parents=True, exist_ok=True)
+    for w in range(SHARD_W):
+        trees = [TP._merge_trees(*(
+            TT.tree_map(lambda v: v[w], runs[(r, n)][0]["params"])
+            for n in ("rep", "split"))) for r in range(TP_N)]
+        torch.save(TT.tree_map(lambda v: v.cpu(), TP.tp_unsplit_ranks(trees)),
+                   MODEL_REF_DIR / f"tp_{case}_{w}.pt")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def ep_reference(get_config):
+    """``train_ep``'s one-process reference: the full model on one data
+    rank's rows at capacity factor 8 without the aux term (no mesh:
+    ``_moe_dense``, every expert whole), the loss and the MoE leaves'
+    gradients, saved for the ranks; per data rank."""
+    from repro_torch.core import tree as TT
+    from repro_torch.data.pipeline import rank_batch
+    from repro_torch.train import loop as LOOP
+
+    cfg = ep_cfg(get_config, EP_DENSE_CF)
+    params = ep_init(cfg)
+    lf = LOOP.make_loss_fn(cfg, remat=False)
+    MODEL_REF_DIR.mkdir(parents=True, exist_ok=True)
+    losses = []
+    for d in range(MODEL_MESH[0]):
+        x = rank_batch(ep_data(cfg), d, 0, 1, "cuda")
+        leaves, tdef = TT.flatten(params)
+        pw = [v.detach().requires_grad_() for v in leaves]
+        loss = lf(TT.unflatten(tdef, pw), {"tokens": x, "labels": x})
+        grads = TT.unflatten(tdef, list(torch.autograd.grad(loss, pw)))
+        losses.append(float(loss.detach()))
+        torch.save(TT.tree_map(lambda v: v.cpu(), _moe_leaves(grads)),
+                   MODEL_REF_DIR / f"ep_grads_{d}.pt")
+        del pw, loss, grads
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _held(got, ref):
+    """Leaf by leaf on the card: (max |got - ref|, elements beyond 1e-6,
+    elements, max over leaves of max |d| / max |ref|)."""
+    from repro_torch.core import tree as TT
+
+    worst, beyond, n, rel = 0.0, 0, 0, 0.0
+    for a, b in zip(TT.leaves(got), TT.leaves(ref)):
+        b = b.to(a.device)
+        d = (a.float() - b.float()).abs()
+        worst = max(worst, d.max().item())
+        beyond += int((d > 1e-6).sum())
+        n += d.numel()
+        rel = max(rel, d.max().item() / max(b.abs().max().item(), 1e-30))
+    return worst, beyond, n, rel
+
+
+def model_axis_rank(rank, kernels):
+    """``train_tp`` and ``train_ep`` on this rank of the pool's data 2 x
+    model 2 mesh (every rank of the pool calls it).  Each case: the
+    kernels' launches, step ms (host, after a synchronize), the last
+    step's device ms (profiled), peak GB, the losses, the model group's
+    collectives (count and payload bytes), the batch group's bytes a step,
+    and each rank's final params held against the one-process reference
+    saved under ``MODEL_REF_DIR`` (its model shard of them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as TT
+    from repro_torch.data.pipeline import rank_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import tensor_parallel as TP
+    from repro_torch.optim import optimizers as TO
+    from repro_torch.train import loop as LOOP
+
+    mesh = make_mesh(MODEL_MESH, ("data", "model"), backend="gloo")
+    d, m = mesh.coords["data"], mesh.coords["model"]
+    mc = mesh.shared_comm("model")
+    out = {"coords": (d, m), "tp": {}, "ep": {}}
+
+    def run(step, state, cfg, data, steps):
+        for fn in kernels.values():
+            fn.launches = 0
+        ops0 = {k: tuple(v) for k, v in mc.ops.items()}
+        sent0 = sum(v[1] for v in mc.stats.values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses, stats, prof = [], [], [], None
+        for t in range(steps):
+            x = rank_batch(data, d, t, 1, "cuda")
+            torch.cuda.synchronize()
+            if t == steps - 1:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            t0 = time.perf_counter()
+            state, loss = step(state, {"tokens": x, "labels": x})
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if t == steps - 1:
+                prof.__exit__(None, None, None)
+            losses.append(float(loss))
+            stats.append({k: tuple(v) for k, v in step.comm.stats.items()})
+        model_ops = {k: [v[0] - ops0.get(k, (0, 0))[0],
+                         v[1] - ops0.get(k, (0, 0))[1]]
+                     for k, v in mc.ops.items()}
+        res = {"launches": {k: fn.launches for k, fn in kernels.items()},
+               "step_ms": ms, "device_ms_last": rank_device_ms(prof),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "losses": losses, "model_ops": model_ops,
+               "batch_bytes_per_step": [
+                   sum(v[1] for v in stats[t].values())
+                   - (sum(v[1] for v in stats[t - 1].values()) if t else 0)
+                   for t in range(steps)],
+               "model_bytes_per_step": (sum(v[1] for v in mc.stats.values())
+                                        - sent0) / steps}
+        return state, res
+
+    for case, (zero, comp_name) in TP_CASES.items():
+        cfg = tp_cfg(get_config)
+        opt = TO.adam(SHARD_LR, fused=True)
+        state = LOOP.init_sharded_state(shard_init(cfg), opt, mesh,
+                                        zero_stage=zero,
+                                        pod_compressor=shard_compressor(
+                                            comp_name))
+        step = LOOP.make_sharded_train_step(
+            cfg, opt, mesh, remat=False, zero_stage=zero,
+            pod_compressor=shard_compressor(comp_name))
+        state, res = run(step, state, cfg, shard_data(cfg), SHARD_STEPS)
+        ref = torch.load(MODEL_REF_DIR / f"tp_{case}_{d}.pt", mmap=True,
+                         weights_only=True)
+        mine = TP._merge_trees(*LOOP.model_shard(ref, mesh).values())
+        res["held"] = _held(step.params_of(state), mine)
+        res["leaves"] = {n: len(TT.leaves(state["params"][n]))
+                         for n in ("rep", "split")} if not zero else None
+        out["tp"][case] = res
+        del state, step, ref, mine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # train_ep: step 0's gradients at capacity factor 8, then SHARD_STEPS
+    # steps at the config's
+    cfg8, cfg = ep_cfg(get_config, EP_DENSE_CF), ep_cfg(get_config)
+    opt = TO.adam(SHARD_LR, fused=True)
+    state = LOOP.init_sharded_state(ep_init(cfg), opt, mesh)
+    ep_calls, kept = [], []
+    route, moe_ep = L._route, L._moe_ep
+
+    def route_spy(*args):
+        res = route(*args)
+        kept.append((int(res[2].sum()), res[2].numel()))
+        return res
+
+    def ep_spy(*args):
+        ep_calls.append(1)
+        return moe_ep(*args)
+
+    L._route, L._moe_ep = route_spy, ep_spy
+    try:
+        x = rank_batch(ep_data(cfg), d, 0, 1, "cuda")
+        step8 = LOOP.make_sharded_train_step(cfg8, opt, mesh, remat=False)
+        loss8, grads = step8.local_grads(state, {"tokens": x, "labels": x})
+        merged = TP._merge_trees(grads["rep"], grads["split"])
+        ref = torch.load(MODEL_REF_DIR / f"ep_grads_{d}.pt", mmap=True,
+                         weights_only=True)
+        mine = TP.tp_rank_params(ref, TP_N, m, experts=True)
+        out["ep"]["grads_held"] = _held(_moe_leaves(merged), mine)
+        out["ep"]["loss_cf8"] = float(loss8)
+        out["ep"]["ep_calls_cf8"] = len(ep_calls)
+        del grads, merged, ref, mine, step8
+        ep_calls.clear()
+        kept.clear()
+        step = LOOP.make_sharded_train_step(cfg, opt, mesh, remat=False)
+        state, res = run(step, state, cfg, ep_data(cfg), SHARD_STEPS)
+    finally:
+        L._route, L._moe_ep = route, moe_ep
+    res["ep_calls"] = len(ep_calls)
+    res["kept_rows"] = kept
+    res["leaves"] = {n: len(TT.leaves(state["params"][n]))
+                     for n in ("rep", "split")}
+    out["ep"]["train"] = res
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def sharded_references(get_config):
@@ -5734,6 +6055,10 @@ def sharded_references(get_config):
                                        None, 1)
     refs["nccl_world1"] = run(shard_cfg(get_config, TRAIN_LAYERS),
                               ST.sync(), None, 1, w=1, steps=1)
+    t0 = time.perf_counter()
+    refs["tp"] = {case: tp_reference(get_config, case) for case in TP_CASES}
+    refs["ep"] = ep_reference(get_config)
+    refs["model_axis_s"] = time.perf_counter() - t0
     return refs
 
 
@@ -5949,7 +6274,162 @@ def sharded_phases(get_config, smi):
                  "loss_equal_replica_step": True,
                  "state_equal_replica_step": True,
                  "comm_stats": nccl["stats"], "s": nccl_s, "card": smi}
-    return [comm_line, train_line, strat_line, nccl_line], launches
+    tp_line, ep_line = model_axis_lines(get_config, ranks, refs, launches,
+                                        smi)
+    shutil.rmtree(MODEL_REF_DIR, ignore_errors=True)  # 8.3 GB of references
+    return [comm_line, train_line, strat_line, nccl_line, tp_line,
+            ep_line], launches
+
+
+def model_axis_lines(get_config, ranks, refs, launches, smi):
+    """``train_tp`` and ``train_ep`` from the pool's ranks: each gated
+    against its one-process reference, its launches and its collectives;
+    the kernels' launches added to ``launches``."""
+    from repro_torch.core.fabric import BucketLayout
+    from repro_torch.models import tensor_parallel as TP
+    from repro_torch.models import transformer as T
+
+    def layouts(cfg):
+        meta = T.init_model(torch.Generator(), cfg, "meta")
+        experts = TP.splits_experts(meta, TP_N)
+        parts = TP._partition_replicated(
+            TP.tp_rank_params(meta, TP_N, 0, experts=experts),
+            experts=experts)
+        return [BucketLayout.build(p) for p in parts]
+
+    by = {r["model_axis"]["coords"]: r["model_axis"] for r in ranks}
+    world = MODEL_MESH[0] * MODEL_MESH[1]
+    cfg = tp_cfg(get_config)
+    lays = layouts(cfg)
+    leaves = sum(lay.n_leaves for lay in lays)
+    buckets = sum(lay.n_buckets for lay in lays)
+    act_bytes = TRAIN_B * TRAIN_L * cfg.d_model * 4
+    tp_line = {"phase": "train_tp", "arch": "qwen2-1.5b",
+               "mesh": {"data": MODEL_MESH[0], "model": MODEL_MESH[1]},
+               "ranks": world, "transport": "gloo+host",
+               "layers": TRAIN_LAYERS, "batch_per_data_rank": TRAIN_B,
+               "seq_len": TRAIN_L, "steps": SHARD_STEPS, "fused_adam": True,
+               "parts": {"rep_leaves": lays[0].n_leaves,
+                         "split_leaves": lays[1].n_leaves,
+                         "rep_buckets": lays[0].n_buckets,
+                         "split_buckets": lays[1].n_buckets},
+               "reference": "the replica step at tp_degree 2, W = 2, per "
+                            "(model rank, part), one process",
+               "cases": {}, "card": smi,
+               "rank_seconds": ranks[0]["seconds"]["model_axis"],
+               "reference_s": refs["model_axis_s"]}
+    for case, (zero, comp_name) in TP_CASES.items():
+        atol, share = TP_TOL[case]
+        loss_rtol = 1e-4 if comp_name else 1e-6
+        ref_losses = refs["tp"][case]
+        steps = SHARD_STEPS
+        expect = {"fused_adam": (buckets if zero else leaves) * steps,
+                  "onebit_quant_packed": buckets * steps if comp_name
+                  else 0, "topk_encode_ef": 0}
+        psum = 2 * TRAIN_LAYERS * 2 * steps  # a sub-layer a layer, fwd+bwd
+        rec = {"zero_stage": zero, "compressor": comp_name,
+               "tol": {"atol": atol, "share_beyond_1e-6": share,
+                       "loss_rtol": loss_rtol},
+               "losses_reference": ref_losses, "ranks": {}}
+        for key, got in sorted(by.items()):
+            res = got["tp"][case]
+            worst, beyond, n, _ = res["held"]
+            if worst > atol or beyond > share * n:
+                raise AssertionError(f"train_tp {case} rank {key}: params "
+                                     f"max |d| {worst}, {beyond} of {n} "
+                                     f"beyond 1e-6 (tol {atol}, {share})")
+            if res["losses"] != by[(0, 0)]["tp"][case]["losses"]:
+                raise AssertionError(f"train_tp {case}: the ranks' losses "
+                                     "differ")
+            for a, b in zip(res["losses"], ref_losses):
+                if abs(a - b) > loss_rtol * abs(b):
+                    raise AssertionError(f"train_tp {case}: losses "
+                                         f"{res['losses']} vs {ref_losses}")
+            if res["launches"] != expect:
+                raise AssertionError(f"train_tp {case} rank {key}: launches "
+                                     f"{res['launches']} != {expect}")
+            if res["model_ops"].get("psum", [0])[0] != psum or \
+                    res["model_ops"]["psum"][1] != psum * act_bytes:
+                raise AssertionError(f"train_tp {case} rank {key}: model "
+                                     f"group {res['model_ops']}, {psum} "
+                                     f"all-sums of {act_bytes} B expected")
+            for k in launches:
+                launches[k] += res["launches"][k]
+            rec["ranks"]["%d,%d" % key] = {
+                "step_ms": res["step_ms"],
+                "device_ms_last_step": res["device_ms_last"],
+                "peak_gb": res["peak_gb"],
+                "model_all_sum": res["model_ops"]["psum"],
+                "model_wire_bytes_per_step": res["model_bytes_per_step"],
+                "batch_wire_bytes_per_step": res["batch_bytes_per_step"],
+                "params_max_abs_diff": worst,
+                "params_beyond_1e-6": [beyond, n]}
+        rec.update(losses=by[(0, 0)]["tp"][case]["losses"],
+                   launches_expected_per_rank=expect,
+                   all_sums_per_rank=psum, all_sum_bytes_each=act_bytes)
+        tp_line["cases"][case] = rec
+
+    ecfg = ep_cfg(get_config)
+    elays = layouts(ecfg)
+    e_leaves = sum(lay.n_leaves for lay in elays)
+    ep_line = {"phase": "train_ep", "arch": "granite-moe-1b-a400m",
+               "mesh": {"data": MODEL_MESH[0], "model": MODEL_MESH[1]},
+               "layers": EP_LAYERS, "batch_per_data_rank": EP_B,
+               "seq_len": EP_L, "global_tokens": EP_B * EP_L * MODEL_MESH[0],
+               "experts": ecfg.num_experts,
+               "experts_padded": ecfg.num_experts_padded,
+               "experts_per_rank": ecfg.num_experts_padded // TP_N,
+               "top_k": ecfg.top_k, "capacity_factor": ecfg.capacity_factor,
+               "steps": SHARD_STEPS, "fused_adam": True,
+               "tol": EP_TOL, "reference": "_moe_dense at capacity factor "
+               f"{EP_DENSE_CF}, one process, the data rank's rows",
+               "ranks": {}, "card": smi}
+    dropped, rows = 0, 0
+    for key, got in sorted(by.items()):
+        ep = got["ep"]
+        res = ep["train"]
+        worst, _, _, rel = ep["grads_held"]
+        ref_loss = refs["ep"][key[0]]
+        if rel > EP_TOL["grad_rel"] or \
+                abs(ep["loss_cf8"] - ref_loss) > EP_TOL["loss"] * ref_loss:
+            raise AssertionError(f"train_ep rank {key}: loss "
+                                 f"{ep['loss_cf8']} vs {ref_loss}, MoE "
+                                 f"gradients {rel} of their largest")
+        if ep["ep_calls_cf8"] != EP_LAYERS or \
+                res["ep_calls"] != EP_LAYERS * SHARD_STEPS:
+            raise AssertionError(f"train_ep rank {key}: _moe_ep taken "
+                                 f"{ep['ep_calls_cf8']} and "
+                                 f"{res['ep_calls']} times")
+        if not all(math.isfinite(x) for x in res["losses"]):
+            raise AssertionError(f"train_ep: losses {res['losses']}")
+        expect = {"fused_adam": e_leaves * SHARD_STEPS,
+                  "onebit_quant_packed": 0, "topk_encode_ef": 0}
+        if res["launches"] != expect:
+            raise AssertionError(f"train_ep rank {key}: launches "
+                                 f"{res['launches']} != {expect}")
+        for k in launches:
+            launches[k] += res["launches"][k]
+        kept = sum(a for a, _ in res["kept_rows"])
+        total = sum(b for _, b in res["kept_rows"])
+        dropped, rows = dropped + total - kept, rows + total
+        a2a = res["model_ops"].get("all_to_all", [0, 0])
+        ep_line["ranks"]["%d,%d" % key] = {
+            "step_ms": res["step_ms"],
+            "device_ms_last_step": res["device_ms_last"],
+            "peak_gb": res["peak_gb"], "losses": res["losses"],
+            "loss_cf8": ep["loss_cf8"], "loss_cf8_reference": ref_loss,
+            "moe_grads_max_abs_diff": worst, "moe_grads_rel": rel,
+            "ep_taken": res["ep_calls"],
+            "dropped_share": (total - kept) / total,
+            "all_to_all_per_layer_step": [
+                a2a[0] / (EP_LAYERS * SHARD_STEPS),
+                a2a[1] / (EP_LAYERS * SHARD_STEPS)],
+            "model_ops": res["model_ops"],
+            "model_wire_bytes_per_step": res["model_bytes_per_step"],
+            "batch_wire_bytes_per_step": res["batch_bytes_per_step"]}
+    ep_line["dropped_share"] = dropped / rows
+    ep_line["launches_expected_per_rank"] = expect
+    return tp_line, ep_line
 
 
 def main(argv=None) -> int:
@@ -6090,9 +6570,12 @@ def main(argv=None) -> int:
           "params_b": jamba.param_count() / 1e9})
     flash_launches += result["flash_launches_per_prefill"]
     mamba_launches = result["mamba_scan_launches_per_prefill"]
+    # not profiled: reading the trace of its sLSTM loop took most of the
+    # phase's 88-120 s, which the model-axis phases need (PERF.md keeps
+    # the profile of earlier runs)
     result = greedy(prefill_kernels, T, E, bf16("xlstm-125m"), smi,
                     phase="greedy_xlstm", prompt_len=1024, new=32, seed=13,
-                    profile=True)
+                    profile=False)
     emit(result)
     emit(dense_serve(T, E, jamba, smi, phase="dense_serve_jamba"))
     emit(recurrent_card_vs_cpu(T, E, get_config))

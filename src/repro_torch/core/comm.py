@@ -38,6 +38,17 @@ What ``ShardComm`` ships and how it reduces:
     memory (a copy to the host, the collective, a copy back;
     ``transport`` says "gloo+host").  ``stats`` counts each op's calls and the bytes this
     rank handed to the backend.
+
+Beside ``ShardComm``, the collectives that autograd goes through, for the
+model code on a mesh's "model" axis (``models/tensor_parallel.py``,
+``models/layers.py::_moe_ep``).  Each is a ``torch.autograd.Function``
+over a ``ShardComm`` whose backward is the reference's transpose under
+``shard_map``: ``psum`` (an all-sum) → the all-sum of the cotangents,
+``pmean`` → their all-mean, a tiled ``all_to_all(split, concat)`` → the
+reverse all-to-all, a tiled ``all_gather`` → a summing reduce-scatter.
+The comm's ``ops`` counts each call, forward and backward, with its
+payload bytes (the tensor's, not what the backend moved: ``stats``
+counts that).
 """
 
 from __future__ import annotations
@@ -185,6 +196,8 @@ class ShardComm:
         self._peer = [dist.get_global_rank(group, i) if group is not None
                       else i for i in range(self.size)]
         self.stats = defaultdict(lambda: [0, 0])  # op -> [calls, bytes]
+        # the autograd collectives: op -> [calls, payload bytes]
+        self.ops = defaultdict(lambda: [0, 0])
 
     # -- transport ------------------------------------------------------------
     def transport(self, device) -> str:
@@ -395,3 +408,101 @@ class ShardHierComm(HierComm):
             [[p * workers + w for p in range(pods)]
              for w in range(workers)], backend=backend)
         super().__init__(ShardComm(inner), ShardComm(outer))
+
+
+# ---------------------------------------------------------------------------
+# collectives that autograd goes through
+# ---------------------------------------------------------------------------
+def _note(comm, op, x):
+    st = comm.ops[op]
+    st[0] += 1
+    st[1] += x.numel() * x.element_size()
+
+
+def _psum(comm, x, mean=False):
+    _note(comm, "pmean" if mean else "psum", x)
+    (out,) = comm.all_mean([x]) if mean else comm.all_sum([x])
+    return out
+
+
+def _a2a(comm, x, split_axis, concat_axis):
+    """Tiled all-to-all: piece i of ``split_axis`` goes to rank i; the
+    pieces received are concatenated on ``concat_axis`` in rank order."""
+    _note(comm, "all_to_all", x)
+    w = comm.size
+    if x.shape[split_axis] % w:
+        raise ValueError(f"all_to_all: axis {split_axis} ({x.shape[split_axis]})"
+                         f" does not divide by W={w}")
+    recv = comm._all_to_all(torch.stack(x.chunk(w, dim=split_axis)))
+    return torch.cat(recv.unbind(0), dim=concat_axis)
+
+
+def _gather(comm, x, axis):
+    _note(comm, "all_gather", x)
+    return torch.cat(comm._gather(x.contiguous()).unbind(0), dim=axis)
+
+
+def _reduce_scatter(comm, x, axis):
+    """Sum over the ranks of piece ``rank`` of ``axis``, in rank order."""
+    _note(comm, "reduce_scatter", x)
+    w = comm.size
+    pieces = torch.stack(x.chunk(w, dim=axis))
+    return comm._all_to_all(pieces).sum(dim=0)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, mean):
+        ctx.comm, ctx.mean = comm, mean
+        return _psum(comm, x, mean)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(ctx.comm, g.contiguous(), ctx.mean), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, split_axis, concat_axis):
+        ctx.args = (comm, split_axis, concat_axis)
+        return _a2a(comm, x, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, split_axis, concat_axis = ctx.args
+        return _a2a(comm, g, concat_axis, split_axis), None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis):
+        ctx.args = (comm, axis)
+        return _gather(comm, x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, axis = ctx.args
+        return _reduce_scatter(comm, g, axis), None, None
+
+
+def psum(x, comm: ShardComm):
+    """All-sum of ``x`` over ``comm``'s ranks (bitwise ``LocalComm``'s sum
+    in rank order); backward: the all-sum of the cotangents."""
+    return _PSum.apply(x, comm, False)
+
+
+def pmean(x, comm: ShardComm):
+    """All-mean of ``x``; backward: the all-mean of the cotangents."""
+    return _PSum.apply(x, comm, True)
+
+
+def all_to_all(x, comm: ShardComm, split_axis: int, concat_axis: int):
+    """Tiled all-to-all (``lax.all_to_all(..., tiled=True)``); backward:
+    the reverse all-to-all."""
+    return _AllToAll.apply(x, comm, split_axis, concat_axis)
+
+
+def all_gather(x, comm: ShardComm, axis: int):
+    """Tiled all-gather on ``axis`` (``lax.all_gather(..., tiled=True)``);
+    backward: a reduce-scatter that sums the cotangents in rank order."""
+    return _AllGather.apply(x, comm, axis)

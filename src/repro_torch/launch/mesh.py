@@ -11,10 +11,19 @@ not carried: the port's numbers come from the card.
 
 ``run_ranks`` starts W rank processes (``torch.multiprocessing`` spawn),
 joins them to one process group through a ``file://`` rendezvous in a
-fresh temporary directory (so parallel callers never meet), runs
-``fn(rank, world, *args)`` in each and returns each rank's result.  A
-rank's exception reaches the caller, which then raises; so does a run
-that outlives ``timeout``.
+fresh temporary directory (so parallel callers never meet), waits at a
+barrier until every rank has joined, runs ``fn(rank, world, *args)`` in
+each and returns each rank's result.  A rank's exception reaches the
+caller, which then raises; so does a run that outlives ``timeout``.  The
+barrier keeps a rank with nothing to exchange from finishing and tearing
+its group down while a peer is still connecting, which would make the
+peer's connection error the first failure the caller sees.
+
+``use_mesh(mesh)`` installs a mesh for the code run within it and
+``current_mesh()`` returns the innermost one (None outside): the
+reference's ambient JAX mesh (``compat.set_mesh`` /
+``get_abstract_mesh``), which ``models/layers.py::moe`` reads to choose
+its expert-parallel branch.
 
 The backend is explicit: ``nccl`` for CUDA ranks by default, ``gloo`` for
 host ones.  NCCL takes one card a rank, so W ranks sharing fewer cards
@@ -30,6 +39,7 @@ import os
 import shutil
 import tempfile
 import time
+from contextlib import contextmanager
 from datetime import timedelta
 
 import torch
@@ -71,6 +81,7 @@ class Mesh:
         self.shape = tuple(shape)
         self.axes = tuple(axes)
         self._groups = groups
+        self._comms = {}
         self.rank = rank
         idx, coords = rank, []
         for s in reversed(self.shape):
@@ -93,7 +104,18 @@ class Mesh:
         return self._groups[key]
 
     def comm(self, axes) -> ShardComm:
+        """A new ``ShardComm`` over ``group(axes)``: its counters start at
+        0 (each sharded step reads its own)."""
         return ShardComm(self.group(axes))
+
+    def shared_comm(self, axes) -> ShardComm:
+        """ONE ``ShardComm`` over ``group(axes)`` for the mesh's lifetime:
+        the model code's collectives (the tensor-parallel combine, the
+        expert-parallel all-to-alls) all count in its ``stats``/``ops``."""
+        key = self._key(axes)
+        if key not in self._comms:
+            self._comms[key] = self.comm(key)
+        return self._comms[key]
 
     @property
     def sizes(self) -> dict:
@@ -171,6 +193,25 @@ def make_production_mesh(*, multi_pod: bool = False, tp_degree: int = 16,
     return make_mesh(shape, axes, backend=backend, device=device)
 
 
+_MESHES: list = []
+
+
+@contextmanager
+def use_mesh(mesh):
+    """Install ``mesh`` (a ``Mesh``) as the current mesh for the code run
+    within, as the reference's ``set_mesh``."""
+    _MESHES.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESHES.pop()
+
+
+def current_mesh():
+    """The innermost mesh of ``use_mesh``, or None."""
+    return _MESHES[-1] if _MESHES else None
+
+
 # ---------------------------------------------------------------------------
 # starting rank processes
 # ---------------------------------------------------------------------------
@@ -185,6 +226,12 @@ def _rank_main(rank, fn, world, args, backend, device, init, out_dir,
                             rank=rank,
                             timeout=timedelta(seconds=collective_s))
     try:
+        # every rank joins before any runs fn: a rank that finished early
+        # would tear the group down under a peer still connecting
+        if backend == "nccl":
+            dist.barrier(device_ids=[torch.cuda.current_device()])
+        else:
+            dist.barrier()
         out = fn(rank, world, *args)
         path = os.path.join(out_dir, f"rank{rank}.pt")
         torch.save(out, path + ".tmp")

@@ -9,9 +9,30 @@ reference's tree layout.  Precision contract as in the reference:
 matmuls run in the dtype the inputs carry, while ``rms_norm`` statistics,
 RoPE angles, attention logits and softmax are f32.
 
+Tensor parallelism (``models/tensor_parallel.py``), as the reference:
+the training attention and the dense MLP take one of three branches.
+Under an active ``tp_context`` (a rank process of a mesh's "model" axis)
+the params hold this rank's head block or d_ff columns and the partial
+is combined by ONE ``all_sum``; with ``cfg.tp_degree = T > 1`` and no
+context, the blocked form computes the T blocks' subgraphs and sums them
+with ``torch.stack(parts).sum(0)`` (what a TP run computes, bit for
+bit, in its forward); otherwise the single path, which
+``cfg.tp_degree == 1`` keeps bit for bit.  A width that does not divide
+by T stays whole (shared-expert MLPs).  The MoE's shared experts are
+replicated over "model" and run the single path under a context
+(``mlp(..., replicated=True)``): an all-sum would count them T times.
+The prefill, decode, paged and cross-attention paths keep the single
+path, as in the reference.
+
+Expert parallelism: ``moe`` takes ``_moe_ep`` under a current mesh
+(``launch/mesh.py::use_mesh``) whose "model" axis divides the padded
+experts, when the GLOBAL token count (a rank's rows times the batch
+axes' ranks) is 4096 or more and the rank's tokens divide by the axis,
+as the reference's rule over its global batch.
+
 Differences from the reference, none of which changes a result:
-  * the ``shard(...)`` calls and the tensor-parallel and ``cp`` branches
-    are gone (no-ops on one device; tensor parallelism is a later slice);
+  * the ``shard(...)`` calls and the ``cp`` branch are gone (no-ops on
+    one device; ``cp`` is not ported, and the sharded step refuses it);
   * the page pools and the dense cache are updated IN PLACE
     (``index_put_``) instead of returning a new cache, which halves the
     cache's peak memory;
@@ -28,10 +49,18 @@ Differences from the reference, none of which changes a result:
   * paged single-token decode always goes through
     ``kernels.ops.paged_attention``; chunked prefill and int8 pools take
     the gather path, as in the reference (``layers.py:457-465``).
-  * ``moe`` has no expert-parallel branch (the reference's ``_moe_ep``
-    under a mesh with a "model" axis): it always runs the one-device
-    capacity dispatch, ``_moe_dense``.  Its top-k is a stable descending
-    sort (``lax.top_k``'s order: the lowest index first on a tie), not
+  * ``_moe_ep`` runs in each rank process of the mesh (the reference's
+    ``shard_map`` body): the collectives are ``core/comm.py``'s autograd
+    ones over the mesh's "model" ``ShardComm``.  Each model rank holds
+    its E/ep experts whole; the reference's FSDP ``all_gather`` of the
+    expert weights over "data" (a pjit placement) falls away, ZeRO-3 of
+    the sharded step taking its role.  Its aux is pmeaned over "model"
+    only: the sharded step already means the ranks' losses and
+    gradients over the batch axes.  Where the banks are split over
+    "model" but the dense dispatch is taken (too few tokens), the banks
+    are all-gathered first: the reference's dense path under its mesh;
+  * the top-k of the routing is a stable descending sort
+    (``lax.top_k``'s order: the lowest index first on a tie), not
     ``torch.topk``, which orders ties arbitrarily.
 
 ``kernels.ops`` sends CUDA tensors to the hand-written kernels and CPU
@@ -44,7 +73,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import FULL_ATTENTION, ModelConfig
+from repro_torch.core.comm import all_gather, all_to_all, pmean
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import BATCH_AXES, current_mesh
+from repro_torch.models.tensor_parallel import current_tp
 
 NEG_INF = -2.0e38
 INT32_MAX = 2**31 - 1
@@ -216,6 +248,24 @@ def _sdpa_banded(cfg: ModelConfig, q, k, v, window: int):
     return out.reshape(b, l, h, dh)
 
 
+def _attn_slice(p, i: int, t: int):
+    """Head block i of t of an attention param dict: what
+    ``tensor_parallel.tp_rank_params`` gives rank i, each slice a
+    contiguous copy as the rank's own tensors are."""
+    h, kv = p["wq"].shape[1], p["wk"].shape[1]
+    hb, kb = h // t, kv // t
+    out = dict(p)
+    out["wq"] = p["wq"][:, i * hb:(i + 1) * hb].contiguous()
+    out["wk"] = p["wk"][:, i * kb:(i + 1) * kb].contiguous()
+    out["wv"] = p["wv"][:, i * kb:(i + 1) * kb].contiguous()
+    out["wo"] = p["wo"][i * hb:(i + 1) * hb].contiguous()
+    if "bq" in p:
+        out["bq"] = p["bq"][i * hb:(i + 1) * hb].contiguous()
+        out["bk"] = p["bk"][i * kb:(i + 1) * kb].contiguous()
+        out["bv"] = p["bv"][i * kb:(i + 1) * kb].contiguous()
+    return out
+
+
 def attention(p, cfg: ModelConfig, x, positions, window: int, theta: float,
               static_window: bool = False, causal: bool = True):
     """Training self-attention over the full sequence: causal (every key
@@ -226,23 +276,39 @@ def attention(p, cfg: ModelConfig, x, positions, window: int, theta: float,
     Python int (``cfg.scan_layers=False``, the unrolled stack) or as a
     traced array (under ``lax.scan``, the default).  Only a static window
     takes the block-banded path, and only when L is a multiple of it and
-    spans two blocks or more; everything else is the masked path.  Tensor
-    parallelism is a later slice."""
+    spans two blocks or more; everything else is the masked path.
+
+    Tensor parallelism (the module docstring): under a ``tp_context`` this
+    rank's head block and one all-sum; with ``cfg.tp_degree`` T > 1 the
+    blocked form, when T divides the heads and the kv heads."""
     lq = x.shape[1]
-    q, k, v = _qkv(p, cfg, x)
-    q = rope(q, positions, theta)
-    k = rope(k, positions, theta)
-    if (static_window and window > 0 and causal and lq % window == 0
-            and lq // window >= 2):
-        out = _sdpa_banded(cfg, q, k, v, window)
-    else:
-        i = positions[:, :, None].long()  # (B, L, 1)
-        j = positions[:, None, :].long()  # (B, 1, L)
-        w = INT32_MAX if window == FULL_ATTENTION else window
-        mask = (j <= i) if causal else torch.ones_like(j <= i)
-        mask = mask & (i - j < w)
-        out = _sdpa(cfg, q, k, v, mask[:, None])
-    return torch.einsum("blhk,hkd->bld", out, p["wo"])
+
+    def head_block(p_):
+        """One head block's subgraph: qkv → RoPE → attention over its
+        heads → the out-projection's partial."""
+        q, k, v = _qkv(p_, cfg, x)
+        q = rope(q, positions, theta)
+        k = rope(k, positions, theta)
+        if (static_window and window > 0 and causal and lq % window == 0
+                and lq // window >= 2):
+            out = _sdpa_banded(cfg, q, k, v, window)
+        else:
+            i = positions[:, :, None].long()  # (B, L, 1)
+            j = positions[:, None, :].long()  # (B, 1, L)
+            w = INT32_MAX if window == FULL_ATTENTION else window
+            mask = (j <= i) if causal else torch.ones_like(j <= i)
+            mask = mask & (i - j < w)
+            out = _sdpa(cfg, q, k, v, mask[:, None])
+        return torch.einsum("blhk,hkd->bld", out, p_["wo"])
+
+    tp = current_tp()
+    t = cfg.tp_degree
+    if tp is not None:  # this rank's head block, combined over the ranks
+        return tp.all_sum(head_block(p))
+    if t > 1 and p["wq"].shape[1] % t == 0 and p["wk"].shape[1] % t == 0:
+        parts = [head_block(_attn_slice(p, i, t)) for i in range(t)]
+        return torch.stack(parts).sum(0)
+    return head_block(p)
 
 
 def _sdpa_decode(cfg: ModelConfig, q, k, v, mask):
@@ -504,8 +570,29 @@ def _act(name):
             "relu": F.relu}[name]
 
 
-def mlp(p, cfg: ModelConfig, x):
-    return (_act(cfg.act)(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def mlp(p, cfg: ModelConfig, x, replicated: bool = False):
+    """SwiGLU.  Under a ``tp_context`` this rank's d_ff columns and one
+    all-sum, unless ``replicated`` (weights whole on every rank: the
+    MoE's shared experts), which runs the single path; with
+    ``cfg.tp_degree`` T > 1 and no context the blocked form, when T
+    divides d_ff (a width that does not divide stays whole)."""
+    def ffn_block(wg, wu, wd):
+        return (_act(cfg.act)(x @ wg) * (x @ wu)) @ wd
+
+    tp = current_tp()
+    if tp is not None:
+        out = ffn_block(p["w_gate"], p["w_up"], p["w_down"])
+        return out if replicated else tp.all_sum(out)
+    t = cfg.tp_degree
+    f = p["w_down"].shape[0]
+    if t == 1 or f % t:
+        return ffn_block(p["w_gate"], p["w_up"], p["w_down"])
+    blk = f // t
+    parts = [ffn_block(p["w_gate"][:, i * blk:(i + 1) * blk].contiguous(),
+                       p["w_up"][:, i * blk:(i + 1) * blk].contiguous(),
+                       p["w_down"][i * blk:(i + 1) * blk].contiguous())
+             for i in range(t)]
+    return torch.stack(parts).sum(0)
 
 
 # ---------------------------------------------------------------------------
@@ -604,12 +691,83 @@ def _moe_dense(p, cfg: ModelConfig, x):
     return combined.reshape(b, l, d), aux
 
 
+def _moe_ep(p, cfg: ModelConfig, x, mesh):
+    """Expert-parallel MoE, one model rank's part (the reference's
+    ``shard_map`` body over "model"): x (b, L, D) is this rank's batch
+    rows, the same on every model rank.  The rank routes its 1/ep slice
+    of the tokens with capacity ``cap = ceil8(max(k, round(t_slice · k /
+    E_pad · cf)))``, fills the dispatch buffer without its dump slot, an
+    all-to-all sends each expert's slots to the rank that holds it
+    ((E_loc, ep·cap, D)), the rank's experts run, an all-to-all brings
+    the outputs back, and the combined slice is all-gathered over
+    "model"; the aux is pmeaned over "model".  The banks are this rank's
+    E_loc experts, or whole banks, of which it takes its rows."""
+    b, l, d = x.shape
+    e_pad, k = cfg.num_experts_padded, cfg.top_k
+    comm = mesh.shared_comm("model")
+    ep, r = comm.size, comm.rank
+    t_loc = b * l
+    t_slice = t_loc // ep
+    e_loc = e_pad // ep
+    cap = int(max(k, round(t_slice * k / e_pad * cfg.capacity_factor)))
+    cap = -(-cap // 8) * 8  # tile-align
+    wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
+    if wg.shape[0] == e_pad:
+        wg, wu, wd = (w[r * e_loc:(r + 1) * e_loc] for w in (wg, wu, wd))
+    xt = x.reshape(t_loc, d)[r * t_slice:(r + 1) * t_slice]
+    flat_idx, slot, keep, flat_gate, aux = _route(
+        {"router": p["router"]}, cfg, xt, e_pad, cap)
+    src = xt.repeat_interleave(k, dim=0) if k > 1 else xt
+    at = (flat_idx, slot.long())
+    buf = x.new_zeros((e_pad, cap + 1, d)).index_put(at, src.to(x.dtype))
+    buf = buf[:, :cap]  # the dump slot stays off the wire
+    recv = all_to_all(buf, comm, 0, 1)  # (E_loc, ep·cap, D)
+    out_loc = _expert_ffn(cfg, recv, wg, wu, wd)
+    back = all_to_all(out_loc, comm, 1, 0)  # (E_pad, cap, D)
+    back = torch.cat([back, back.new_zeros((e_pad, 1, d))], dim=1)
+    gathered = torch.where(keep[:, None], back[at], 0.0)
+    combined = (gathered * flat_gate[:, None].to(gathered.dtype)) \
+        .reshape(t_slice, k, d).sum(dim=1)
+    combined = all_gather(combined, comm, 0)  # every slice, rank order
+    return combined.reshape(b, l, d), pmean(aux, comm)
+
+
+def _axsize(mesh, name):
+    return 1 if mesh is None else mesh.sizes.get(name, 1)
+
+
+def _global_tokens(mesh, x):
+    """The token count of the reference's global x: a rank's rows times
+    the ranks of the batch axes, times L.  The reference's
+    ``_fit_batch_axes`` picks the batch axes that divide its global batch;
+    the port's ranks split the batch over every batch axis by
+    construction, so each of them counts."""
+    n = 1
+    for a in BATCH_AXES:
+        n *= _axsize(mesh, a)
+    return x.shape[0] * n * x.shape[1]
+
+
 def moe(p, cfg: ModelConfig, x):
-    """x: (B, L, D) → (out, aux loss): the capacity dispatch, plus the
-    shared experts' MLP where the layer has one.  The reference's
-    expert-parallel ``_moe_ep`` (under a mesh) is not ported: this is its
-    one-device path."""
-    out, aux = _moe_dense(p, cfg, x)
+    """x: (B, L, D) → (out, aux loss): ``_moe_ep`` under a current mesh
+    whose "model" axis divides the padded experts, with 4096 global
+    tokens or more (and this rank's tokens divisible by the axis), else
+    the one-device capacity dispatch ``_moe_dense`` (the banks
+    all-gathered over "model" first where they are split); plus the
+    shared experts' MLP, replicated, where the layer has one."""
+    mesh = current_mesh()
+    e_pad = cfg.num_experts_padded
+    ep = _axsize(mesh, "model")
+    b, l = x.shape[:2]
+    if (ep > 1 and e_pad % ep == 0 and (b * l) % ep == 0
+            and _global_tokens(mesh, x) >= 4096):
+        out, aux = _moe_ep(p, cfg, x, mesh)
+    else:
+        if p["w_gate"].shape[0] != e_pad:  # banks split over "model"
+            comm = mesh.shared_comm("model")
+            p = dict(p, **{n: all_gather(p[n], comm, 0)
+                           for n in ("w_gate", "w_up", "w_down")})
+        out, aux = _moe_dense(p, cfg, x)
     if "shared" in p:
-        out = out + mlp(p["shared"], cfg, x)
+        out = out + mlp(p["shared"], cfg, x, replicated=True)
     return out, aux

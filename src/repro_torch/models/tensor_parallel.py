@@ -1,0 +1,290 @@
+"""Explicit tensor parallelism over a mesh's "model" axis.
+
+Port of ``repro/models/tensor_parallel.py``.  A Megatron-style
+column/row split of the transformer block whose activation combines are
+issued by the model code itself:
+
+  column-split (output slicing, no communication):
+      wq/wk/wv  (D, H, Dh)  → (D, H/T, Dh)     heads
+      bq/bk/bv  (H, Dh)     → (H/T, Dh)
+      w_gate/w_up  (D, F)   → (D, F/T)         d_ff
+  row-split (contraction slicing, one all-sum a combine):
+      wo        (H, Dh, D)  → (H/T, Dh, D)
+      w_down    (F, D)      → (F/T, D)
+  everything else (norms, embed, lm_head, router, MoE) replicated.
+
+Each TP rank computes one block of the attention out-projection's sum
+over heads and of the MLP down-projection's sum over d_ff, and
+``TPContext.all_sum`` combines them.  The unsharded path with
+``cfg.tp_degree = T`` and no active context (``models/layers.py``)
+computes the same T blocks and sums them with ``torch.stack(...).sum(0)``,
+the reduction ``ShardComm.all_sum`` runs over its stacked rank axis: a
+TP forward is bitwise its blocked form.
+
+The reference runs the ranks under ``jax.vmap(axis_name="model")`` or a
+``shard_map``; here each rank is a process (``launch/mesh.py``) and the
+context is built over the mesh's "model" ``ShardComm``
+(``Mesh.shared_comm("model")``).  The collectives go through autograd
+(``core/comm.py``: ``psum``, whose backward is the all-sum of the
+cotangents, as psum transposes to psum).
+
+**Which gradients a rank gets.** The reference differentiates the MEAN
+over the ranks of the per-rank losses (every rank's loss is the same
+value).  The port pairs the same weight with the same transpose: each
+rank back-propagates its loss with the cotangent 1/T, and ``psum``'s
+backward all-sums.  So a split leaf's gradient is the unsharded
+gradient's slice (the T cotangents of 1/T sum to 1 at the combine), and
+a replicated leaf's is this rank's partial: the residual stream's 1/T
+plus its own blocks' contribution, whose sum over the ranks is the
+unsharded gradient.  ``TPContext.finalize_grads`` all-sums those (the
+reference's, Megatron's layernorm-grad all-reduce).  Weight 1 with an
+all-sum backward would give T× gradients, weight 1 with an identity
+backward T× on the replicated leaves' residual share.
+
+End-to-end gradients are not bitwise the blocked form's (the reference
+says the same of its own): the residual stream's cotangent is summed in
+another association (≤ ~1 ulp a layer).
+
+Expert parallelism (``layers.py::_moe_ep``) splits the MoE expert banks
+on their expert axis instead (``EXPERT_AXES``, ``experts=True``): each
+model rank holds its E/T experts whole and their gradients complete
+(the dispatch all-to-all's transpose brings every token's cotangent), so
+they are not replicated leaves.  The reference keeps the whole ``moe``
+subtree replicated in ``tp_split_params`` (its experts are placed by
+pjit); ``tp_split_params``/``tp_unsplit_params`` here are the
+reference's, and ``tp_rank_params``/``tp_unsplit_ranks`` the rank
+processes' per-rank form with or without the expert split.
+
+``tp_collective_contract`` needs ``Fabric.collective_contract`` (the
+analysis tier, ROADMAP.md Queue 1 item 13) and is not ported.
+"""
+
+from __future__ import annotations
+
+from contextlib import contextmanager
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.core.comm import ShardComm, psum
+from repro_torch.core.fabric import DEFAULT_BUCKET_BYTES, Fabric
+
+# leaf name -> axis to slice (attention and the dense MLP)
+_COLUMN_AXES = {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0,
+                "w_gate": 1, "w_up": 1}
+_ROW_AXES = {"wo": 0, "w_down": 0}
+SPLIT_AXES = {**_COLUMN_AXES, **_ROW_AXES}
+# the expert banks directly under a "moe" key: their expert axis
+EXPERT_AXES = {"w_gate": 0, "w_up": 0, "w_down": 0}
+
+
+@dataclass(frozen=True)
+class TPContext:
+    """Active tensor-parallel execution: ``degree`` ranks over ``comm``
+    (the mesh's "model" ``ShardComm``); ``fabric`` buckets
+    ``finalize_grads``' all-sum; ``experts`` says whether the MoE expert
+    banks are split over the ranks (their gradients then complete)."""
+
+    degree: int
+    comm: ShardComm
+    fabric: Fabric
+    experts: bool = False
+
+    def all_sum(self, x):
+        """Combine one row-parallel partial (Megatron's *g*): one all-sum
+        of the activation, whose backward all-sums the cotangents."""
+        return psum(x, self.comm)
+
+    def finalize_grads(self, grads, stacked_marker: str = "stack"):
+        """All-sum the REPLICATED leaves' gradients (this rank's partials)
+        over the ranks: one bucketed Fabric all-sum of the replicated
+        subtree; split leaves (and split expert banks) pass through."""
+        rep, keep = _partition_replicated(grads, stacked_marker,
+                                          experts=self.experts)
+        if rep:
+            rep = self.fabric.all_sum(rep)
+        return _merge_trees(rep, keep)
+
+
+_STACK: list = []
+
+
+def current_tp():
+    """The innermost active ``tp_context``, or None (unsharded paths)."""
+    return _STACK[-1] if _STACK else None
+
+
+@contextmanager
+def tp_context(degree: int, comm: ShardComm = None,
+               bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+               experts: bool = False):
+    """Install a TP context over ``comm`` (``degree`` ranks) for the code
+    run within, the backward passes that code's autograd graph takes
+    included."""
+    if degree < 2:
+        raise ValueError(f"tp_context needs degree >= 2, got {degree}")
+    if comm is None or comm.size != degree:
+        raise ValueError(f"tp_context({degree}) needs the model axis's "
+                         f"ShardComm of {degree} ranks, got "
+                         f"{None if comm is None else comm.size}")
+    ctx = TPContext(degree, comm, Fabric(comm, bucket_bytes), experts)
+    _STACK.append(ctx)
+    try:
+        yield ctx
+    finally:
+        _STACK.pop()
+
+
+def _walk(tree, leaf, stacked_marker, in_stack=False, where=None):
+    """``leaf(key, value, axis or None)`` over a dict tree: ``axis`` is the
+    split axis of a TP leaf (shifted by one under the stacked marker),
+    ``("expert", axis)`` for an expert bank directly under "moe", None
+    for a replicated one."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            sub = "moe" if k == "moe" else (
+                "in_moe" if where in ("moe", "in_moe") else None)
+            out[k] = _walk(v, leaf, stacked_marker,
+                           in_stack or k == stacked_marker, sub)
+            continue
+        shift = 1 if in_stack else 0
+        if where == "moe" and k in EXPERT_AXES:
+            axis = ("expert", EXPERT_AXES[k] + shift)
+        elif where is None and k in SPLIT_AXES:
+            axis = SPLIT_AXES[k] + shift
+        else:
+            axis = None
+        out[k] = leaf(k, v, axis)
+    return out
+
+
+def _axis(axis, experts):
+    if isinstance(axis, tuple):
+        return axis[1] if experts else None
+    return axis
+
+
+def _check(k, v, ax, degree, fn):
+    if v.shape[ax] % degree:
+        raise ValueError(f"{fn}: {k} axis {ax} ({v.shape[ax]}) not "
+                         f"divisible by tp_degree={degree}")
+
+
+def tp_split_params(params, degree: int, stacked_marker: str = "stack"):
+    """Full param tree → per-rank shards STACKED on a new leading axis of
+    size ``degree`` (the reference's layout: index ``[r]`` for rank r).
+    Splits follow ``SPLIT_AXES`` by leaf name; leaves under ``moe`` and
+    everything unnamed are replicated."""
+    if not isinstance(params, dict):
+        raise TypeError("tp_split_params expects the dict param tree")
+
+    def leaf(k, v, axis):
+        ax = _axis(axis, False)
+        if ax is None:
+            return torch.stack([v] * degree)
+        _check(k, v, ax, degree, "tp_split_params")
+        return torch.stack(v.chunk(degree, dim=ax))
+
+    return _walk(params, leaf, stacked_marker)
+
+
+def tp_unsplit_params(shards, stacked_marker: str = "stack"):
+    """Inverse of ``tp_split_params`` (replicated leaves take rank 0's)."""
+    def leaf(k, v, axis):
+        ax = _axis(axis, False)
+        if ax is None:
+            return v[0]
+        return torch.cat(v.unbind(0), dim=ax)
+
+    return _walk(shards, leaf, stacked_marker)
+
+
+def tp_rank_params(params, degree: int, rank: int,
+                   stacked_marker: str = "stack", experts: bool = False):
+    """Rank ``rank``'s tree of the split: ``tp_split_params(...)[rank]``,
+    each split leaf a contiguous tensor of its own; with ``experts`` the
+    MoE expert banks split on their expert axis too.  Replicated leaves
+    are the caller's tensors."""
+    if not isinstance(params, dict):
+        raise TypeError("tp_rank_params expects the dict param tree")
+
+    def leaf(k, v, axis):
+        ax = _axis(axis, experts)
+        if ax is None:
+            return v
+        _check(k, v, ax, degree, "tp_rank_params")
+        return v.chunk(degree, dim=ax)[rank].contiguous()
+
+    return _walk(params, leaf, stacked_marker)
+
+
+def tp_unsplit_ranks(trees, stacked_marker: str = "stack",
+                     experts: bool = False):
+    """Inverse of ``tp_rank_params`` over the ranks' trees, in rank order
+    (replicated leaves take rank 0's)."""
+    leaves = [_flat(t) for t in trees]
+
+    def leaf(k, v, axis):
+        ax = _axis(axis, experts)
+        mine = [next(it) for it in leaves]
+        if ax is None:
+            return mine[0]
+        return torch.cat(mine, dim=ax)
+
+    return _walk(trees[0], leaf, stacked_marker)
+
+
+def _flat(tree):
+    """The leaves of a dict tree in ``_walk``'s (insertion) order."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _flat(v)
+        else:
+            yield v
+
+
+def splits_experts(params, degree: int) -> bool:
+    """Whether ``tp_rank_params`` should split the expert banks: the tree
+    has MoE banks and each one's expert axis divides by ``degree`` (else
+    they stay replicated and every rank runs the whole dispatch)."""
+    found = []
+
+    def leaf(k, v, axis):
+        if isinstance(axis, tuple):
+            found.append(v.shape[axis[1]] % degree == 0)
+        return v
+
+    _walk(params, leaf, "stack")
+    return bool(found) and all(found)
+
+
+def _partition_replicated(tree, stacked_marker: str = "stack",
+                          experts: bool = False):
+    """Split a dict tree into (replicated-leaf subtree, split-leaf
+    subtree) by ``SPLIT_AXES`` (and, with ``experts``, the expert banks);
+    either side omits empty branches."""
+    split = _walk(tree, lambda k, v, axis: _axis(axis, experts) is not None,
+                  stacked_marker)
+
+    def cut(t, flags, want):
+        out = {}
+        for k, v in t.items():
+            if isinstance(v, dict):
+                sub = cut(v, flags[k], want)
+                if sub:
+                    out[k] = sub
+            elif flags[k] == want:
+                out[k] = v
+        return out
+
+    return cut(tree, split, False), cut(tree, split, True)
+
+
+def _merge_trees(a, b):
+    """Recombine the two disjoint subtrees of ``_partition_replicated``."""
+    out = dict(a)
+    for k, v in b.items():
+        out[k] = _merge_trees(out[k], v) if isinstance(v, dict) and \
+            isinstance(out.get(k), dict) else v
+    return out

@@ -80,6 +80,20 @@ rank order, so a run of W ranks is bitwise ``make_replica_train_step``
 with that strategy, except where a bf16 policy's ZeRO-2/3 accumulation
 reduce-scatters each microbatch on the bf16 wire (the reference's
 sharded step; its replica step ships f32).
+
+On a mesh with a "model" axis (``("data", "model")``, ``("pod", "data",
+"model")``) each rank holds its model shard (``init_sharded_state``):
+the attention and dense-MLP leaves split by
+``tensor_parallel.SPLIT_AXES``, the MoE expert banks on their expert
+axis, the rest replicated.  The loss runs under ``tp_context`` and
+``use_mesh`` (Megatron tensor parallelism, ``layers.py::_moe_ep``),
+``finalize_grads`` completes the replicated leaves' gradients over the
+model group, and the batch group's exchange (sync, the pod compressor,
+accumulation, ZeRO-1/2/3, the bf16 policy) runs over the shard tree in
+TWO parts, the replicated leaves and the split ones, each with its own
+buckets, optimizer state and residual: no bucket or compression block
+mixes them, so the replicated leaves stay bitwise equal on every model
+rank (a 1-bit block straddling both would decode differently on each).
 """
 
 from __future__ import annotations
@@ -96,7 +110,8 @@ from repro_torch.core.fabric import (DEFAULT_BUCKET_BYTES, BucketLayout,
                                      Fabric, PartitionedLayout)
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.strategies import Strategy
-from repro_torch.launch.mesh import BATCH_AXES
+from repro_torch.launch.mesh import BATCH_AXES, use_mesh
+from repro_torch.models import tensor_parallel as TP
 from repro_torch.models import transformer as TM
 from repro_torch.optim.optimizers import Optimizer, state_template
 from repro_torch.train.losses import lm_loss
@@ -158,12 +173,14 @@ def _replica(batches, w):
     return T.tree_map(lambda b: b[w], batches)
 
 
-def _local_grads(loss_fn, params, batch):
-    """(loss, grads) of ``loss_fn`` on one replica's params and batch."""
+def _local_grads(loss_fn, params, batch, weight=None):
+    """(loss, grads) of ``loss_fn`` on one replica's params and batch;
+    ``weight`` (a Python float) is the loss's cotangent (1 when None)."""
     leaves, tdef = T.flatten(params)
     pw = [x.detach().requires_grad_() for x in leaves]
     loss = loss_fn(T.unflatten(tdef, pw), batch)
-    gws = torch.autograd.grad(loss, pw)
+    ct = None if weight is None else torch.full_like(loss, weight)
+    gws = torch.autograd.grad(loss, pw, grad_outputs=ct)
     return loss.detach(), T.unflatten(tdef, list(gws))
 
 
@@ -413,18 +430,41 @@ def zero3_param_template(params, n_parts: int,
 def data_comm(mesh) -> ShardComm:
     """The data-parallel ``ShardComm`` of a mesh: the group over its batch
     axes ("pod" and/or "data"; both together act as one group of their
-    product).  A "model" axis of more than one rank raises: the sharded
-    step's tensor-parallel half is not ported."""
-    if mesh.sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            "make_sharded_train_step: a 'model' mesh axis (tensor "
-            "parallelism, models/tensor_parallel.py) is not ported; use a "
-            "mesh of 'pod' and/or 'data' axes")
+    product)."""
     axes = tuple(a for a in BATCH_AXES if a in mesh.axes)
     if not axes:
         raise ValueError(f"mesh axes {mesh.axes} hold no batch axis "
                          f"({BATCH_AXES})")
     return mesh.comm(axes)
+
+
+def model_comm(mesh) -> Optional[ShardComm]:
+    """The mesh's "model" ``ShardComm`` (``Mesh.shared_comm``, which the
+    layers' collectives count in too), or None without a "model" axis of
+    more than one rank."""
+    if mesh.sizes.get("model", 1) < 2:
+        return None
+    return mesh.shared_comm("model")
+
+
+def check_model_axis(cfg) -> None:
+    """Raise ``NotImplementedError`` for what the port's "model" axis does
+    not cover: recurrent mixers (Mamba, mLSTM, sLSTM), encoder-decoder
+    stacks (the encoder, cross attention) and ``sharding_mode="cp"``.
+    The reference runs those under pjit; here they wait in ROADMAP.md
+    Queue 1."""
+    specs, _ = cfg.superblock()
+    what = sorted({s.mixer for s in specs} - {"attn"})
+    if cfg.is_encoder_decoder:
+        what.append("an encoder and cross attention")
+    if cfg.sharding_mode == "cp":
+        what.append("sharding_mode='cp'")
+    if what:
+        raise NotImplementedError(
+            f"make_sharded_train_step: a 'model' mesh axis does not cover "
+            f"{', '.join(what)} ({cfg.name}) yet: the tensor-parallel split "
+            "covers attention, the dense MLP and the MoE experts; see "
+            "ROADMAP.md Queue 1")
 
 
 def _sync_strategy(zero_stage: int, pod_compressor, bucket_bytes: int,
@@ -480,6 +520,19 @@ def make_sharded_train_step(cfg, optimizer: Optimizer, mesh,
     policy's wire dtype here (the reference's sharded step) and f32 in
     the replica step (the reference's replica step).
 
+    A "model" axis of T ranks (the module docstring): ``state`` is this
+    rank's ``init_sharded_state`` over its model shard, whose params,
+    master, optimizer and comm state are ``{"rep": ..., "split": ...}``;
+    the loss runs under ``tp_context`` and ``use_mesh`` and back-propagates
+    with the cotangent 1/T, the replicated leaves' gradients are
+    all-summed over the model group (``finalize_grads``, every
+    microbatch), and each part runs the batch group's path.  The skip
+    flag is MIN-reduced over the model group too, so every rank of the
+    mesh takes the same decision; the loss is the same on every model
+    rank.  ``param_template`` (ZeRO-3) is the FULL model's tensors here
+    too.  A strategy, recurrent mixers, an encoder or ``cp`` raise
+    ``NotImplementedError`` (``check_model_axis``).
+
     A policy that scales decides the skip before anything is written, as
     the replica step: the finite flag of this rank's gradients (ZeRO-2/3
     at accum > 1: of its reduced shards) is MIN-reduced over the ranks,
@@ -510,6 +563,17 @@ def make_sharded_train_step(cfg, optimizer: Optimizer, mesh,
         policy = None  # f32: the policy-less path bit for bit
     scaling = policy is not None and policy.uses_scaling
     loss_fn = loss_fn or make_loss_fn(cfg, remat=remat)
+    if mesh.sizes.get("model", 1) > 1:
+        check_model_axis(cfg)
+        if strategy is not None:
+            raise NotImplementedError(
+                "make_sharded_train_step: a strategy on a 'model' mesh axis "
+                "is not ported (sync, the pod compressor and ZeRO are); see "
+                "ROADMAP.md Queue 1")
+    mc = model_comm(mesh)
+    tp_n = 1 if mc is None else mc.size
+    # the state's parts: the whole tree, or the replicated and split leaves
+    names = (None,) if mc is None else ("rep", "split")
     dp = data_comm(mesh)
     if strategy is None:
         strategy = _sync_strategy(zero_stage, pod_compressor, bucket_bytes,
@@ -520,27 +584,43 @@ def make_sharded_train_step(cfg, optimizer: Optimizer, mesh,
     # policy's wire as the reference's sharded step) over the batch ranks
     fab = Fabric(dp, bucket_bytes,
                  wire_dtype=policy.wire_dt if policy is not None else None)
-    z3_play = (PartitionedLayout.build(
-        BucketLayout.build(param_template, bucket_bytes, lead_axes=0),
-        dp.size) if zero_stage >= 3 else None)
+    z3_plays = None
+    if zero_stage >= 3:
+        z3_plays = [PartitionedLayout.build(
+            BucketLayout.build(tree, bucket_bytes, lead_axes=0), dp.size)
+            for tree in _parts(model_shard(param_template, mesh), names)]
     host = {"tensor": None, "t": 0}
 
     def gather(src):
-        """The full params of the forward: ZeRO-3 all-gathers its shard
-        buckets (a temporary of the step, never state)."""
-        if z3_play is not None:
-            return fab.unpartition(src, z3_play)
+        """The full params of the forward, part by part: ZeRO-3
+        all-gathers its shard buckets (a temporary of the step, never
+        state)."""
+        if z3_plays is not None:
+            return _join([fab.unpartition(x, play) for x, play in
+                          zip(_parts(src, names), z3_plays)], names)
         return strategy.gather_params(src, comm) if strategy.owns_params \
             else src
 
-    def value_and_grad(params, batch, scale):
-        """cast-params → forward → scaled loss → this rank's gradients."""
+    def value_and_grad(full, batch, scale):
+        """cast-params → forward → scaled loss → this rank's gradients, in
+        the parts of ``full``; on a model axis under the TP context, with
+        the cotangent 1/T and the replicated leaves' gradients completed
+        over the model group."""
         def lfn(p, b):
             if policy is not None:
                 p = policy.cast_to_param(p)
             loss = loss_fn(p, b)
             return loss * scale if scaling else loss
-        return _local_grads(lfn, params, batch)
+        if mc is None:
+            return _local_grads(lfn, full, batch)
+        experts = _has_moe(full["split"])
+        with use_mesh(mesh), TP.tp_context(tp_n, mc, bucket_bytes,
+                                           experts=experts) as tp:
+            loss, grads = _local_grads(
+                lfn, TP._merge_trees(full["rep"], full["split"]), batch,
+                weight=1.0 / tp_n)
+            grads = tp.finalize_grads(grads)
+        return loss, _split_like(grads, full)
 
     def micro(batch, j):
         return T.tree_map(lambda b: b[j], batch)
@@ -558,29 +638,37 @@ def make_sharded_train_step(cfg, optimizer: Optimizer, mesh,
         accumulates.  Returns (gradient tree, or shard buckets under
         ZeRO-2/3; the per-microbatch losses)."""
         dev = T.leaves(full)[0].device
-        if part_accum:
-            play = fab.partitioned_layout(full)
-            acc = fab.init_accum_partitioned(play, dev)
-        else:
-            lay = fab.layout(full)
-            acc = fab.init_accum(lay, dev)
+        lays, accs = [], []
+        for tree in _parts(full, names):
+            lay = (fab.partitioned_layout(tree) if part_accum
+                   else fab.layout(tree))
+            lays.append(lay)
+            accs.append(fab.init_accum_partitioned(lay, dev) if part_accum
+                        else fab.init_accum(lay, dev))
         losses = []
         for j in range(accum_steps):
             loss, grads = value_and_grad(full, micro(batch, j), scale)
-            if part_accum:
-                mb = fab.init_accum(play.layout, dev, play=play)
-                fab.accumulate(mb, grads, play.layout)
-                del grads
-                fab.accumulate_partitioned_buckets(acc, mb, play)
-                del mb
-            else:
-                fab.accumulate(acc, grads, lay)
-                del grads
+            parts = _parts(grads, names)
+            del grads  # each part is freed once it is added
+            for i, (lay, acc) in enumerate(zip(lays, accs)):
+                g, parts[i] = parts[i], None
+                if part_accum:
+                    mb = fab.init_accum(lay.layout, dev, play=lay)
+                    fab.accumulate(mb, g, lay.layout)
+                    del g
+                    fab.accumulate_partitioned_buckets(acc, mb, lay)
+                    del mb
+                else:
+                    fab.accumulate(acc, g, lay)
+                    del g
             losses.append(loss)
         ks = boundary_divisor(dev, scale)
-        acc = [a.div_(ks) for a in acc]
-        return (acc if part_accum else lay.debucketize(acc, cast=False),
-                losses)
+        out = []
+        for lay, acc in zip(lays, accs):
+            acc = [a.div_(ks) for a in acc]
+            out.append(acc if part_accum
+                       else lay.debucketize(acc, cast=False))
+        return _join(out, names), losses
 
     def mean_loss(losses):
         """The replica step's loss from every rank's microbatch losses:
@@ -615,18 +703,25 @@ def make_sharded_train_step(cfg, optimizer: Optimizer, mesh,
         # the skip is decided before anything is written, by every rank
         # alike: the update writes params, master, m, v and residuals in
         # place
-        finite = bool(PR.tree_finite_across(grads, dp)) if scaling else True
+        finite = True
+        if scaling:
+            flag = PR.tree_finite_across(grads, dp)
+            if mc is not None:  # every rank of the mesh alike
+                flag = mc.all_min(flag.float()) > 0.5
+            finite = bool(flag)
         if not finite:
             new_src, opt_state, cstate = (src, state["opt_state"],
                                           state["comm_state"])
-        elif part_accum:
-            new_src, opt_state, cstate, _ = strategy.update_partitioned(
-                src, grads, state["opt_state"], state["comm_state"], t,
-                optimizer, comm)
         else:
-            new_src, opt_state, cstate, _ = strategy.update(
-                src, grads, state["opt_state"], state["comm_state"], t,
-                optimizer, comm)
+            update = (strategy.update_partitioned if part_accum
+                      else strategy.update)
+            outs = [update(*args, t, optimizer, comm) for args in zip(
+                _parts(src, names), _parts(grads, names),
+                _parts(state["opt_state"], names),
+                _parts(state["comm_state"], names))]
+            new_src, opt_state, cstate = (_join([o[i] for o in outs], names)
+                                          for i in range(3))
+            del outs
         del grads
         new_state = {"opt_state": opt_state, "comm_state": cstate,
                      "step": state["step"] + 1}
@@ -645,7 +740,30 @@ def make_sharded_train_step(cfg, optimizer: Optimizer, mesh,
         host.update(tensor=new_state["step"], t=t + 1)
         return new_state, loss
 
+    def params_of(state):
+        """This rank's full param tree (its model shard, the parts
+        merged); ZeRO-3 all-gathers it over the batch group, a collective
+        every rank of the group calls."""
+        full = gather(state["params"])
+        return full if mc is None else TP._merge_trees(full["rep"],
+                                                       full["split"])
+
+    def local_grads(state, batch):
+        """(loss, this rank's gradients) of one batch (``accum_steps`` 1)
+        as the step computes them before the batch group's exchange: f32,
+        unscaled, the model axis's replicated leaves completed."""
+        sstate = state.get("loss_scale")
+        scale = sstate["scale"] if scaling else None
+        loss, grads = value_and_grad(
+            gather(state.get("master", state["params"])), batch, scale)
+        grads = (PR.unscale_grads(grads, scale) if scaling
+                 else PR.cast_floats(grads, torch.float32))
+        return (loss / scale if scaling else loss), grads
+
     step.comm = dp  # its counters say what the step shipped
+    step.model_comm = mc  # the model group's: the TP and EP collectives
+    step.params_of = params_of
+    step.local_grads = local_grads
     return step
 
 
@@ -658,12 +776,65 @@ def init_sharded_state(params, optimizer: Optimizer, mesh,
     the replica step's ``init_train_state`` over the rank's ``ShardComm``
     with the matching strategy, so a ZeRO state holds the rank's chunk of
     every global shard bucket (the optimizer state, the master, ZeRO-3's
-    params), a compressed one the residual.  The strategy path takes
-    ``init_train_state`` with its strategy and comm."""
+    params), a compressed one the residual.  On a "model" axis it is
+    built over this rank's model shard (``model_shard``) in two parts,
+    each entry ``{"rep": ..., "split": ...}`` (the step counter and the
+    loss scale once).  The strategy path takes ``init_train_state`` with
+    its strategy and comm."""
     pol = None if policy is None else PR.get_policy(policy)
     strategy = _sync_strategy(zero_stage, pod_compressor, bucket_bytes, pol)
-    return init_train_state(params, optimizer, strategy, data_comm(mesh),
-                            policy=policy)
+    dp = data_comm(mesh)
+    if mesh.sizes.get("model", 1) < 2:
+        return init_train_state(params, optimizer, strategy, dp,
+                                policy=policy)
+    shard = model_shard(params, mesh)
+    states = [init_train_state(shard[n], optimizer, strategy, dp,
+                               policy=policy) for n in ("rep", "split")]
+    out = {k: v for k, v in states[0].items()
+           if k in ("step", "loss_scale")}
+    for k in states[0]:
+        if k not in out:
+            out[k] = {"rep": states[0][k], "split": states[1][k]}
+    return out
+
+
+def model_shard(params, mesh):
+    """This rank's model shard of the full ``params`` as
+    ``{"rep": replicated leaves, "split": split leaves}`` (``params``
+    itself without a "model" axis): ``tensor_parallel.tp_rank_params`` at
+    the rank's "model" coordinate, the MoE expert banks split on their
+    expert axis where it divides (``splits_experts``)."""
+    n = mesh.sizes.get("model", 1)
+    if n < 2:
+        return params
+    experts = TP.splits_experts(params, n)
+    shard = TP.tp_rank_params(params, n, mesh.coords["model"],
+                              experts=experts)
+    rep, split = TP._partition_replicated(shard, experts=experts)
+    return {"rep": rep, "split": split}
+
+
+def _parts(tree, names):
+    return [tree] if names == (None,) else [tree[n] for n in names]
+
+
+def _join(values, names):
+    return values[0] if names == (None,) else dict(zip(names, values))
+
+
+def _has_moe(tree) -> bool:
+    return any(k == "moe" or (isinstance(v, dict) and _has_moe(v))
+               for k, v in tree.items())
+
+
+def _split_like(tree, parts):
+    """``tree`` (the merged shard tree) cut into the two-part structure of
+    ``parts`` ({"rep": ..., "split": ...})."""
+    def take(t, like):
+        return {k: take(t[k], v) if isinstance(v, dict) else t[k]
+                for k, v in like.items()}
+
+    return {n: take(tree, parts[n]) for n in ("rep", "split")}
 
 
 def _stack_divergence(params):

@@ -227,8 +227,12 @@ def pool_cases(rank, world, inputs):
     """The one pool of 4 ranks of ``tests/test_torch_sharded_step.py``:
     two meshes of 2 ranks at once, ranks 0-1 running the step cases under
     Adam and the W = 2 strategies, ranks 2-3 the step cases under
-    momentum; then the 4 ranks the strategies of W = 4 (the hierarchy).
-    Returns this rank's results."""
+    momentum; then the 4 ranks the strategies of W = 4 (the hierarchy)
+    and the model-axis cases on a data 2 x model 2 mesh
+    (``_torch_model_ranks.tp_step_cases``).  Returns this rank's
+    results."""
+    import _torch_model_ranks as MR  # it imports this module
+
     torch.set_num_threads(1)
     meshes = [make_mesh((2,), ("pod",), device="cpu", ranks=rs)
               for rs in ((0, 1), (2, 3))]
@@ -240,6 +244,8 @@ def pool_cases(rank, world, inputs):
         out["strategies"] = strategy_cases(mesh, inputs)
     out["strategies"].update(strategy_cases(
         make_mesh((world,), ("pod",), device="cpu"), inputs))
+    out["tp"] = MR.tp_step_cases(
+        make_mesh((2, 2), ("data", "model"), device="cpu"), inputs["tp"])
     return out
 
 

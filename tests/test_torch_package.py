@@ -45,9 +45,12 @@ def test_import_pulls_in_no_jax():
     assert len(MODULES) >= 12
 
 
+RANK_PROGRAMS = ["tests/_torch_ranks.py", "tests/_torch_model_ranks.py"]
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py"] + RANK_PROGRAMS))
 def test_sources_import_no_jax_and_nothing_of_repro(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -59,6 +62,24 @@ def test_sources_import_no_jax_and_nothing_of_repro(path):
         for name in names:
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_rank_programs_pull_in_no_jax():
+    """The rank processes' programs (and so every module they reach) load
+    no JAX and nothing of the JAX package."""
+    code = ("import sys\n"
+            "import _torch_ranks, _torch_model_ranks\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print(','.join(bad))\n")
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
+                                           str(ROOT / "tests")]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
 
 
 def _imports(path):
@@ -74,6 +95,8 @@ def _imports(path):
 @pytest.mark.parametrize("module,path", [
     ("repro_torch.core.comm", "src/repro_torch/core/comm.py"),
     ("repro_torch.launch.mesh", "src/repro_torch/launch/mesh.py"),
+    ("repro_torch.models.tensor_parallel",
+     "src/repro_torch/models/tensor_parallel.py"),
     ("repro_torch.train.loop", "src/repro_torch/train/loop.py")])
 def test_multiprocess_modules_take_torch_distributed_never_jax(module, path):
     """The per-rank comm, the mesh and launcher, and the sharded step are
@@ -82,7 +105,8 @@ def test_multiprocess_modules_take_torch_distributed_never_jax(module, path):
     names = _imports(path)
     assert not any(n.split(".")[0] in ("jax", "jaxlib", "repro")
                    for n in names), names
-    if module != "repro_torch.train.loop":
+    if module not in ("repro_torch.train.loop",
+                      "repro_torch.models.tensor_parallel"):
         assert any(n.startswith("torch.distributed")
                    or n == "torch.multiprocessing" for n in names), names
 
