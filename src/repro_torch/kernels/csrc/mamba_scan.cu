@@ -50,10 +50,10 @@
 //   3. A ring of kStages tiles in shared memory per warp.  A tile is kTile
 //      steps of u and delta for the warp's channels and of B and C, filled
 //      by cp.async in 16-byte pieces and waited for with cp.async.wait_group
-//      and __syncwarp: no block barrier, no register prefetch.  The lanes
-//      of a channel read u and delta from shared memory as a broadcast; a
-//      bf16 tile's B and C are widened to f32 once a tile, not in every
-//      lane.  Where a pointer, stride or row is not a multiple of 16 bytes
+//      and __syncwarp (scan_staging.cuh, shared with the backward kernel):
+//      no block barrier, no register prefetch.  The lanes of a channel
+//      read u and delta from shared memory as a broadcast; a bf16 tile's B
+//      and C are widened to f32 once a tile, not in every lane.  Where a pointer, stride or row is not a multiple of 16 bytes
 //      (B/C slices of N = 4, a ragged D), the same kernel stages 8-, 4- or
 //      2-byte pieces (`kVec` false).
 //   4. Coalesced y.  After the tile each lane writes its states' terms of
@@ -66,9 +66,7 @@
 //      each, 32-step tiles make a loop of 4,000 instructions: all were
 //      slower.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "scan_staging.cuh"
 
 namespace {
 
@@ -111,163 +109,27 @@ struct Pieces {  // bytes a staging copy or a y store moves at once
   int ud, b, c, y;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-template <int kBytes>
-struct Word;
-template <>
-struct Word<16> { using type = uint4; };
-template <>
-struct Word<8> { using type = uint2; };
-template <>
-struct Word<4> { using type = unsigned; };
-template <>
-struct Word<2> { using type = unsigned short; };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-template <int kBytes>
-__device__ __forceinline__ void copy_piece(void* dst, const void* src) {
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src)
-                 : "memory");
-  } else if constexpr (kBytes >= 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src), "n"(kBytes)
-                 : "memory");
-  } else {  // bf16 at an odd element offset: a plain copy
-    *static_cast<unsigned short*>(dst) =
-        __ldg(static_cast<const unsigned short*>(src));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// `body(j)` for j in [0, n): unrolled in the 16-byte instance (one or two
-// pieces a lane), a loop in the others, whose unrolled pieces for every
-// width ran the address arithmetic out of registers.
-template <bool kUnroll, int n, typename F>
-__device__ __forceinline__ void for_pieces(F&& body) {
-  if constexpr (kUnroll) {
-#pragma unroll
-    for (int j = 0; j < n; ++j) body(j);
-  } else {
-#pragma unroll 1
-    for (int j = 0; j < n; ++j) body(j);
-  }
-}
-
-// Rows [t0, t0 + kTile) of a matrix whose row t starts at src + t * ld
-// (elements) into dst[kTile][W], in pieces of kBytes; rows at or past
-// `length` and columns at or past `cols` take `pad` instead.
-template <int kBytes, int W, bool kVec, typename T>
-__device__ __forceinline__ void stage(T* dst, const T* src, long long ld,
-                                      int t0, int length, int cols, T pad,
+// kRows rows of N bf16 values as f32, one 16-byte vector (8 values) a
+// piece: a tile's B or C widened once, not in every lane.
+template <int kRows, int N>
+__device__ __forceinline__ void widen(float* dst, const __nv_bfloat16* src,
                                       int lane) {
-  constexpr int kPer = kBytes / static_cast<int>(sizeof(T));
-  if constexpr (kPer >= 1 && W % kPer == 0) {
-    constexpr int kRow = W / kPer;  // pieces a row
-    constexpr int kAll = kTile * kRow;
-    for_pieces<kVec, (kAll + 31) / 32>([&](int j) {
-      const int p = lane + 32 * j;
-      if (kAll % 32 == 0 || p < kAll) {
-        const int r = p / kRow, col = p % kRow * kPer;
-        T* d = dst + r * W + col;
-        if (t0 + r < length && col < cols) {
-          copy_piece<kBytes>(d, src + static_cast<long long>(t0 + r) * ld
-                                    + col);
-        } else {
+  constexpr int kVecs = kRows * N / 8;
+  static_assert(kRows * N % 8 == 0, "whole vectors");
 #pragma unroll
-          for (int e = 0; e < kPer; ++e) d[e] = pad;
-        }
-      }
-    });
-  } else {
-    __trap();  // the host never picks a piece wider than the row
-  }
-}
-
-template <bool kVec, int W, typename T>
-__device__ __forceinline__ void stage_tile(int bytes, T* dst, const T* src,
-                                           long long ld, int t0, int length,
-                                           int cols, T pad, int lane) {
-  if constexpr (kVec) {
-    stage<16, W, true>(dst, src, ld, t0, length, cols, pad, lane);
-  } else {
-    switch (bytes) {
-      case 16:
-        stage<16, W, false>(dst, src, ld, t0, length, cols, pad, lane);
-        break;
-      case 8:
-        stage<8, W, false>(dst, src, ld, t0, length, cols, pad, lane);
-        break;
-      case 4:
-        stage<4, W, false>(dst, src, ld, t0, length, cols, pad, lane);
-        break;
-      default:
-        stage<2, W, false>(dst, src, ld, t0, length, cols, pad, lane);
-    }
-  }
-}
-
-// A bf16 tile's B and C as f32: one 16-byte vector (8 values) a piece.
-template <int N>
-__device__ __forceinline__ void widen(float (&bc)[2][kTile][N],
-                                      const Stage<__nv_bfloat16, N>& st,
-                                      int lane) {
-  constexpr int kVecs = kTile * N / 8;  // vectors of one matrix
-#pragma unroll
-  for (int j = 0; j < (2 * kVecs + 31) / 32; ++j) {
-    const int p = lane + 32 * j;
-    if ((2 * kVecs) % 32 == 0 || p < 2 * kVecs) {
-      const int which = p / kVecs, v = p % kVecs;
-      const __nv_bfloat16* src = which ? &st.c[0][0] : &st.b[0][0];
+  for (int j = 0; j < (kVecs + 31) / 32; ++j) {
+    const int v = lane + 32 * j;
+    if (kVecs % 32 == 0 || v < kVecs) {
       const uint4 raw = *reinterpret_cast<const uint4*>(src + v * 8);
       const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-      float* dst = &bc[which][0][0] + v * 8;
 #pragma unroll
       for (int q = 0; q < 2; ++q)  // bf16 -> f32 is the top half of the bits
-        *reinterpret_cast<float4*>(dst + 4 * q) = make_float4(
+        *reinterpret_cast<float4*>(dst + v * 8 + 4 * q) = make_float4(
             __uint_as_float(w[2 * q] << 16),
             __uint_as_float(w[2 * q] & 0xffff0000u),
             __uint_as_float(w[2 * q + 1] << 16),
             __uint_as_float(w[2 * q + 1] & 0xffff0000u));
     }
-  }
-}
-
-// kN values of shared memory at p; as 16-byte reads where they fill whole
-// ones (p is then 16-byte aligned: every caller's offset is a multiple of
-// the run's length).
-template <int kN, typename T>
-__device__ __forceinline__ void load_run(T (&out)[kN], const T* p) {
-  constexpr int kBytes = kN * static_cast<int>(sizeof(T));
-  if constexpr (kBytes % 16 == 0) {
-#pragma unroll
-    for (int q = 0; q < kBytes / 16; ++q)
-      reinterpret_cast<uint4*>(out)[q] = reinterpret_cast<const uint4*>(p)[q];
-  } else {
-#pragma unroll
-    for (int e = 0; e < kN; ++e) out[e] = p[e];
   }
 }
 
@@ -380,14 +242,15 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
   auto issue = [&](int k) {  // tile k's copies into its stage
     Stage<T, N>& st = w.ring[k % kStages];
     const int t0 = k * kTile;
-    stage_tile<kVec, C>(pc.ud, &st.u[0][0], up, ld, t0, length, cols,
-                        neg_zero, lane);
-    stage_tile<kVec, C>(pc.ud, &st.dt[0][0], dp, ld, t0, length, cols, zero,
-                        lane);
-    stage_tile<kVec, N>(pc.b, &st.b[0][0], bp, b_sl, t0, length, N, zero,
-                        lane);
-    stage_tile<kVec, N>(pc.c, &st.c[0][0], cp, c_sl, t0, length, N, zero,
-                        lane);
+    constexpr int kFixed = kVec ? 16 : 0;
+    stage_tile<kFixed, kTile, C>(pc.ud, &st.u[0][0], up, ld, t0, length,
+                                 cols, neg_zero, lane);
+    stage_tile<kFixed, kTile, C>(pc.ud, &st.dt[0][0], dp, ld, t0, length,
+                                 cols, zero, lane);
+    stage_tile<kFixed, kTile, N>(pc.b, &st.b[0][0], bp, b_sl, t0, length, N,
+                                 zero, lane);
+    stage_tile<kFixed, kTile, N>(pc.c, &st.c[0][0], cp, c_sl, t0, length, N,
+                                 zero, lane);
   };
 
 #pragma unroll 1
@@ -405,7 +268,8 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
     const float* bt;
     const float* ct;
     if constexpr (sizeof(T) == 2) {
-      widen<N>(w.bc, st, lane);
+      widen<kTile, N>(&w.bc[0][0][0], &st.b[0][0], lane);
+      widen<kTile, N>(&w.bc[1][0][0], &st.c[0][0], lane);
       __syncwarp();
       bt = &w.bc[0][0][0];
       ct = &w.bc[1][0][0];
@@ -455,16 +319,6 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
       *reinterpret_cast<float4*>(hp + k4) =
           make_float4(h[k4], h[k4 + 1], h[k4 + 2], h[k4 + 3]);
   }
-}
-
-// The widest of 16, 8, 4 (and 2 for bf16) bytes that divides every value.
-int widest(int esize, const long long* v, int n) {
-  for (int w = 16; w > esize; w >>= 1) {
-    bool ok = true;
-    for (int i = 0; i < n; ++i) ok = ok && (v[i] < 0 ? -v[i] : v[i]) % w == 0;
-    if (ok) return w;
-  }
-  return esize;
 }
 
 template <typename T, int N>

@@ -198,19 +198,28 @@ def mamba_scan_bwd_plain(u, delta, a, b, c, d_skip, dy):
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
                  + [ctypes.c_longlong] * 4 + [ctypes.c_int]
                  + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
-# csrc/mamba_scan_bwd.cu's block shape: kThreads lanes a block, one state a
-# lane (so kThreads / N channels a block), and a checkpoint of the states
-# every kChunk steps; the C side refuses a partial or a checkpoint buffer
-# of another shape
-BWD_THREADS = 512
-BWD_CHUNK = 16
+# csrc/mamba_scan_bwd.cu's lane map: a lane holds BWD_LANE_STATES states of
+# one channel (N / 2 where less), a block has BWD_WARPS warps and one
+# dB/dC partial row, and the states are checkpointed every BWD_CHUNK steps;
+# the C side refuses a partial or a checkpoint buffer of another shape
+BWD_LANE_STATES = 8
+BWD_CHUNK = 8
+BWD_WARPS = 2
 
 
 def bwd_blocks(dim, state):
-    """Blocks along D of the backward kernel: one partial row of dB and dC
-    each."""
-    per = BWD_THREADS // state
+    """Blocks along D of the backward kernel, one partial row of dB and dC
+    each: a warp owns 32 / (N / states a lane) channels."""
+    per = BWD_WARPS * 32 * min(BWD_LANE_STATES, state // 2) // state
     return (dim + per - 1) // per
+
+
+def bwd_scratch_shapes(bsz, length, dim, state):
+    """The backward kernel's f32 scratch: the dB/dC partials (B, blocks, L,
+    2N) and the checkpoints (B, chunks, D, N), the states before every
+    BWD_CHUNK-step tile."""
+    return ((bsz, bwd_blocks(dim, state), length, 2 * state),
+            (bsz, (length + BWD_CHUNK - 1) // BWD_CHUNK, dim, state))
 
 
 def _bwd_kernel_fn():
@@ -238,13 +247,12 @@ def mamba_scan_bwd(u, delta, a, b, c, d_skip, dy):
     a = a.float().contiguous()
     d_skip = d_skip.float().contiguous()
     f32 = dict(dtype=torch.float32, device=u.device)
-    nblk = bwd_blocks(d, n)
+    part_shape, ckpt_shape = bwd_scratch_shapes(bsz, l, d, n)
     du, ddelta = torch.empty_like(u), torch.empty_like(u)
     da_part = torch.empty((bsz, d, n), **f32)
     dd_part = torch.empty((bsz, d), **f32)
-    bc_part = torch.empty((bsz, nblk, l, 2 * n), **f32)
-    chunks = (l + BWD_CHUNK - 1) // BWD_CHUNK
-    ckpt = torch.empty((bsz, chunks, d, n), **f32)
+    bc_part = torch.empty(part_shape, **f32)
+    ckpt = torch.empty(ckpt_shape, **f32)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_kernel_fn()(
@@ -253,7 +261,8 @@ def mamba_scan_bwd(u, delta, a, b, c, d_skip, dy):
             ddelta.data_ptr(), da_part.data_ptr(), dd_part.data_ptr(),
             bc_part.data_ptr(), ckpt.data_ptr(), bsz, l, d, n, b.stride(0),
             b.stride(1), c.stride(0), c.stride(1),
-            int(u.dtype == torch.bfloat16), nblk, chunks, stream)
+            int(u.dtype == torch.bfloat16), part_shape[1], ckpt_shape[1],
+            stream)
     if err:
         raise RuntimeError(f"mamba_scan_bwd kernel launch failed: CUDA error "
                            f"{err}")

@@ -357,16 +357,17 @@ def test_mamba_scan_bwd_argtypes_match_c_prototype():
 
 def test_mamba_scan_bwd_block_shape_matches_the_kernel():
     """The wrapper sizes the dB/dC partials and the checkpoint scratch from
-    BWD_THREADS and BWD_CHUNK; the kernel indexes them with its own
-    kThreads and kChunk."""
+    BWD_LANE_STATES, BWD_WARPS and BWD_CHUNK; the kernel indexes them with
+    its own kLaneStates, kWarps and kChunk."""
     from repro_torch.kernels import mamba_scan as ms
 
     text = (Path(ms.__file__).parent / "csrc"
             / "mamba_scan_bwd.cu").read_text()
-    consts = dict(re.findall(r"constexpr int (kThreads|kChunk) = (\d+);",
-                             text))
-    assert consts == {"kThreads": str(ms.BWD_THREADS),
-                      "kChunk": str(ms.BWD_CHUNK)}
+    consts = dict(re.findall(
+        r"constexpr int (kLaneStates|kChunk|kWarps) = (\d+);", text))
+    assert consts == {"kLaneStates": str(ms.BWD_LANE_STATES),
+                      "kChunk": str(ms.BWD_CHUNK),
+                      "kWarps": str(ms.BWD_WARPS)}
 
 
 def test_training_kernels_match_plain_on_the_card():
@@ -794,3 +795,247 @@ def test_scan_padded_step_leaves_state_bitwise_unchanged():
         assert torch.equal(after.view(torch.int32),
                            h.view(torch.int32)) == same
 
+
+
+# ---------------------------------------------------------------------------
+# the scan backward's schedule (csrc/mamba_scan_bwd.cu), emulated on the CPU
+# ---------------------------------------------------------------------------
+def _bwd_constant(name):
+    """A lane-map constant of csrc/mamba_scan_bwd.cu (``constexpr int``)."""
+    src = (Path(pa.__file__).parent / "csrc"
+           / "mamba_scan_bwd.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _bwd_lane_map(n):
+    """(states a lane, lanes a channel, channels a warp) of the kernel's
+    LaneMap<N>: at least two lanes a channel."""
+    s = min(_bwd_constant("kLaneStates"), n // 2)
+    return s, n // s, 32 // (n // s)
+
+
+def _bwd_perm(lane, n):
+    """csrc/mamba_scan_bwd.cu::state_perm: the lane's register s holds state
+    n0 + (s ^ perm)."""
+    s, ln, _ = _bwd_lane_map(n)
+    perm, h, m = 0, s // 2, ln
+    while h >= 1:
+        perm |= h if lane & m else 0
+        h, m = h // 2, m * 2
+    return perm
+
+
+def _bwd_column(lane, n):
+    """csrc/mamba_scan_bwd.cu::bc_column: the dB/dC column whose sum the
+    halving leaves in ``lane`` (its state in register 0)."""
+    s, ln, _ = _bwd_lane_map(n)
+    return (n if lane & n else 0) + lane % ln * s + _bwd_perm(lane, n)
+
+
+def _fma(x, y, z):
+    """fmaf in f32: the exact product and its sum in f64, rounded to f32
+    (the f64 rounding first is far below the test's tolerance)."""
+    return (x.double() * y.double() + z.double()).float()
+
+
+def _bwd_emulation(u, delta, a, b, c, d_skip, dy):
+    """csrc/mamba_scan_bwd.cu's schedule in torch f32 on the CPU: D padded
+    to whole blocks and L to whole tiles (pads dt = 0, u = -0, dy = B = C
+    = 0), the forward sweep's checkpoints, and the reverse walk with each
+    lane's sums over its states in state order, ddelta/du over a channel's
+    lanes (halves traded at xor 1, then the butterfly) and dB/dC through
+    the reduce-scatter over each state group's lanes (every shuffle an
+    index by lane ^ m), each warp's row written by its owner lanes only,
+    the block's warps summed in order.  Returns (the six gradients as the
+    plain version returns them, the checkpoints, the per-block partials,
+    the writes to each (B, L, D) element of ddelta and du)."""
+    chunk, warps = _bwd_constant("kChunk"), _bwd_constant("kWarps")
+    bsz, l, d = u.shape
+    n = a.shape[1]
+    s, ln, cw = _bwd_lane_map(n)
+    nblk = -(-d // (warps * cw))
+    wt, dp = nblk * warps, nblk * warps * cw
+    tiles = -(-l // chunk)
+    lp = tiles * chunk
+
+    def pad(x, fill, cols):
+        out = torch.full((bsz, lp, cols), fill)
+        out[:, :l, :x.shape[-1]] = x.float()
+        return out
+
+    uf, df, gf = pad(u, -0.0, dp), pad(delta, 0.0, dp), pad(dy, 0.0, dp)
+    bf, cf = pad(b, 0.0, n), pad(c, 0.0, n)
+    af = torch.zeros((dp, n))
+    af[:d] = a.float()
+    ds = torch.zeros(dp)
+    ds[:d] = d_skip.float()
+    # the sweep (and the rebuild, the same products and sums): states[t] =
+    # h before step t
+    states = [torch.zeros((bsz, dp, n))]
+    for t in range(lp):
+        abar = torch.exp(df[:, t, :, None] * af)
+        states.append(abar * states[-1] + (df[:, t] * uf[:, t])[..., None]
+                      * bf[:, t, None, :])
+    ckpt = torch.stack(states[:lp:chunk], 1)  # (B, tiles, Dp, N)
+
+    lanes = torch.arange(32)
+    col = torch.tensor([_bwd_column(x, n) for x in range(32)])
+    owner = (lanes & (31 & ~(2 * n - 1))) == 0
+    assert sorted(col[owner].tolist()) == list(range(2 * n))
+    # register r of lane l holds the lane's state (r ^ perm)
+    order = torch.tensor([[r ^ _bwd_perm(x, n) for r in range(s)]
+                          for x in range(32)])
+
+    def per_lane(x):  # (B, Dp, N) -> (B, warps, lanes, registers)
+        x = x.reshape(bsz, wt, 32, s)
+        return x.gather(-1, order.expand(bsz, wt, 32, s))
+
+    def per_channel(x):  # (B, Dp) -> each lane's channel's value
+        return x.reshape(bsz, wt, cw)[..., lanes // ln]
+
+    def warp_sum(x, m):
+        """csrc/mamba_scan_bwd.cu::warp_sum of x * m (x (B, W, 32, S) in
+        the lanes' orders, m (B, W, 32)): the first level keeps the lower
+        half as FMAs onto the partner's products, then halving, then the
+        copies added."""
+        h = s // 2
+        sent = (x[..., h:] * m[..., None])[..., lanes ^ ln, :]
+        v = _fma(x[..., :h], m[..., None], sent)
+        k = 2 * ln
+        while v.shape[-1] > 1:
+            h = v.shape[-1] // 2
+            v = v[..., :h] + v[..., lanes ^ k, h:]
+            k *= 2
+        v = v[..., 0]
+        k = n
+        while k < 32:
+            v, k = v + v[..., lanes ^ k], k * 2
+        return v
+
+    g = torch.zeros((bsz, dp, n))
+    da = torch.zeros((bsz, dp, n))
+    dd = torch.zeros((bsz, dp))
+    ddelta = torch.zeros((bsz, l, d))
+    du = torch.zeros((bsz, l, d))
+    writes = torch.zeros((2, bsz, l, d), dtype=torch.int32)
+    part = torch.zeros((bsz, nblk, l, 2 * n))
+    for t in reversed(range(lp)):
+        dt, ut, gy = df[:, t], uf[:, t], gf[:, t]
+        bt = bf[:, t, None, :].expand(bsz, dp, n)
+        abar = torch.exp(dt[..., None] * af)
+        hp, ht = states[t], states[t + 1]
+        gt = _fma(gy[..., None], cf[:, t, None, :], g)
+        decay = abar * hp
+        gd = gt * decay
+        gdl, gl, bl, al = (per_lane(x) for x in (gd, gt, bt, af.expand(
+            bsz, dp, n)))
+        sga = torch.zeros((bsz, wt, 32))
+        sdu = torch.zeros((bsz, wt, 32))
+        for e in range(s):
+            sga = _fma(al[..., e], gdl[..., e], sga)
+            sdu = _fma(gl[..., e], bl[..., e], sdu)
+        sdl = _fma(per_channel(ut), sdu, sga)
+        da = _fma(gd, dt[..., None], da)
+        g = abar * gt
+        dd = _fma(gy, ut, dd)
+        dtl, gyl = per_channel(dt), per_channel(gy)
+        skip = per_channel(ds.expand(bsz, dp)) * gyl
+        odd = (lanes & 1).bool()
+        sm = torch.where(odd, sdu, sdl) \
+            + torch.where(odd, sdl, sdu)[..., lanes ^ 1]
+        m = 2
+        while m < ln:
+            sm, m = sm + sm[..., lanes ^ m], m * 2
+        writer = lanes % ln < 2
+        outs = [(0, sm, writer & ~odd), (1, _fma(sm, dtl, skip),
+                                         writer & odd)]
+        if t < l:
+            chan = (torch.arange(wt)[:, None] * cw + lanes // ln)  # (W, 32)
+            for which, val, lane_ok in outs:
+                ok = lane_ok & (chan < d)
+                dst = (ddelta, du)[which]
+                bi, wi, li = torch.nonzero(ok.expand(bsz, wt, 32),
+                                           as_tuple=True)
+                dst[bi, t, chan[wi, li]] = val[bi, wi, li]
+                writes[which, bi, t, chan[wi, li]] += 1
+        sums = [warp_sum(per_lane(gt), per_channel(dt * ut)),
+                warp_sum(per_lane(ht), gyl)]  # dB, dC
+        v = torch.where((lanes & n) != 0, sums[1], sums[0])
+        rows = torch.zeros((bsz, wt, 2 * n))
+        rows[:, :, col[owner]] = v[..., owner]
+        rows = rows.view(bsz, nblk, warps, 2 * n)
+        block = rows[:, :, 0]
+        for x in range(1, warps):
+            block = block + rows[:, :, x]
+        if t < l:
+            part[:, :, t] = block
+    bc = part.sum(1)
+    grads = (du.to(u.dtype), ddelta.to(delta.dtype), da.sum(0)[:d],
+             bc[..., :n].to(b.dtype), bc[..., n:].to(c.dtype), dd.sum(0)[:d])
+    return grads, ckpt[:, :, :d], part, writes
+
+
+# (B, L, D, N, B/C layout): L not a multiple of the tile, ragged D (not a
+# multiple of a block's channels), every N, B/C at odd columns
+BWD_EMU_CASES = ([(2, 21, 37, n, "model") for n in (4, 8, 16)]
+                 + [(1, 40, 200, 16, "model"), (2, 19, 96, 8, "offset"),
+                    (1, 9, 64, 4, "offset")])
+
+
+@pytest.mark.parametrize("case", BWD_EMU_CASES,
+                         ids=["-".join(map(str, c)) for c in BWD_EMU_CASES])
+def test_bwd_schedule_emulation_matches_plain(case):
+    """The backward kernel's lane map, padded tiles, checkpoints, per-lane
+    sums, shuffle butterflies and the block's sum of its warps' dB/dC rows
+    against ``mamba_scan_bwd_plain``: each output within 1e-5 of its
+    largest, every ddelta and du element written once, the checkpoints
+    bitwise the forward's states, and the partials and checkpoints of the
+    shapes ``bwd_scratch_shapes`` allocates."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    bsz, l, d, n, layout = case
+    args = _scan_case_inputs(bsz * l + d + n, bsz, l, d, n, layout)
+    dy = torch.from_numpy(np.random.default_rng(l).standard_normal(
+        (bsz, l, d), dtype=np.float32))
+    got, ckpt, part, writes = _bwd_emulation(*args, dy)
+    want = ms.mamba_scan_bwd_plain(*args, dy)
+    for name, x, y in zip(("du", "ddelta", "da", "db", "dc", "dd"), got,
+                          want):
+        assert x.shape == y.shape, name
+        scale = y.abs().max().item()
+        assert (x - y).abs().max().item() <= 1e-5 * scale, name
+    assert (writes == 1).all()
+    part_shape, ckpt_shape = ms.bwd_scratch_shapes(bsz, l, d, n)
+    assert tuple(part.shape) == part_shape
+    assert tuple(ckpt.shape) == ckpt_shape
+    k = ckpt.shape[1] - 1  # the last checkpoint: the forward's state there
+    _, h = ms.mamba_scan_plain(*(x[:, :k * ms.BWD_CHUNK] for x in args[:2]),
+                               args[2],
+                               *(x[:, :k * ms.BWD_CHUNK] for x in args[3:5]),
+                               args[5]) if k else (None, torch.zeros_like(
+                                   ckpt[:, 0]))
+    assert torch.equal(ckpt[:, k].view(torch.int32), h.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [4, 8, 16])
+def test_bwd_scratch_shapes_match_the_kernel(n):
+    """``bwd_scratch_shapes`` (what the wrapper allocates and passes as the
+    kernel's block and checkpoint counts) against the kernel's own counts
+    from its source's constants: a block of kWarps warps of 32 /
+    (N / kLaneStates) channels, a checkpoint every kChunk steps; ragged D
+    and L not a multiple of the tile.  At jamba's shape the partials stay
+    within 512 rows (134 MB), the one-state-a-lane design's."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    warps, chunk = _bwd_constant("kWarps"), _bwd_constant("kChunk")
+    _, _, cw = _bwd_lane_map(n)
+    for bsz, l, d in ((1, 1, 1), (2, chunk - 1, 37), (2, chunk + 1, 200),
+                      (1, 2048, 16384), (3, 5 * chunk, warps * cw + 1)):
+        part, ckpt = ms.bwd_scratch_shapes(bsz, l, d, n)
+        blocks = -(-d // (warps * cw))
+        assert part == (bsz, blocks, l, 2 * n)
+        assert ckpt == (bsz, -(-l // chunk), d, n)
+        assert (blocks - 1) * warps * cw < d <= blocks * warps * cw
+    if n == 16:
+        part, _ = ms.bwd_scratch_shapes(1, 2048, 16384, 16)
+        assert part[1] <= 512 and np.prod(part) * 4 <= 134_217_728

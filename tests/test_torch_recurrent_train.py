@@ -259,7 +259,9 @@ def test_bwd_wrapper_raises_on_what_the_kernel_does_not_take(case, match,
 
 def test_bwd_blocks_cover_every_channel():
     for n in ms.STATE_DIMS:
-        per = ms.BWD_THREADS // n
+        # a warp's 32 lanes hold BWD_LANE_STATES states each (N / 2 if
+        # less)
+        per = ms.BWD_WARPS * 32 * min(ms.BWD_LANE_STATES, n // 2) // n
         for d in (1, per - 1, per, per + 1, 16384):
             nb = ms.bwd_blocks(d, n)
             assert (nb - 1) * per < d <= nb * per
