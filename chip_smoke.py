@@ -71,7 +71,8 @@ then drives the main paths through their entry points:
     trainer's ``sync`` step (``elastic_vs_sync``); and the schedule on
     the card against the CPU on a reduced cut (``elastic_card_vs_cpu``);
   * the MoE families: ``greedy_generate`` on granite-moe-1b-a400m and
-    qwen2-moe-a2.7b at full width and depth in bf16 (one flash launch a
+    qwen2-moe-a2.7b at full width cut to ``GRANITE_MOE_LAYERS`` and
+    ``QWEN2_MOE_LAYERS`` of their 24 layers, in bf16 (one flash launch a
     layer a prefill; a decode step profiled with its device time split
     into router and sort, dispatch scatter, expert matmuls, combine
     gather, shared experts and the rest, beside the floor of reading
@@ -116,7 +117,7 @@ then drives the main paths through their entry points:
     host memory): every comm primitive at 4 and 2 ranks bitwise
     ``LocalComm``'s on the card, and a 4 MiB bucket's ms and GB/s
     (``shard_comm``); on ranks 0 and 1, qwen2-1.5b at full width, 4
-    layers, 3 steps of sync, accumulation, 1-bit, top-k, ZeRO-1, ZeRO-2,
+    layers, 2 steps of sync, accumulation, 1-bit, top-k, ZeRO-1, ZeRO-2,
     ZeRO-3 and ZeRO-1 under bf16, each rank's final state bitwise its
     stacked replica's, the kernels' launches in the ranks, the wire a
     step the closed form (``train_sharded``), and ``local_sgd``,
@@ -124,14 +125,35 @@ then drives the main paths through their entry points:
     (``sharded_strategies``); then one sync step over NCCL at world size
     1 against the replica step (``nccl_world1``);
   * the "model" mesh axis on the same pool of 4 ranks as data 2 x model
-    2: tensor parallelism on qwen2-1.5b at full width, 4 layers, 3 steps
+    2: tensor parallelism on qwen2-1.5b at full width, 4 layers, 2 steps
     under fused Adam with the 1-bit pod compressor and under ZeRO-1,
     each rank's unsplit params against the one-process replica step at
     tp_degree 2, W = 2 (``train_tp``); expert parallelism on
     granite-moe-1b-a400m at full width, 4 layers, 4096 tokens a data
     rank: step 0's loss and MoE gradients at capacity factor 8 against
-    the one-device dispatch, then 3 steps at the config's, with the
-    drop share and the all-to-all bytes a layer (``train_ep``).
+    the one-device dispatch, then 2 steps at the config's, with the
+    drop share and the all-to-all bytes a layer (``train_ep``);
+  * the same pool for the rest of the model axis, each phase held to a
+    one-process reference run first in this process: jamba-1.5-large
+    without experts at full width cut to one attention and one Mamba
+    layer (Mamba's d_in in 2 blocks: the scan and its backward at (1,
+    2048, 8192) on each rank, held against their plain versions there and
+    timed; ``train_tp_jamba``) beside xlstm-125m at full width cut to one
+    mLSTM and one sLSTM layer (``train_tp_xlstm``), then
+    seamless-m4t-medium at full width cut to 4 + 4 layers
+    (``train_tp_seamless``), each on data 1 x model 2: step 0's loss
+    bitwise the one-process blocked form's and its gradients within
+    ``AXIS_GRAD_RTOL`` of each leaf's largest or ``AXIS_FLOOR_MULT`` times
+    its blocked-vs-single distance, then a step (SGD; Adam on xlstm), the
+    replicated leaves equal on both model ranks; ``local_sgd`` and
+    ``downpour`` 1-bit on data 2 x model 2 (``train_tp_strategies``, 3
+    steps against the replica step at tp_degree 2 with the same
+    strategy); ``sharding_mode="cp"`` on qwen2-1.5b, 4 layers, 1 x 2048
+    tokens a data rank, 1024 a model rank: step 0's loss and all-summed
+    gradients against the unsharded ones, then a fused-Adam step with
+    the k/v all-gather's bytes (``train_cp``).  Every one of these lines
+    carries a rank's peak GB, host step ms and last step's device ms,
+    the model group's bytes to gloo a step and the kernels' launches.
 
 Each kernel's launches are counted from zero over the paths that run it,
 and each is timed against its bound, its plain version and one PyTorch
@@ -189,6 +211,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -1021,24 +1044,43 @@ def greedy(kernels, T, E, cfg, smi, *, phase, prompt_len, new, seed,
             **extra, "card": smi}
 
 
+# dense_serve's short requests past its 8 slots, (prompt, new) tokens:
+# each is admitted into a slot a finished request freed, beside the other
+# slots' decode, mostly before the longest first request ends
+DENSE_REFILL, DENSE_REFILL_TOKENS = 4, (8, 16)
+
+
 def dense_serve(T, E, cfg, smi, phase="dense_serve", params=None,
                 memory=None, prompt=(32, 160), new=(16, 48), flash=None):
-    """``DecodeEngine``: 8 slots, max_seq 512, 16 requests of ``prompt``
-    tokens (ingested one per step) and ``new`` new tokens; ``params``
-    made from seed 3 unless given.  An encoder-decoder model's ``memory``
-    (8, S, D) goes to the engine, and then ``flash``, the kernel's
-    wrapper, is counted from zero over the run and gated at one launch a
-    decoder layer a step."""
+    """``DecodeEngine``: 8 slots, max_seq 512, 8 requests of ``prompt``
+    tokens (ingested one per step) and ``new`` new tokens, then
+    DENSE_REFILL short ones, which the run must admit into freed slots
+    (gated: a recurrent model's slot reset, a new prompt's ingest beside
+    the other slots' decode); ``params`` made from seed 3 unless given.
+    An encoder-decoder model's ``memory`` (8, S, D) goes to the engine
+    (slot i reads row i), and then ``flash``, the kernel's wrapper, is
+    counted from zero over the run and gated at one launch a decoder
+    layer a step."""
     if params is None:
         gen = torch.Generator(device="cuda").manual_seed(3)
         params = T.init_model(gen, cfg, device="cuda")
     eng = E.DecodeEngine(params, cfg, batch_slots=8, max_seq=512,
                          device="cuda", memory=memory)
     del params
-    reqs = requests(E.Request, np.random.default_rng(3), 16, *prompt, *new,
-                    cfg.vocab_size)
-    steps = []
-    decode = eng._decode
+    rng = np.random.default_rng(3)
+    reqs = requests(E.Request, rng, 8, *prompt, *new, cfg.vocab_size)
+    for r in requests(E.Request, rng, DENSE_REFILL, *DENSE_REFILL_TOKENS,
+                      *DENSE_REFILL_TOKENS, cfg.vocab_size):
+        r.rid += len(reqs)
+        reqs.append(r)
+    steps, refills = [], []
+    decode, admit = eng._decode, eng._admit
+
+    def counted():  # the requests admitted after step 0: into freed slots
+        queued = len(eng.queue)
+        admit()
+        if eng.steps:
+            refills.extend([eng.steps] * (queued - len(eng.queue)))
 
     def timed(toks, pos):
         torch.cuda.synchronize()
@@ -1048,7 +1090,7 @@ def dense_serve(T, E, cfg, smi, phase="dense_serve", params=None,
         steps.append(time.perf_counter() - t)
         return out
 
-    eng._decode = timed
+    eng._decode, eng._admit = timed, counted
     for r in reqs:
         eng.submit(r)
     torch.cuda.synchronize()
@@ -1068,6 +1110,9 @@ def dense_serve(T, E, cfg, smi, phase="dense_serve", params=None,
                                  f"{eng.steps} steps")
     if len(done) != len(reqs):
         raise AssertionError(f"{len(done)} of {len(reqs)} requests finished")
+    if len(refills) != len(reqs) - 8:
+        raise AssertionError(f"{phase}: {len(refills)} requests admitted "
+                             f"into freed slots, {len(reqs) - 8} expected")
     for r in done:
         if not r.done or r.preempted or r.truncated \
                 or len(r.generated) != r.max_new_tokens:
@@ -1080,7 +1125,8 @@ def dense_serve(T, E, cfg, smi, phase="dense_serve", params=None,
     prompt_toks = sum(len(r.prompt) for r in done)
     out = {"phase": phase, "arch": cfg.name,
            "layers": cfg.num_layers, "dtype": cfg.compute_dtype,
-           "slots": 8, "max_seq": 512, "requests": len(reqs), **launches,
+           "slots": 8, "max_seq": 512, "requests": len(reqs),
+           "admitted_into_freed_slots_at_steps": refills, **launches,
            "prompt_tokens": prompt_toks, "generated_tokens": gen_toks,
            "steps": eng.steps, "step_ms_median": 1e3 * statistics.median(steps),
            "decode_tok_per_s": gen_toks / sum(steps),
@@ -1387,8 +1433,9 @@ def input_sensitivity(T, params, cfg, prompt):
 def recurrent_card_vs_cpu(T, E, get_config):
     """f32, TF32 off: jamba at its reduced widths without experts, cut to
     one super-block (8 layers: one attention, seven Mamba), with a prompt
-    longer than ssm_chunk, and xlstm-125m at full width and depth (its
-    sLSTM weights made contractive, ``contractive_slstm``).  The same
+    longer than ssm_chunk, and xlstm-125m at full width cut to 4 of its
+    12 layers (whole until PR 28; its sLSTM weights made contractive,
+    ``contractive_slstm``).  The same
     weights and prompt on the card and on the CPU (prefill logits, greedy
     tokens); on the card, ``greedy_generate``'s tokens against
     ``DecodeEngine``'s when the prompt goes into a slot another request
@@ -1398,8 +1445,8 @@ def recurrent_card_vs_cpu(T, E, get_config):
         num_layers=8)
     out = {"phase": "recurrent_card_vs_cpu", "dtype": "float32",
            "tol_logits": 1e-3, "archs": {}}
-    for cfg, lp, seed in ((jamba, 300, 31), (get_config("xlstm-125m"), 200,
-                                             32)):
+    xlstm = dataclasses.replace(get_config("xlstm-125m"), num_layers=4)
+    for cfg, lp, seed in ((jamba, 300, 31), (xlstm, 200, 32)):
         params = T.init_model(torch.Generator().manual_seed(seed), cfg,
                               device="cpu")
         rng = np.random.default_rng(seed)
@@ -2147,7 +2194,8 @@ def codec_path(ob, tk, get_config, smi):
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
-TRAIN_W, TRAIN_B, TRAIN_L, TRAIN_LAYERS, TRAIN_STEPS = 4, 4, 64, 4, 10
+# TRAIN_STEPS: 8 (10 until PR 28; local_sgd averages at step 7)
+TRAIN_W, TRAIN_B, TRAIN_L, TRAIN_LAYERS, TRAIN_STEPS = 4, 4, 64, 4, 8
 
 
 ZERO_STRATEGIES = ("sync_zero1", "sync_zero2", "sync_zero3")
@@ -2656,9 +2704,9 @@ def _paths(tree, prefix=()):
 
 def prefetch(kernels, get_config, smi):
     """``--prefetch-depth 1`` and ``2`` on the ``train_bf16``
-    configuration (8 steps each, no profiler) and the host's time to draw
+    configuration (5 steps each, no profiler) and the host's time to draw
     one boundary's microbatches.  A third arm repeats ``train_bf16``'s own
-    call (depth 2, 10 steps, the last profiled) after the others: it
+    call (depth 2, TRAIN_STEPS steps, the last profiled) after the others: it
     tells a slower main-path median that comes from the call's settings
     from one that comes from its place in the process.  One turn of the
     three arms, for the run's time budget."""
@@ -2671,7 +2719,7 @@ def prefetch(kernels, get_config, smi):
         result, _ = train_path(kernels, get_config, smi, compressor="onebit",
                                precision="bf16", accum=2,
                                depth=2 if main else depth,
-                               steps=TRAIN_STEPS if main else 8,
+                               steps=TRAIN_STEPS if main else 5,
                                phase=f"prefetch_depth{depth}", profile=main)
         if main:
             out["train_bf16_repeat"].append(result["step_ms_all"])
@@ -4244,10 +4292,15 @@ def moe_decode_profile(T, L, params, cfg, prompt, steps=4):
     return {"moe_decode_profile": {"batch": 1, "ctx": lp, **out}}
 
 
+# granite-moe-1b-a400m's depth in ``greedy_granite_moe``: 12 of its 24
+# layers since PR 28 (the run's time budget)
+GRANITE_MOE_LAYERS = 12
+
+
 def greedy_granite_moe(kernels, T, E, L, cfg, smi):
-    """granite-moe-1b-a400m at full width and depth, bf16: a 2048-token
-    prompt (24 flash launches), a profiled prefill and decode, and the
-    MoE split of one decode step."""
+    """granite-moe-1b-a400m at full width (cut in depth by the caller),
+    bf16: a 2048-token prompt (a flash launch a layer), a profiled
+    prefill and decode, and the MoE split of one decode step."""
     out = greedy(kernels, T, E, cfg, smi, phase="greedy_granite_moe",
                  prompt_len=2048, new=32, seed=14, profile=True,
                  after=lambda prm, prompt: moe_decode_profile(
@@ -4321,12 +4374,18 @@ def engines_agree(pa, T, E, params, cfg):
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+# qwen2-moe-a2.7b's depth on the card: 8 of its 24 layers (the run's
+# time budget; a layer is the same work at any depth)
+QWEN2_MOE_LAYERS = 8
+
+
 def qwen2_moe(kernels, pa, T, E, L, cfg, smi):
-    """qwen2-moe-a2.7b at full width and depth, initialised in bf16: the
+    """qwen2-moe-a2.7b at full width (cut in depth by the caller),
+    initialised in bf16: the
     ``greedy_qwen2_moe`` phase (a 1024-token prompt, the MoE split of a
     profiled decode step) and ``paged_serve_qwen2_moe`` on the same
     parameters (8 slots, 16 requests, prompts of 64-1024 tokens, 32-128
-    new ones; the pool drains clean, paged launches = decode steps x 24),
+    new ones; the pool drains clean, paged launches = decode steps x layers),
     then the engines' tokens on 4 requests in f32 (``engines_agree``);
     the parameters are freed at the end."""
     gc.collect()  # engines of earlier phases, held in reference cycles
@@ -4388,14 +4447,14 @@ def one_batch(CLI):
 
 def train_moe(kernels, L, T, get_config, smi):
     """The trainer path on granite-moe-1b-a400m at full width, 4 layers,
-    W = 4, f32, ``sync --compressor onebit --fused-adam``, 10 steps:
+    W = 4, f32, ``sync --compressor onebit --fused-adam``, TRAIN_STEPS steps:
     ``train_path``'s gates, each forward's aux finite and > 0, and the
     share of (token, rank) rows capacity dropped in step 0 (a spy on
     ``L._route`` here; the package counts nothing).  On the stream's
-    batches the loss cannot fall in 10 steps: its tokens are uniform over
+    batches the loss cannot fall in so few steps: its tokens are uniform over
     49,155 ids, so the cross entropy starts at ln V and only the bigram
     map, which no 10 batches cover, lowers it.  So the trainer then fits
-    one batch, repeated for 10 steps (``train_moe_one_batch``), and there
+    one batch, repeated as often (``train_moe_one_batch``), and there
     the loss must fall."""
     from repro_torch.launch import train as CLI
 
@@ -4451,7 +4510,8 @@ def train_moe(kernels, L, T, get_config, smi):
 def moe_card_vs_cpu(T, E, L, get_config, kernels):
     """f32, TF32 off: granite-moe-1b-a400m and qwen2-moe-a2.7b cut to 2
     layers at d_model 256 (every other width the config's) and jamba
-    ``.reduced()`` with its experts (16 layers, 4 experts, top 2) with a
+    ``.reduced()`` with its experts cut to one super-block (8 layers, 4
+    experts, top 2; 16 layers until PR 28) with a
     300-token prompt.  The same weights and prompt on the card and the
     CPU: prefill logits within 1e-3, each MoE layer's flat_idx, slot and
     keep of the prefill equal, greedy tokens identical, at the default
@@ -4466,7 +4526,8 @@ def moe_card_vs_cpu(T, E, L, get_config, kernels):
                              num_layers=2, d_model=256), 200, 41),
         (dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=2,
                              d_model=256, head_dim=128), 200, 42),
-        (get_config("jamba-1.5-large-398b").reduced(), 300, 43)]
+        (dataclasses.replace(get_config("jamba-1.5-large-398b").reduced(),
+                             num_layers=8), 300, 43)]
     out = {"phase": "moe_card_vs_cpu", "dtype": "float32",
            "tol_logits": 1e-3, "archs": {}}
     launches = dict.fromkeys(kernels, 0)
@@ -4625,8 +4686,8 @@ def seamless(fl, T, E, L, cfg, smi):
     decoder layer, Lq 256 against Lk 3072, then one cross launch a layer a
     decode step, Lq 1) with a profiled decode step split by
     ``decode_split`` (``greedy_seamless``); then ``DecodeEngine`` with 8
-    slots over the memory of 8 seeded source rows, 16 requests
-    (``dense_serve_seamless``).  The parameters are freed at the end."""
+    slots over the memory of 8 seeded source rows, 8 + DENSE_REFILL
+    requests (``dense_serve_seamless``).  The parameters are freed at the end."""
     gc.collect()
     torch.cuda.empty_cache()
     params = T.init_model(torch.Generator(device="cuda").manual_seed(23),
@@ -5333,9 +5394,11 @@ def train_jamba(kernels, get_config, smi):
 
 
 def train_xlstm(kernels, get_config, smi):
-    """xlstm-125m whole (12 layers: 6 mLSTM, 6 sLSTM, full width), f32,
+    """xlstm-125m at full width cut to 6 of its 12 layers (3 mLSTM, 3
+    sLSTM; 12 until PR 28, for the run's budget), f32,
     ``sync --compressor onebit --fused-adam``, W = 2, 2 x 256 tokens a
-    replica, 5 steps: ``train_path``'s wire, events, divergence and launch
+    replica, 3 steps (5 until the run's budget took the model axis's
+    phases): ``train_path``'s wire, events, divergence and launch
     gates (no scan launch: xLSTM has no Mamba layer).  The host clock
     around each sLSTM layer's forward (no synchronize: the time its loop
     takes to launch its kernels) gives the loop's host share of a step.
@@ -5356,7 +5419,7 @@ def train_xlstm(kernels, get_config, smi):
     T._RECURRENT["slstm"]["layer"] = timed
     try:
         result, _ = train_path(kernels, get_config, smi,
-                               compressor="onebit", layers=12, steps=5,
+                               compressor="onebit", layers=6, steps=3,
                                phase="train_xlstm", arch="xlstm-125m",
                                workers=2, batch=2, seq_len=256,
                                profile=False)
@@ -5368,7 +5431,7 @@ def train_xlstm(kernels, get_config, smi):
                   slstm_forward_share_of_step=per_step
                   / result["step_ms_median"],
                   slstm_note="the host time of the sLSTM layers' forward "
-                  "(6 layers x 2 replicas x 256 steps a train step); their "
+                  "(3 layers x 2 replicas x 256 steps a train step); their "
                   "backward runs in autograd's engine and is not timed")
     return result, None
 
@@ -5529,8 +5592,11 @@ def remat_equal(LOOP, TR, ms, params, cfg, toks):
 # the sharded path: rank processes sharing the card over gloo
 # ---------------------------------------------------------------------------
 SHARD_W = 2  # ranks of train_sharded and sharded_strategies
-SHARD_POOL = 4  # the pool: shard_comm at 4 ranks, the rest on ranks 0-1
-SHARD_STEPS = 3
+# the pool: shard_comm at 4 ranks; train_sharded's cases and the
+# strategies on two meshes of 2 ranks at once (0-1 and 2-3, case i on
+# mesh i % 2), since PR 28, for the run's time budget
+SHARD_POOL = 4
+SHARD_STEPS = 2  # 3 until PR 28 (the run's time budget)
 SHARD_SEED = 25
 SHARD_LR = 1e-3
 # train_sharded: (zero stage, accum steps, compressor, precision)
@@ -5598,7 +5664,6 @@ def leaf_digests(state):
     each leaf copied into pinned host memory and hashed in place, 8 leaves
     at a time (hashlib lets go of the interpreter lock)."""
     import hashlib
-    from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.core import tree as TT
 
@@ -5727,10 +5792,12 @@ def rank_train(mesh, rank, run, cfg, steps, accum, kernels):
 
 def shard_rank(rank, world):
     """One rank of the pool: ``shard_comm`` at 4 ranks, then on ranks 0
-    and 1 (a 2-rank mesh of the pool) ``shard_comm`` at 2 ranks,
+    and 1 (a 2-rank mesh of the pool) ``shard_comm`` at 2 ranks, then on
+    two 2-rank meshes at once (0-1 and 2-3, ``shard_half``) the cases of
     ``train_sharded`` and ``sharded_strategies``, then on all 4 ranks as
     data 2 x model 2 ``train_tp`` and ``train_ep``
-    (``model_axis_rank``).  Every kernel's launches are this process's
+    (``model_axis_rank``), then the rest of the model axis
+    (``axis_rank``).  Every kernel's launches are this process's
     counts."""
     import torch.distributed as dist
 
@@ -5739,6 +5806,7 @@ def shard_rank(rank, world):
     from repro_torch.core.fabric import BucketLayout
     from repro_torch.core.precision import get_policy
     from repro_torch.kernels import fused_adam as fa
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import onebit_quant as ob
     from repro_torch.kernels import topk_sparsify as tk
     from repro_torch.launch.mesh import make_mesh
@@ -5753,10 +5821,12 @@ def shard_rank(rank, world):
     out = {"comm": {}, "seconds": {}}
     t0 = time.perf_counter()
     comm4 = ShardComm()
-    mesh2 = make_mesh((SHARD_W,), ("pod",), backend="gloo",
-                      ranks=range(SHARD_W))
+    halves = [make_mesh((SHARD_W,), ("pod",), backend="gloo", ranks=rs)
+              for rs in ((0, 1), (2, 3))]
+    half = rank // SHARD_W
+    mesh2 = halves[half]
     for w, comm in ((world, comm4),
-                    (SHARD_W, mesh2.comm("pod") if mesh2 else None)):
+                    (SHARD_W, mesh2.comm("pod") if half == 0 else None)):
         if comm is None:
             continue
         rows = comm_rows(w)
@@ -5776,13 +5846,18 @@ def shard_rank(rank, world):
         t0 = time.perf_counter()
         out["model_axis"] = model_axis_rank(rank, kernels)
         out["seconds"]["model_axis"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["axis"] = axis_rank(rank, {**kernels,
+                                       "mamba_scan": ms.mamba_scan,
+                                       "mamba_scan_bwd": ms.mamba_scan_bwd})
+        out["seconds"]["axis"] = time.perf_counter() - t0
         return out
 
-    if mesh2 is None:  # ranks 2 and 3 wait for the others to finish
-        return model_axis()
     t0 = time.perf_counter()
     out["train"] = {}
     for case, (zero, accum, comp_name, prec) in SHARD_CASES.items():
+        if shard_half(case, SHARD_CASES) != half:
+            continue
         cfg = shard_cfg(get_config, TRAIN_LAYERS, prec)
         pol = None if prec == "f32" else get_policy(prec)
         comp = shard_compressor(comp_name)
@@ -5799,8 +5874,8 @@ def shard_rank(rank, world):
             param_template=template)
         lay = BucketLayout.build(
             T.init_model(torch.Generator(), cfg, "meta"))
-        res = rank_train(mesh2, rank, (state, step), cfg, SHARD_STEPS,
-                         accum, kernels)
+        res = rank_train(mesh2, mesh2.rank, (state, step), cfg,
+                         SHARD_STEPS, accum, kernels)
         res["layout"] = {"n_buckets": lay.n_buckets,
                          "n_leaves": lay.n_leaves,
                          "bucket_sizes": list(lay.bucket_sizes)}
@@ -5813,19 +5888,28 @@ def shard_rank(rank, world):
     out["strategies"] = {}
     cfg = shard_cfg(get_config, SHARD_STRATEGY_LAYERS)
     for name, (_, comp_name) in SHARD_STRATEGIES.items():
+        if shard_half(name, SHARD_STRATEGIES) != half:
+            continue
         strat = shard_strategy(name, comp_name)
         comm = mesh2.comm("pod")
         opt = TO.adam(SHARD_LR, fused=True)
         state = LOOP.init_train_state(shard_init(cfg), opt, strat, comm)
         step = LOOP.make_sharded_train_step(cfg, opt, mesh2, strategy=strat,
                                             comm=comm, remat=False)
-        out["strategies"][name] = rank_train(mesh2, rank, (state, step), cfg,
-                                             SHARD_STEPS, 1, kernels)
+        out["strategies"][name] = rank_train(mesh2, mesh2.rank,
+                                             (state, step), cfg, SHARD_STEPS,
+                                             1, kernels)
         del state, step
         gc.collect()
         torch.cuda.empty_cache()
     out["seconds"]["sharded_strategies"] = time.perf_counter() - t0
     return model_axis()
+
+
+def shard_half(case, cases):
+    """The 2-rank mesh of the pool (0: ranks 0-1, 1: ranks 2-3) that runs
+    one of ``cases``' keys."""
+    return list(cases).index(case) % 2
 
 
 def nccl_rank(rank, world):
@@ -5911,15 +5995,17 @@ def _moe_leaves(tree):
                       for k, v in tree["stack"].items() if "moe" in v}}
 
 
-def tp_reference(get_config, case):
+def tp_reference(get_config, case, strategy=None, steps=SHARD_STEPS):
     """``train_tp``'s one-process reference: the replica step at tp_degree
     2 and W = 2 (``LocalComm``), fused Adam, run per (model rank, part) as
     tests/_torch_model_ranks.py::tp_replica_run: each part's loss is the
     blocked form's on the full tree assembled from it and, from the
     batch, a copy of every other part before the step, so each part's
     buckets (and the 1-bit blocks) are the ranks'.  Saves each data
-    replica's full params after SHARD_STEPS steps for the ranks
-    (``MODEL_REF_DIR``) and returns the losses."""
+    replica's full params after ``steps`` steps for the ranks
+    (``MODEL_REF_DIR``) and returns the losses.  With ``strategy`` (a
+    ``TP_STRATEGIES`` key) that strategy's exchange instead of
+    ``TP_CASES[case]``'s."""
     from repro_torch.core import strategies as ST
     from repro_torch.core import tree as TT
     from repro_torch.core.comm import LocalComm
@@ -5928,7 +6014,7 @@ def tp_reference(get_config, case):
     from repro_torch.optim import optimizers as TO
     from repro_torch.train import loop as LOOP
 
-    zero, comp = TP_CASES[case]
+    zero, comp = TP_CASES[case] if strategy is None else (0, None)
     cfg = tp_cfg(get_config)
     comm = LocalComm(SHARD_W)
     lf = LOOP.make_loss_fn(cfg, remat=False)
@@ -5937,7 +6023,8 @@ def tp_reference(get_config, case):
     for m in range(TP_N):
         parts = TP._partition_replicated(TP.tp_rank_params(full, TP_N, m))
         for n, sub in zip(("rep", "split"), parts):
-            strat = (ST.get_strategy("sync_zero1") if zero
+            strat = (shard_strategy_of(strategy) if strategy
+                     else ST.get_strategy("sync_zero1") if zero
                      else ST.sync(shard_compressor(comp)))
             opt = TO.adam(SHARD_LR, fused=True)
             state = LOOP.init_train_state(comm.replicate(sub), opt, strat,
@@ -5956,7 +6043,7 @@ def tp_reference(get_config, case):
     del full
     data = shard_data(cfg)
     losses = []
-    for t in range(SHARD_STEPS):
+    for t in range(steps):
         x = microbatch_stack(data, SHARD_W, t, 1, "cuda")[0]
         # copies: fused Adam updates the params in place
         others = [{n: TT.tree_map(torch.clone, runs[(r, n)][0]["params"])
@@ -6092,14 +6179,14 @@ def model_axis_rank(rank, kernels):
         state = LOOP.init_sharded_state(shard_init(cfg), opt, mesh,
                                         zero_stage=zero,
                                         pod_compressor=shard_compressor(
-                                            comp_name))
+                                            comp_name), cfg=cfg)
         step = LOOP.make_sharded_train_step(
             cfg, opt, mesh, remat=False, zero_stage=zero,
             pod_compressor=shard_compressor(comp_name))
         state, res = run(step, state, cfg, shard_data(cfg), SHARD_STEPS)
         ref = torch.load(MODEL_REF_DIR / f"tp_{case}_{d}.pt", mmap=True,
                          weights_only=True)
-        mine = TP._merge_trees(*LOOP.model_shard(ref, mesh).values())
+        mine = TP._merge_trees(*LOOP.model_shard(ref, mesh, cfg).values())
         res["held"] = _held(step.params_of(state), mine)
         res["leaves"] = {n: len(TT.leaves(state["params"][n]))
                          for n in ("rep", "split")} if not zero else None
@@ -6112,7 +6199,7 @@ def model_axis_rank(rank, kernels):
     # steps at the config's
     cfg8, cfg = ep_cfg(get_config, EP_DENSE_CF), ep_cfg(get_config)
     opt = TO.adam(SHARD_LR, fused=True)
-    state = LOOP.init_sharded_state(ep_init(cfg), opt, mesh)
+    state = LOOP.init_sharded_state(ep_init(cfg), opt, mesh, cfg=cfg)
     ep_calls, kept = [], []
     route, moe_ep = L._route, L._moe_ep
 
@@ -6207,6 +6294,7 @@ def sharded_references(get_config):
     refs["tp"] = {case: tp_reference(get_config, case) for case in TP_CASES}
     refs["ep"] = ep_reference(get_config)
     refs["model_axis_s"] = time.perf_counter() - t0
+    refs["axis"] = axis_references(get_config)
     return refs
 
 
@@ -6238,10 +6326,11 @@ def per_step(stats, t, op):
 
 def sharded_phases(get_config, smi):
     """``shard_comm``, ``train_sharded``, ``sharded_strategies`` and
-    ``nccl_world1``: the stacked references in this process first (only
-    their digests kept, the card freed), then ONE pool of 4 rank
-    processes sharing the card over gloo, then one NCCL rank.  Returns
-    (the phases' JSON lines, the kernels' launches in the ranks)."""
+    ``nccl_world1``, then the model axis's phases: the stacked and
+    one-process references in this process first (only their digests or
+    saved trees kept, the card freed), then ONE pool of 4 rank processes
+    sharing the card over gloo, then one NCCL rank.  Returns (the phases'
+    JSON lines, the kernels' launches in the ranks)."""
     from repro_torch.core.comm import LocalComm
     from repro_torch.core.fabric import BucketLayout, PartitionedLayout
     from repro_torch.launch.mesh import run_ranks
@@ -6261,7 +6350,7 @@ def sharded_phases(get_config, smi):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = run_ranks(shard_rank, SHARD_POOL, backend="gloo", device="cuda",
-                      timeout=900, collective_timeout=900)
+                      timeout=1000, collective_timeout=900)
     pool_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     (nccl,) = run_ranks(nccl_rank, 1, backend="nccl", device="cuda",
@@ -6318,10 +6407,12 @@ def sharded_phases(get_config, smi):
                   "batch_per_worker": TRAIN_B, "seq_len": TRAIN_L,
                   "steps": SHARD_STEPS, "fused_adam": True, "cases": {},
                   "reference_s": ref_s, "pool_s": pool_s,
-                  "rank_seconds": ranks[0]["seconds"]["train_sharded"],
+                  "rank_seconds": max(ranks[r]["seconds"]["train_sharded"]
+                                      for r in range(SHARD_POOL)),
                   "card": smi,
                   "note": "gloo over host memory, W ranks sharing one "
-                          "card: no claim about NCCL over NVLink"}
+                          "card, two cases at once on two meshes of W "
+                          "ranks: no claim about NCCL over NVLink"}
     for case, (zero, accum, comp_name, prec) in SHARD_CASES.items():
         cfg = shard_cfg(get_config, TRAIN_LAYERS, prec)
         lay = BucketLayout.build(T.init_model(torch.Generator(), cfg,
@@ -6330,9 +6421,11 @@ def sharded_phases(get_config, smi):
         a2a_want, ag_want = shard_closed_form(case, lay, play)
         ref = refs["train"][case]
         rec = {"zero_stage": zero, "accum_steps": accum,
-               "compressor": comp_name, "precision": prec, "ranks": []}
+               "compressor": comp_name, "precision": prec,
+               "pool_ranks": [SHARD_W * shard_half(case, SHARD_CASES) + r
+                              for r in range(SHARD_W)], "ranks": []}
         for r in range(SHARD_W):
-            got = ranks[r]["train"][case]
+            got = ranks[rec["pool_ranks"][r]]["train"][case]
             if got["digests"] != ref["digests"][r]:
                 bad = sum(a != b for a, b in zip(got["digests"],
                                                  ref["digests"][r]))
@@ -6375,7 +6468,8 @@ def sharded_phases(get_config, smi):
                    collectives_per_step=a2a_want[0] + ag_want[0],
                    wire_bytes_per_step=a2a_want[1] + ag_want[1],
                    scalars_per_step=per_step(
-                       ranks[0]["train"][case]["stats"], 1, "scalars"),
+                       ranks[rec["pool_ranks"][0]]["train"][case]["stats"],
+                       1, "scalars"),
                    n_buckets=lay.n_buckets, n_leaves=lay.n_leaves)
         train_line["cases"][case] = rec
 
@@ -6383,7 +6477,9 @@ def sharded_phases(get_config, smi):
     strat_line = {"phase": "sharded_strategies", "ranks": SHARD_W,
                   "layers": SHARD_STRATEGY_LAYERS, "steps": SHARD_STEPS,
                   "strategies": {}, "card": smi,
-                  "rank_seconds": ranks[0]["seconds"]["sharded_strategies"]}
+                  "rank_seconds": max(
+                      ranks[r]["seconds"]["sharded_strategies"]
+                      for r in range(SHARD_POOL))}
     cfg = shard_cfg(get_config, SHARD_STRATEGY_LAYERS)
     lay = BucketLayout.build(T.init_model(torch.Generator(), cfg, "meta"))
     for name, (kw, comp_name) in SHARD_STRATEGIES.items():
@@ -6391,8 +6487,9 @@ def sharded_phases(get_config, smi):
         expect = {"fused_adam": lay.n_leaves * SHARD_STEPS,
                   "onebit_quant_packed": lay.n_buckets * SHARD_STEPS
                   if comp_name == "onebit" else 0, "topk_encode_ef": 0}
+        base = SHARD_W * shard_half(name, SHARD_STRATEGIES)
         for r in range(SHARD_W):
-            got = ranks[r]["strategies"][name]
+            got = ranks[base + r]["strategies"][name]
             if got["digests"] != ref["digests"][r] \
                     or got["losses"] != ref["losses"]:
                 raise AssertionError(f"sharded_strategies {name} rank {r} "
@@ -6407,7 +6504,8 @@ def sharded_phases(get_config, smi):
             "kwargs": kw, "compressor": comp_name,
             "digests_equal_stacked": True, "losses": ref["losses"],
             "launches_per_rank": expect,
-            "step_ms_by_rank": [ranks[r]["strategies"][name]["step_ms"]
+            "pool_ranks": [base + r for r in range(SHARD_W)],
+            "step_ms_by_rank": [ranks[base + r]["strategies"][name]["step_ms"]
                                 for r in range(SHARD_W)]}
 
     # nccl_world1
@@ -6424,9 +6522,10 @@ def sharded_phases(get_config, smi):
                  "comm_stats": nccl["stats"], "s": nccl_s, "card": smi}
     tp_line, ep_line = model_axis_lines(get_config, ranks, refs, launches,
                                         smi)
-    shutil.rmtree(MODEL_REF_DIR, ignore_errors=True)  # 8.3 GB of references
+    lines = axis_lines(get_config, ranks, refs, launches, smi)
+    shutil.rmtree(MODEL_REF_DIR, ignore_errors=True)  # the references
     return [comm_line, train_line, strat_line, nccl_line, tp_line,
-            ep_line], launches
+            ep_line] + lines, launches
 
 
 def model_axis_lines(get_config, ranks, refs, launches, smi):
@@ -6580,6 +6679,813 @@ def model_axis_lines(get_config, ranks, refs, launches, smi):
     return tp_line, ep_line
 
 
+# ---------------------------------------------------------------------------
+# the model axis for the recurrent and encoder-decoder families, a strategy
+# on it, and context parallelism (cp)
+# ---------------------------------------------------------------------------
+AXIS_SEED, AXIS_LR, AXIS_STEPS = 28, 1e-3, 1
+# train_tp_<family>: (arch, the config's cut, the pool's ranks of its data
+# 1 x model 2 mesh, rows, tokens, source frames, optimizer); f32,
+# AXIS_STEPS steps, in AXIS_ROUNDS: jamba on ranks 0-1 beside xlstm on
+# ranks 2-3 (~33 GB a jamba rank, ~1 GB an xlstm one), then seamless
+# (~7 GB a rank: not beside jamba).  xlstm-125m's gradients at its random
+# init reach 1e17
+# (its exponential gates): SGD at any rate gives NaN a step later, so it
+# steps with Adam.
+AXIS_FAMILIES = {
+    "train_tp_jamba": ("jamba-1.5-large-398b",
+                       dict(num_experts=0, num_layers=2, attn_every=2),
+                       (0, 1), 1, 2048, 0, "sgd"),
+    "train_tp_xlstm": ("xlstm-125m", dict(num_layers=2), (2, 3), 2, 128, 0,
+                       "adam"),
+    "train_tp_seamless": ("seamless-m4t-medium",
+                          dict(num_layers=4, num_encoder_layers=4), (2, 3),
+                          2, 256, 512, "sgd"),
+}
+AXIS_ROUNDS = (("train_tp_jamba", "train_tp_xlstm"), ("train_tp_seamless",))
+# step 0's gradients of each rank (split leaves: its slice; replicated
+# ones: completed over the model group) against the one-process blocked
+# form's: each leaf within AXIS_GRAD_RTOL of its largest |g| (GRAD_RTOL,
+# the card's gradient bound elsewhere here), or within AXIS_FLOOR_MULT
+# times the same leaf's distance between the blocked form and the single
+# path (its noise from regrouping the sums).  The floor serves leaves
+# whose gradient cancels: cross attention's and the bidirectional
+# encoder's wk (softmax is invariant to a shift shared by every key), at
+# full width 2.3e-4 of their largest apart on the card.
+AXIS_GRAD_RTOL, AXIS_FLOOR_MULT = 1e-4, 10
+# the params after the step against the interval that this gradient gate
+# leaves them (``axis_params_held``), widened by AXIS_PARAM_ULPS f32 ulps
+# of |p0| + lr for the update's own rounding
+AXIS_PARAM_ULPS = 8
+# train_tp_strategies (qwen2-1.5b, 4 layers, fused Adam, data 2 x model 2):
+# (strategy kwargs, compressor) and (atol, share of the elements beyond
+# 1e-6) against the replica step at tp_degree 2 per (model rank, part):
+# TP_TOL's Adam bounds, 1-bit's for downpour
+TP_STRATEGIES = {"local_sgd": ({"sync_every": 2}, None),
+                 "downpour": ({"push_every": 2}, "onebit")}
+TP_STRATEGY_STEPS = 3
+TP_STRATEGY_TOL = {"local_sgd": (2e-3, 2e-3), "downpour": (2e-2, 2e-2)}
+# train_cp (qwen2-1.5b, 4 layers, data 2 x model 2): rows a data rank and
+# tokens (CP_L / 2 a model rank); step 0's loss (relative) and each leaf
+# of the all-summed gradients (of its largest |g|) against the unsharded
+# step of the same rows on the card
+CP_B, CP_L, CP_STEPS = 1, 2048, 1
+CP_TOL = {"loss": 1e-5, "grad_rel": 1e-4}
+
+
+def axis_cfg(get_config, phase):
+    arch, over, *_ = AXIS_FAMILIES[phase]
+    return dataclasses.replace(get_config(arch), **over, tp_degree=TP_N)
+
+
+def axis_init(cfg):
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device="cuda").manual_seed(AXIS_SEED)
+    return T.init_model(gen, cfg, "cuda")
+
+
+def axis_batch(cfg, phase, d, t):
+    """Data rank d's rows of step t: tokens of the pipeline and, for an
+    encoder-decoder, seeded source frames (normal x 0.02, the reference's
+    stub), the same in every process."""
+    from repro_torch.data.pipeline import DataConfig, rank_batch
+
+    _, _, _, b, l, s, _ = AXIS_FAMILIES[phase]
+    x = rank_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=l,
+                              batch_per_worker=b), d, t, 1, "cuda")
+    out = {"tokens": x, "labels": x}
+    if s:
+        gen = torch.Generator(device="cuda").manual_seed(
+            AXIS_SEED + 100 * d + t)
+        out["source_embeds"] = 0.02 * torch.randn(
+            (b, s, cfg.d_model), generator=gen, device="cuda")
+    return out
+
+
+def cp_cfg(get_config):
+    return dataclasses.replace(shard_cfg(get_config, TRAIN_LAYERS),
+                               sharding_mode="cp")
+
+
+def cp_batch(cfg, d, t):
+    from repro_torch.data.pipeline import DataConfig, rank_batch
+
+    x = rank_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=CP_L,
+                              batch_per_worker=CP_B), d, t, 1, "cuda")
+    return {"tokens": x, "labels": x}
+
+
+def axis_optimizer(phase):
+    from repro_torch.optim import optimizers as TO
+
+    name = AXIS_FAMILIES[phase][6]
+    return TO.sgd(AXIS_LR) if name == "sgd" else TO.adam(SHARD_LR,
+                                                         fused=True)
+
+
+def _named(tree):
+    """{"a/b/c": leaf} of ``tree``."""
+    from repro_torch.core import tree as TT
+
+    return {"/".join(p): x for p, x in zip(_paths(tree), TT.leaves(tree))}
+
+
+def leaf_errors(got, ref):
+    """{path: (max |got - ref|, max |ref|)} over ``got``'s leaves (``ref``
+    may hold more; it is moved to ``got``'s device leaf by leaf)."""
+    want = _named(ref)
+    out = {}
+    for k, a in _named(got).items():
+        b = want[k].to(a.device)
+        out[k] = ((a.float() - b.float()).abs().max().item(),
+                  b.float().abs().max().item())
+    return out
+
+
+def axis_allowed(errs, floors):
+    """Each leaf's bound on step 0's gradient error in a
+    ``train_tp_<family>`` phase (``errs``: ``leaf_errors``' pairs):
+    AXIS_GRAD_RTOL of its largest |g|, or AXIS_FLOOR_MULT times its
+    blocked-vs-single distance in ``floors``."""
+    return {k: max(AXIS_GRAD_RTOL * big, AXIS_FLOOR_MULT * floors[k])
+            for k, (_, big) in errs.items()}
+
+
+def axis_params_held(p1, p0, grads, allow, phase):
+    """The rank's params after a ``train_tp_<family>`` phase's one step
+    (``p1``, from ``p0``) against the interval that step 0's gradient
+    gate leaves them.  A gradient within ``allow`` of the blocked form's
+    ``grads`` (g) takes p0 to p0 - u(g'), u the optimizer's first update
+    in its plain form (SGD: lr·g; Adam: lr·m̂ / (sqrt(v̂) + eps) with its
+    f32 bias corrections), both increasing in g: so each element lies in
+    [p0 - u(g + allow), p0 - u(g - allow)], here widened by
+    AXIS_PARAM_ULPS f32 ulps of |p0| + lr.  On the card in chunks of 2^26
+    elements.  Returns {"outside": elements outside, "elements": n,
+    "excess_max": the largest distance outside, "dev_over_lr_max": the
+    largest |p1 - (p0 - u(g))| / lr}."""
+    from repro_torch.optim import optimizers as TO
+
+    adam = AXIS_FAMILIES[phase][6] == "adam"
+    lr = SHARD_LR if adam else AXIS_LR
+    opt = TO.adam(lr) if adam else TO.sgd(lr)
+    ulp = AXIS_PARAM_ULPS * torch.finfo(torch.float32).eps
+
+    def u(g):  # the first step from p = 0 is exactly -u(g)
+        zero = {"x": torch.zeros_like(g)}
+        new, _ = opt.update({"x": g}, opt.init(zero), zero, 0)
+        return -new["x"]
+
+    start, ref = _named(p0), _named(grads)
+    out = {"outside": 0, "elements": 0, "excess_max": 0.0,
+           "dev_over_lr_max": 0.0}
+    for k, a in _named(p1).items():
+        a, x0, g = (t.reshape(-1) for t in (a, start[k], ref[k]))
+        for i in range(0, a.numel(), 1 << 26):
+            ai = a[i:i + (1 << 26)].float()
+            xi = x0[i:i + (1 << 26)].to(ai.device).float()
+            gi = g[i:i + (1 << 26)].to(ai.device).float()
+            slack = ulp * (xi.abs() + lr)
+            excess = torch.maximum(xi - u(gi + allow[k]) - slack - ai,
+                                   ai - (xi - u(gi - allow[k])) - slack)
+            out["outside"] += int((excess > 0).sum())
+            out["excess_max"] = max(out["excess_max"],
+                                    excess.max().clamp_min(0).item())
+            out["dev_over_lr_max"] = max(
+                out["dev_over_lr_max"],
+                (ai - (xi - u(gi))).abs().max().item() / lr)
+            del ai, xi, gi, slack, excess
+        out["elements"] += a.numel()
+    return out
+
+
+def axis_family_reference(get_config, phase):
+    """The one-process blocked form (``tp_degree`` 2, no context) of a
+    ``train_tp_<family>`` phase on the rows of step 0: the loss and the
+    gradients, and each leaf's distance from the single path's gradients
+    (the floor of ``AXIS_FLOOR_MULT``), the last two saved for the ranks;
+    returns the loss, the floors and the seconds."""
+    from repro_torch.core import tree as TT
+    from repro_torch.train import loop as LOOP
+
+    t0 = time.perf_counter()
+    cfg = axis_cfg(get_config, phase)
+    params = axis_init(cfg)
+    batch = axis_batch(cfg, phase, 0, 0)
+    loss, grads = LOOP._local_grads(LOOP.make_loss_fn(cfg, remat=False),
+                                    params, batch)
+    single = dataclasses.replace(cfg, tp_degree=1)
+    _, grads1 = LOOP._local_grads(LOOP.make_loss_fn(single, remat=False),
+                                  params, batch)
+    floors = {k: e for k, (e, _) in leaf_errors(grads1, grads).items()}
+    del grads1, params
+    MODEL_REF_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(TT.tree_map(lambda v: v.cpu(), grads),
+               MODEL_REF_DIR / f"{phase}_grads.pt")
+    (MODEL_REF_DIR / f"{phase}_floors.json").write_text(json.dumps(floors))
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": float(loss), "floors": floors,
+            "s": time.perf_counter() - t0}
+
+
+def cp_reference(get_config):
+    """``train_cp``'s one-process reference: the unsharded loss and
+    gradients of each data rank's rows (step 0) on the card, the same
+    config (``sharding_mode="cp"``: the grouped attention einsum); the
+    gradients saved for the ranks."""
+    from repro_torch.core import tree as TT
+    from repro_torch.train import loop as LOOP
+
+    t0 = time.perf_counter()
+    cfg = cp_cfg(get_config)
+    params = shard_init(cfg)
+    lf = LOOP.make_loss_fn(cfg, remat=False)
+    MODEL_REF_DIR.mkdir(parents=True, exist_ok=True)
+    losses = []
+    for d in range(MODEL_MESH[0]):
+        leaves, tdef = TT.flatten(params)
+        pw = [v.detach().requires_grad_() for v in leaves]
+        loss = lf(TT.unflatten(tdef, pw), cp_batch(cfg, d, 0))
+        grads = TT.unflatten(tdef, list(torch.autograd.grad(loss, pw)))
+        losses.append(float(loss.detach()))
+        torch.save(TT.tree_map(lambda v: v.cpu(), grads),
+                   MODEL_REF_DIR / f"cp_grads_{d}.pt")
+        del pw, loss, grads
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "s": time.perf_counter() - t0}
+
+
+def axis_references(get_config):
+    """Every new model-axis phase's one-process reference, run in this
+    process before the pool (only the saved trees kept)."""
+    refs = {phase: axis_family_reference(get_config, phase)
+            for phase in AXIS_FAMILIES}
+    for name in TP_STRATEGIES:
+        t0 = time.perf_counter()
+        refs[f"strategy_{name}"] = {
+            "losses": tp_reference(get_config, name, strategy=name,
+                                   steps=TP_STRATEGY_STEPS),
+            "s": time.perf_counter() - t0}
+    refs["cp"] = cp_reference(get_config)
+    return refs
+
+
+def fingerprints(tree):
+    """One 64-bit sum a leaf of its bit patterns weighted by position
+    (mod a prime), on the card: equal trees give equal lists, and a
+    single changed element changes its leaf's."""
+    from repro_torch.core import tree as TT
+
+    out = []
+    for x in TT.leaves(tree):
+        v = x.detach().reshape(-1)
+        v = v.view(torch.int32) if v.element_size() == 4 else \
+            v.view(torch.int16)
+        total = torch.zeros((), dtype=torch.int64, device=v.device)
+        for i in range(0, v.numel(), 1 << 24):
+            c = v[i:i + (1 << 24)].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), device=c.device) % 65521 + 1
+            total = total + (c * w).sum()
+        out.append(int(total))
+    return out
+
+
+def axis_run(step, state, batch_of, mc, kernels, steps, rep_prints=False):
+    """``steps`` steps of one phase on this rank: the kernels' launches
+    (counts zeroed just before, read just after), host step ms after a
+    synchronize, the last step's device ms (profiled), peak GB, the
+    losses, the model group's collectives and bytes to gloo a step, the
+    batch group's bytes a step and, with ``rep_prints``, the replicated
+    leaves' fingerprints after every step."""
+    for fn in kernels.values():
+        fn.launches = 0
+    ops0 = {k: tuple(v) for k, v in mc.ops.items()}
+    sent0 = sum(v[1] for v in mc.stats.values())
+    batch0 = sum(v[1] for v in step.comm.stats.values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, prints, prof = [], [], [], None
+    for t in range(steps):
+        batch = batch_of(t)
+        torch.cuda.synchronize()
+        if t == steps - 1:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if t == steps - 1:
+            prof.__exit__(None, None, None)
+        losses.append(float(loss))
+        if rep_prints:
+            prints.append(fingerprints(state["params"]["rep"]))
+        del batch
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    return state, {
+        "launches": launches, "step_ms": ms,
+        "device_ms_last": rank_device_ms(prof),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": losses, "rep_prints": prints,
+        "model_ops": {k: [v[0] - ops0.get(k, (0, 0))[0],
+                          v[1] - ops0.get(k, (0, 0))[1]]
+                      for k, v in mc.ops.items()},
+        "model_bytes_per_step": (sum(v[1] for v in mc.stats.values())
+                                 - sent0) / steps,
+        "batch_bytes_per_step": (sum(v[1] for v in step.comm.stats.values())
+                                 - batch0) / steps}
+
+
+def split_scan_inputs():
+    """The scan's inputs (and the backward's cotangent) at a TP rank's
+    Mamba shape: B 1, L 2048, d_in/T = 8192 channels, N 16, f32, B/C
+    slices of the x_proj output."""
+    b, l, d, n = JAMBA_SCAN[0], JAMBA_SCAN[1], JAMBA_SCAN[2] // TP_N, \
+        JAMBA_SCAN[3]
+    rng = np.random.default_rng(11)
+    args = mamba_inputs(rng, b, l, d, n, torch.float32,
+                        dt_rank=JAMBA_DT_RANK)
+    return (b, l, d, n), args, mamba_dy(rng, b, l, d, torch.float32)
+
+
+def split_scan_check(ms):
+    """The scan and its backward against their plain versions at a TP
+    rank's Mamba shape."""
+    (b, l, d, n), args, dy = split_scan_inputs()
+    ey, eh = mamba_err(ms, args, "a TP rank's Mamba shape")
+    rel, absd = mamba_bwd_err(ms, args, dy, "a TP rank's Mamba shape")
+    del args, dy
+    torch.cuda.empty_cache()
+    return {"shape": {"B": b, "L": l, "D": d, "N": n, "dtype": "float32"},
+            "max_abs_err_y": ey, "max_abs_err_h_last": eh,
+            "bwd_max_rel_err": rel, "bwd_max_abs_err": absd,
+            "tol": MAMBA_TOL[torch.float32],
+            "tol_bwd": MAMBA_BWD_TOL[torch.float32]}
+
+
+def split_scan_time(ms):
+    """Both kernels timed at a TP rank's Mamba shape (L2 flushed) beside
+    their plain versions and bounds: the forward's L·D·N exps at the
+    card's exp rate or its bytes, the backward's bytes (u, delta, dy, B,
+    C, D, A read, du, ddelta, dB, dC, dA, dD written once) or exps."""
+    (b, l, d, n), args, dy = split_scan_inputs()
+    flush = l2_flush()
+    exps_ms = 1e3 * b * l * d * n / SFU_EXP_PER_S
+    nbytes = {"fwd": (3 * b * l * d + 2 * b * l * n + d * n + d
+                      + b * d * n) * 4,
+              "bwd": (3 * b * l * d + 2 * b * l * n + 2 * d * n + d) * 4
+              + (2 * b * l * d + 2 * b * l * n + d * n + d) * 4}
+    calls = {"fwd": (lambda: ms.mamba_scan(*args),
+                     lambda: ms.mamba_scan_plain(*args), 20),
+             "bwd": (lambda: ms.mamba_scan_bwd(*args, dy),
+                     lambda: ms.mamba_scan_bwd_plain(*args, dy), 10)}
+    out = {}
+    for k, (kernel, plain, iters) in calls.items():
+        bytes_ms = 1e3 * nbytes[k] / HBM_BYTES_PER_S
+        out[k] = {"ms": cuda_ms(kernel, iters, flush),
+                  "plain_ms": cuda_ms(plain, 1, flush),
+                  "bound_ms": max(exps_ms, bytes_ms),
+                  "bound_by": "operations" if exps_ms >= bytes_ms
+                  else "bytes"}
+    del args, dy, flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def axis_family_rank(phase, mesh, kernels):
+    """One ``train_tp_<family>`` phase on this rank of its data 1 x model
+    2 ``mesh``: the seeded full params cut to the rank's model shard;
+    step 0's loss and gradients (``step.local_grads``: the split leaves'
+    slices, the replicated leaves completed over the model group) held
+    against the one-process blocked form's, leaf by leaf; then
+    AXIS_STEPS steps of the sharded step through ``local_sgd``, which
+    averages never within them (at one data rank ``sync``'s f32 buckets
+    would hold every gradient again, 7.8 GB a jamba rank, for a mean over
+    one rank), on step 0's rows; the params after it held against the
+    blocked form's gradients through the optimizer's update
+    (``axis_params_held``, from the seeded init made again); the
+    replicated leaves' fingerprints.  jamba's ranks then hold the scan
+    kernels against their plain versions at the split shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import strategies as ST
+    from repro_torch.core import tree as TT
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.models import tensor_parallel as TP
+    from repro_torch.train import loop as LOOP
+
+    t0 = time.perf_counter()
+    m = mesh.coords["model"]
+    cfg = axis_cfg(get_config, phase)
+    opt = axis_optimizer(phase)
+    strat, comm = ST.local_sgd(), mesh.comm("data")
+    state = LOOP.init_sharded_state(axis_init(cfg), opt, mesh,
+                                    strategy=strat, comm=comm, cfg=cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = LOOP.make_sharded_train_step(cfg, opt, mesh, strategy=strat,
+                                        comm=comm, remat=False)
+    loss0, grads = step.local_grads(state, axis_batch(cfg, phase, 0, 0))
+    ref = TP._merge_trees(*LOOP.model_shard(
+        torch.load(MODEL_REF_DIR / f"{phase}_grads.pt", mmap=True,
+                   weights_only=True), mesh, cfg).values())
+    errors = leaf_errors(TP._merge_trees(grads["rep"], grads["split"]),
+                         ref)
+    allow = axis_allowed(errors, json.loads(
+        (MODEL_REF_DIR / f"{phase}_floors.json").read_text()))
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, res = axis_run(step, state,
+                          lambda t: axis_batch(cfg, phase, 0, t),
+                          mesh.shared_comm("model"), kernels, AXIS_STEPS)
+    res.update(coords=(0, m), loss0=float(loss0), grad_errors=errors,
+               rep_prints=fingerprints(state["params"]["rep"]),
+               leaves={n: len(TT.leaves(state["params"][n]))
+                       for n in ("rep", "split")})
+    p1 = step.params_of(state)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    p0 = axis_init(cfg)
+    p0 = TP._merge_trees(*LOOP.model_shard(p0, mesh, cfg).values())
+    res["params_held"] = axis_params_held(p1, p0, ref, allow, phase)
+    del p1, p0, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    if phase == "train_tp_jamba":
+        res["split_scan"] = split_scan_check(ms)
+    res["rank_s"] = time.perf_counter() - t0
+    return res
+
+
+def axis_strategy_rank(name, rank, kernels):
+    """``train_tp_strategies``' run of one strategy on this rank of data 2
+    x model 2: qwen2-1.5b's cut at tp_degree 2, fused Adam,
+    TP_STRATEGY_STEPS steps through the strategy path over the batch
+    group; the replicated
+    leaves' fingerprints after every step, the final params held against
+    the replica step at tp_degree 2 per (model rank, part)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import tensor_parallel as TP
+    from repro_torch.optim import optimizers as TO
+    from repro_torch.train import loop as LOOP
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(MODEL_MESH, ("data", "model"), backend="gloo")
+    d, m = mesh.coords["data"], mesh.coords["model"]
+    cfg = tp_cfg(get_config)
+    strat, comm = shard_strategy_of(name), mesh.comm("data")
+    opt = TO.adam(SHARD_LR, fused=True)
+    state = LOOP.init_sharded_state(shard_init(cfg), opt, mesh,
+                                    strategy=strat, comm=comm, cfg=cfg)
+    step = LOOP.make_sharded_train_step(cfg, opt, mesh, strategy=strat,
+                                        comm=comm, remat=False)
+    data = shard_data(cfg)
+    state, res = axis_run(step, state, lambda t: token_batch(data, d, t),
+                          mesh.shared_comm("model"), kernels,
+                          TP_STRATEGY_STEPS, rep_prints=True)
+    res["coords"] = (d, m)
+    ref = torch.load(MODEL_REF_DIR / f"tp_{name}_{d}.pt", mmap=True,
+                     weights_only=True)
+    mine = TP._merge_trees(*LOOP.model_shard(ref, mesh, cfg).values())
+    res["held"] = _held(step.params_of(state), mine)
+    del state, step, ref, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["rank_s"] = time.perf_counter() - t0
+    return res
+
+
+def token_batch(data, d, t):
+    from repro_torch.data.pipeline import rank_batch
+
+    x = rank_batch(data, d, t, 1, "cuda")
+    return {"tokens": x, "labels": x}
+
+
+def shard_strategy_of(name):
+    from repro_torch.core import strategies as ST
+
+    kw, comp = TP_STRATEGIES[name]
+    comp = shard_compressor(comp)
+    return ST.get_strategy(name, **kw, **({"compressor": comp}
+                                          if comp is not None else {}))
+
+
+def axis_cp_rank(rank, kernels):
+    """``train_cp`` on this rank of data 2 x model 2: step 0's loss and
+    all-summed gradients (``step.local_grads``) held against the unsharded
+    ones of the data rank's rows, then CP_STEPS fused-Adam steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as TT
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import optimizers as TO
+    from repro_torch.train import loop as LOOP
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(MODEL_MESH, ("data", "model"), backend="gloo")
+    d, m = mesh.coords["data"], mesh.coords["model"]
+    cfg = cp_cfg(get_config)
+    opt = TO.adam(SHARD_LR, fused=True)
+    state = LOOP.init_sharded_state(shard_init(cfg), opt, mesh, cfg=cfg)
+    step = LOOP.make_sharded_train_step(cfg, opt, mesh, remat=False)
+    mc = mesh.shared_comm("model")
+    loss0, grads = step.local_grads(state, cp_batch(cfg, d, 0))
+    ref = torch.load(MODEL_REF_DIR / f"cp_grads_{d}.pt", mmap=True,
+                     weights_only=True)
+    held = _held(grads["rep"], ref)
+    del grads, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, res = axis_run(step, state, lambda t: cp_batch(cfg, d, t), mc,
+                          kernels, CP_STEPS)
+    res.update(coords=(d, m), loss0=float(loss0), grads_held=held,
+               parts=sorted(state["params"]),
+               leaves=len(TT.leaves(state["params"]["rep"])))
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["rank_s"] = time.perf_counter() - t0
+    return res
+
+
+def axis_rank(rank, kernels):
+    """Every new model-axis phase on this rank of the pool: the families
+    on their pairs of ranks, round by round (``AXIS_ROUNDS``), the split
+    scan timed on rank 0 after the first while the others wait, then the
+    strategies and cp on all 4."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.launch.mesh import make_mesh
+
+    pairs = {r: make_mesh((1, TP_N), ("data", "model"), backend="gloo",
+                          ranks=r) for r in ((0, 1), (2, 3))}
+    out = {}
+    for i, phases in enumerate(AXIS_ROUNDS):
+        for phase in phases:
+            mesh = pairs[AXIS_FAMILIES[phase][2]]
+            out[phase] = (axis_family_rank(phase, mesh, kernels)
+                          if mesh is not None else None)
+        dist.barrier()
+        if i == 0:  # the card is rank 0's alone while it times
+            if rank == 0:
+                out["train_tp_jamba"]["split_scan"].update(
+                    split_scan_time(ms))
+            dist.barrier()
+    out["strategies"] = {name: axis_strategy_rank(name, rank, kernels)
+                         for name in TP_STRATEGIES}
+    out["train_cp"] = axis_cp_rank(rank, kernels)
+    return out
+
+
+def tp_combines(cfg):
+    """The model group's all-sums of one TP forward (the encoder's
+    included): one a layer for attention (self and cross) and the dense
+    MLP, two for Mamba and mLSTM (the x_proj partial or the out-norm's
+    statistic, and out_proj), none for the sLSTM."""
+    specs, repeat = cfg.superblock()
+    per = {"attn": 1, "mamba": 2, "mlstm": 2, "slstm": 0}
+    n = sum(per[s.mixer] + (s.ffn == "mlp") + cfg.is_encoder_decoder
+            for s in specs) * repeat
+    return n + (2 * cfg.num_encoder_layers if cfg.is_encoder_decoder else 0)
+
+
+def axis_lines(get_config, ranks, refs, launches, smi):
+    """The new model-axis phases' lines from the pool's ranks, each gated
+    against its one-process reference, its launches and its collectives;
+    the kernels' launches added to ``launches``."""
+    from repro_torch.core import tree as TT
+    from repro_torch.core.fabric import BucketLayout
+    from repro_torch.models import tensor_parallel as TP
+    from repro_torch.models import transformer as T
+
+    for k in ("mamba_scan", "mamba_scan_bwd"):
+        launches.setdefault(k, 0)
+
+    def add(got):
+        for k, n in got.items():
+            launches[k] += n
+
+    def per_rank(res):
+        return {"step_ms": res["step_ms"],
+                "device_ms_last_step": res["device_ms_last"],
+                "peak_gb": res["peak_gb"], "losses": res["losses"],
+                "launches": res["launches"],
+                "model_ops": res["model_ops"],
+                "model_gloo_bytes_per_step": res["model_bytes_per_step"],
+                "batch_gloo_bytes_per_step": res["batch_bytes_per_step"]}
+
+    axis = [r["axis"] for r in ranks]
+    lines = []
+    for phase, (arch, over, pair, b, l, s, opt) in AXIS_FAMILIES.items():
+        cfg = axis_cfg(get_config, phase)
+        ref = refs["axis"][phase]
+        got = {r[phase]["coords"]: r[phase] for r in axis
+               if r[phase] is not None}
+        meta = T.init_model(torch.Generator(), cfg, "meta")
+        leaves = sum(BucketLayout.build(p).n_leaves for p in
+                     TP._partition_replicated(TP.tp_rank_params(meta, TP_N,
+                                                                0)))
+        psum = 2 * tp_combines(cfg) * AXIS_STEPS
+        mamba = sum(sp.mixer == "mamba" for sp in cfg.superblock()[0]) \
+            * cfg.superblock()[1]
+        expect = {"fused_adam": leaves * AXIS_STEPS if opt == "adam" else 0,
+                  "onebit_quant_packed": 0, "topk_encode_ef": 0,
+                  "mamba_scan": mamba * AXIS_STEPS,
+                  "mamba_scan_bwd": mamba * AXIS_STEPS}
+        line = {"phase": phase, "arch": arch, "cut": over,
+                "mesh": {"data": 1, "model": TP_N}, "pool_ranks": pair,
+                "rows": b, "seq_len": l, "source_frames": s or None,
+                "steps": AXIS_STEPS,
+                "optimizer": f"sgd lr {AXIS_LR}" if opt == "sgd"
+                else f"fused adam lr {SHARD_LR}", "precision": "f32",
+                "params_b": cfg.param_count() / 1e9,
+                "reference": "the blocked form (tp_degree 2) on the rows "
+                             "of step 0, one process: the loss and the "
+                             "gradients; the params after the step "
+                             "within the interval its gradient bound "
+                             "gives through the optimizer's first update",
+                "loss_reference_step0": ref["loss"],
+                "tol": {"grad_rel": AXIS_GRAD_RTOL,
+                        "floor_mult": AXIS_FLOOR_MULT,
+                        "params_f32_ulps": AXIS_PARAM_ULPS},
+                "ranks": {}, "card": smi, "transport": "gloo+host"}
+        for key, res in sorted(got.items()):
+            errs = res["grad_errors"]
+            allow = axis_allowed(errs, ref["floors"])
+            bad = {k: e for k, (e, _) in errs.items() if e > allow[k]}
+            if bad or len(errs) != sum(res["leaves"].values()):
+                raise AssertionError(f"{phase} rank {key}: step 0's "
+                                     f"gradients beyond their bound: {bad}")
+            held = res["params_held"]
+            if held["outside"] or held["elements"] != sum(
+                    x.numel() for x in TT.leaves(TP.tp_rank_params(
+                        meta, TP_N, key[1]))):
+                raise AssertionError(f"{phase} rank {key}: the params "
+                                     "after the step outside the bound of "
+                                     f"step 0's gradient gate: {held}")
+            if res["loss0"] != ref["loss"]:
+                raise AssertionError(f"{phase} rank {key}: step 0's loss "
+                                     f"{res['loss0']} is not the blocked "
+                                     f"form's {ref['loss']}")
+            mate = got[(key[0], 0)]
+            if res["rep_prints"] != mate["rep_prints"] \
+                    or res["losses"] != mate["losses"] \
+                    or not all(math.isfinite(x) for x in res["losses"]):
+                raise AssertionError(f"{phase} rank {key}: the replicated "
+                                     "leaves or the losses differ from "
+                                     f"model rank 0's: {res['losses']}")
+            if res["launches"] != expect:
+                raise AssertionError(f"{phase} rank {key}: launches "
+                                     f"{res['launches']} != {expect}")
+            if res["model_ops"].get("psum", [0])[0] != psum:
+                raise AssertionError(f"{phase} rank {key}: model group "
+                                     f"{res['model_ops']}, {psum} all-sums "
+                                     "expected")
+            add(res["launches"])
+            rel = {k: e / big if big else e for k, (e, big) in errs.items()}
+            worst = sorted(rel, key=rel.get)[-3:]
+            line["ranks"]["%d,%d" % key] = {
+                **per_rank(res), "loss0": res["loss0"],
+                "grads_rel_worst": {k: rel[k] for k in worst},
+                "grads_over_allowed_max": max(
+                    e / allow[k] for k, (e, _) in errs.items()),
+                "leaves_held_by_floor": sorted(
+                    k for k, (e, big) in errs.items()
+                    if e > AXIS_GRAD_RTOL * big),
+                "params_after_step": held,
+                "leaves": res["leaves"], "rank_s": res["rank_s"]}
+            if "fwd" in res.get("split_scan", {}):  # timed on rank 0
+                line["split_scan"] = res["split_scan"]
+        line.update(
+            launches_expected_per_rank=expect, all_sums_per_rank=psum,
+            step0_loss_bitwise_blocked=True,
+            params_after_step_within_gradient_bound=True,
+            replicated_leaves_equal_across_model_ranks=True,
+            reference_s=ref["s"],
+            phase_cost_s=ref["s"] + max(r["rank_s"] for r in got.values()))
+        lines.append(line)
+
+    cfg = tp_cfg(get_config)
+    meta = T.init_model(torch.Generator(), cfg, "meta")
+    lays = [BucketLayout.build(p) for p in TP._partition_replicated(
+        TP.tp_rank_params(meta, TP_N, 0))]
+    leaves = sum(lay.n_leaves for lay in lays)
+    buckets = sum(lay.n_buckets for lay in lays)
+    line = {"phase": "train_tp_strategies", "arch": "qwen2-1.5b",
+            "mesh": {"data": MODEL_MESH[0], "model": MODEL_MESH[1]},
+            "layers": TRAIN_LAYERS, "batch_per_data_rank": TRAIN_B,
+            "seq_len": TRAIN_L, "steps": TP_STRATEGY_STEPS,
+            "fused_adam": True,
+            "reference": "the replica step at tp_degree 2, W = 2, with the "
+                         "same strategy, per (model rank, part), one process",
+            "strategies": {}, "card": smi, "transport": "gloo+host"}
+    cost = 0.0
+    for name, (kw, comp) in TP_STRATEGIES.items():
+        atol, share = TP_STRATEGY_TOL[name]
+        ref = refs["axis"][f"strategy_{name}"]
+        loss_rtol = 1e-4 if comp else 1e-6
+        got = {r["strategies"][name]["coords"]: r["strategies"][name]
+               for r in axis}
+        expect = {"fused_adam": leaves * TP_STRATEGY_STEPS,
+                  "onebit_quant_packed": buckets * TP_STRATEGY_STEPS
+                  if comp else 0,
+                  "topk_encode_ef": 0, "mamba_scan": 0, "mamba_scan_bwd": 0}
+        rec = {"kwargs": kw, "compressor": comp,
+               "tol": {"atol": atol, "share_beyond_1e-6": share,
+                       "loss_rtol": loss_rtol},
+               "losses_reference": ref["losses"], "ranks": {}}
+        for key, res in sorted(got.items()):
+            worst, beyond, n, _ = res["held"]
+            if worst > atol or beyond > share * n:
+                raise AssertionError(f"train_tp_strategies {name} rank {key}:"
+                                     f" params max |d| {worst}, {beyond} of "
+                                     f"{n} beyond 1e-6 (tol {atol}, {share})")
+            mate = got[(key[0], 0)]
+            if res["rep_prints"] != mate["rep_prints"]:
+                raise AssertionError(f"train_tp_strategies {name} rank {key}:"
+                                     " the replicated leaves differ from "
+                                     "model rank 0's after a step")
+            if res["losses"] != got[(0, 0)]["losses"] or any(
+                    abs(a - b) > loss_rtol * abs(b)
+                    for a, b in zip(res["losses"], ref["losses"])):
+                raise AssertionError(f"train_tp_strategies {name}: losses "
+                                     f"{res['losses']} vs {ref['losses']}")
+            if res["launches"] != expect:
+                raise AssertionError(f"train_tp_strategies {name} rank {key}"
+                                     f": launches {res['launches']} != "
+                                     f"{expect}")
+            add(res["launches"])
+            rec["ranks"]["%d,%d" % key] = {
+                **per_rank(res), "params_max_abs_diff": worst,
+                "params_beyond_1e-6": [beyond, n], "rank_s": res["rank_s"]}
+        rec.update(launches_expected_per_rank=expect,
+                   replicated_leaves_equal_every_step=True,
+                   reference_s=ref["s"])
+        cost += ref["s"] + max(r["rank_s"] for r in got.values())
+        line["strategies"][name] = rec
+    line["phase_cost_s"] = cost
+    lines.append(line)
+
+    cfg = cp_cfg(get_config)
+    ref = refs["axis"]["cp"]
+    leaves = BucketLayout.build(T.init_model(torch.Generator(), cfg,
+                                             "meta")).n_leaves
+    got = {r["train_cp"]["coords"]: r["train_cp"] for r in axis}
+    expect = {"fused_adam": leaves * CP_STEPS, "onebit_quant_packed": 0,
+              "topk_encode_ef": 0, "mamba_scan": 0, "mamba_scan_bwd": 0}
+    gathers = 2 * cfg.num_layers * CP_STEPS  # k and v a layer a step
+    line = {"phase": "train_cp", "arch": "qwen2-1.5b",
+            "mesh": {"data": MODEL_MESH[0], "model": MODEL_MESH[1]},
+            "layers": TRAIN_LAYERS, "rows_per_data_rank": CP_B,
+            "seq_len": CP_L, "seq_per_model_rank": CP_L // TP_N,
+            "steps": CP_STEPS, "fused_adam": True, "tol": CP_TOL,
+            "reference": "the unsharded loss and gradients of the data "
+                         "rank's rows, one process, the same config",
+            "losses_reference_step0": ref["losses"], "ranks": {},
+            "card": smi, "transport": "gloo+host"}
+    for key, res in sorted(got.items()):
+        ref_loss = ref["losses"][key[0]]
+        _, _, _, rel = res["grads_held"]
+        if abs(res["loss0"] - ref_loss) > CP_TOL["loss"] * abs(ref_loss) \
+                or rel > CP_TOL["grad_rel"]:
+            raise AssertionError(f"train_cp rank {key}: loss {res['loss0']} "
+                                 f"vs {ref_loss}, gradients {rel} of their "
+                                 "largest")
+        if res["parts"] != ["rep"] or res["losses"] != \
+                got[(0, 0)]["losses"]:
+            raise AssertionError(f"train_cp rank {key}: parts "
+                                 f"{res['parts']}, losses {res['losses']}")
+        if res["launches"] != expect:
+            raise AssertionError(f"train_cp rank {key}: launches "
+                                 f"{res['launches']} != {expect}")
+        ag = res["model_ops"].get("all_gather", [0, 0])
+        if ag[0] != gathers:
+            raise AssertionError(f"train_cp rank {key}: {ag[0]} all-gathers,"
+                                 f" {gathers} expected")
+        add(res["launches"])
+        line["ranks"]["%d,%d" % key] = dict(
+            per_rank(res), loss0=res["loss0"], grads_rel=rel,
+            grads_max_abs_diff=res["grads_held"][0],
+            kv_all_gather_bytes_per_step=ag[1] / CP_STEPS,
+            rank_s=res["rank_s"])
+    line.update(launches_expected_per_rank=expect,
+                kv_all_gathers_per_step=gathers // CP_STEPS,
+                reference_s=ref["s"],
+                phase_cost_s=ref["s"] + max(r["rank_s"]
+                                            for r in got.values()))
+    lines.append(line)
+    return lines
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--mamba-before", type=Path, default=None,
@@ -6619,6 +7525,11 @@ def main(argv=None) -> int:
     libs = _build.build_all()
     # ptxas -v: registers and spill bytes (stores + loads) of each library
     per_lib, per_func = {}, {}
+    # each library's SASS read by cuobjdump, all at once
+    with ThreadPoolExecutor(len(libs)) as pool:
+        tc = dict(zip(sorted(libs), pool.map(
+            lambda p: tensor_core_instructions(p, _build._nvcc()),
+            [libs[n] for n in sorted(libs)])))
     for name, path in sorted(libs.items()):
         log = path.with_suffix(".log")
         funcs = per_func[name] = ptxas_functions(
@@ -6629,8 +7540,7 @@ def main(argv=None) -> int:
                                               default=None),
                          "spill_bytes": sum(f["spill_bytes"]
                                             for f in funcs.values()),
-                         "tensor_core_instructions":
-                             tensor_core_instructions(path, _build._nvcc())}
+                         "tensor_core_instructions": tc[name]}
     # the CPU side of the two largest card-vs-CPU phases runs from here on
     # in a worker of its own, beside the card's phases
     cpu_proc, cpu_results = start_cpu_half()
@@ -6677,7 +7587,7 @@ def main(argv=None) -> int:
     qwen = bf16("qwen2-1.5b")
     serve_qwen = serve(
         pa, T, PagedDecodeEngine, Request, qwen, smi, slots=8, max_seq=2048,
-        reqs=requests(Request, np.random.default_rng(0), 16, 64, 1536, 32,
+        reqs=requests(Request, np.random.default_rng(0), 12, 64, 1536, 32,
                       128, qwen.vocab_size), seed=0, after=profile_decode)
     emit(serve_qwen)
     main_path_launches = serve_qwen["paged_attention_launches"]
@@ -6731,15 +7641,20 @@ def main(argv=None) -> int:
     emit(dense_serve(T, E, jamba, smi, phase="dense_serve_jamba"))
     emit(recurrent_card_vs_cpu(T, E, get_config))
 
-    # the MoE families at full width and depth in bf16 (qwen2-moe-a2.7b
-    # also through the paged engine), then f32 cuts card against CPU,
-    # jamba's reduced cut with its experts among them
-    result = greedy_granite_moe(prefill_kernels, T, E, L,
-                                bf16("granite-moe-1b-a400m"), smi)
+    # the MoE families at full width in bf16 (granite at full depth,
+    # qwen2-moe-a2.7b cut to QWEN2_MOE_LAYERS, also through the paged
+    # engine), then f32 cuts card against CPU, jamba's reduced cut with
+    # its experts among them
+    result = greedy_granite_moe(
+        prefill_kernels, T, E, L,
+        dataclasses.replace(bf16("granite-moe-1b-a400m"),
+                            num_layers=GRANITE_MOE_LAYERS), smi)
     emit(result)
     flash_launches += result["flash_launches_per_prefill"]
-    greedy_moe, serve_moe = qwen2_moe(prefill_kernels, pa, T, E, L,
-                                      bf16("qwen2-moe-a2.7b"), smi)
+    greedy_moe, serve_moe = qwen2_moe(
+        prefill_kernels, pa, T, E, L,
+        dataclasses.replace(bf16("qwen2-moe-a2.7b"),
+                            num_layers=QWEN2_MOE_LAYERS), smi)
     emit(greedy_moe)
     emit(serve_moe)
     flash_launches += greedy_moe["flash_launches_per_prefill"]
@@ -6864,7 +7779,7 @@ def main(argv=None) -> int:
         for st in resize["stages"].values())
     emit(elastic_vs_sync(get_config, smi))
     emit(elastic_card_vs_cpu(get_config, smi))
-    emit(finite_read_cost(get_config, smi))
+    emit(finite_read_cost(get_config, smi, steps=5))
     emit(prefetch(train_kernels, get_config, smi))
     emit(train_remat(get_config, smi))
     cpu_runs = cpu_half_result(cpu_proc, cpu_results)
@@ -6885,8 +7800,12 @@ def main(argv=None) -> int:
     lines, shard_launches = sharded_phases(get_config, smi)
     for line in lines:
         emit(line)
+    mamba_launches += shard_launches.pop("mamba_scan")
+    bwd_launches += shard_launches.pop("mamba_scan_bwd")
     for k, n in shard_launches.items():
         train_launches[k] += n
+    split_scan = next(line for line in lines
+                      if line["phase"] == "train_tp_jamba")["split_scan"]
 
     timing = time_kernel(pa, main_path_launches / serve_qwen["decode_steps"],
                          smi)
@@ -6992,6 +7911,8 @@ def main(argv=None) -> int:
                                         "ms_before", "device_ms",
                                         "device_ms_before",
                                         "h_last_bitwise")},
+        "tp_rank_shape": {"shape": split_scan["shape"],
+                          **split_scan["fwd"]},
         "registers": mamba_timing["build"]["this"]["registers"],
         "spill_bytes": mamba_timing["build"]["this"]["spill_bytes"],
         "sass": mamba_timing["build"]["this"]["sass"],
@@ -7012,6 +7933,8 @@ def main(argv=None) -> int:
                                       "bound_ms", "bound_by", "library_ms",
                                       "design_exps_ms", "ms_before",
                                       "device_ms_before")},
+        "tp_rank_shape": {"shape": split_scan["shape"],
+                          **split_scan["bwd"]},
         "registers": per_lib["mamba_scan_bwd"]["max_registers"],
         "spill_bytes": per_lib["mamba_scan_bwd"]["spill_bytes"],
         "spill_bytes_by_state": bwd_spills(per_func["mamba_scan_bwd"]),

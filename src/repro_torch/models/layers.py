@@ -10,7 +10,8 @@ matmuls run in the dtype the inputs carry, while ``rms_norm`` statistics,
 RoPE angles, attention logits and softmax are f32.
 
 Tensor parallelism (``models/tensor_parallel.py``), as the reference:
-the training attention and the dense MLP take one of three branches.
+the training attention, the cross attention and the dense MLP take one
+of three branches.
 Under an active ``tp_context`` (a rank process of a mesh's "model" axis)
 the params hold this rank's head block or d_ff columns and the partial
 is combined by ONE ``all_sum``; with ``cfg.tp_degree = T > 1`` and no
@@ -21,8 +22,15 @@ bit, in its forward); otherwise the single path, which
 by T stays whole (shared-expert MLPs).  The MoE's shared experts are
 replicated over "model" and run the single path under a context
 (``mlp(..., replicated=True)``): an all-sum would count them T times.
-The prefill, decode, paged and cross-attention paths keep the single
-path, as in the reference.
+The prefill, decode and paged paths keep the single path, as in the
+reference; cross attention takes the three branches in both its forms
+(``_sdpa`` for the loss, the flash kernel for serving).
+
+Context parallelism (``models/context_parallel.py``, the reference's
+``cp`` mode): under a ``cp_context`` the training attention takes q from
+this rank's sequence chunk and all-gathers k and v over "model"; with
+``cfg.sharding_mode == "cp"`` ``_sdpa`` is the reference's grouped
+einsum (KV heads not expanded), on one device too.
 
 Expert parallelism: ``moe`` takes ``_moe_ep`` under a current mesh
 (``launch/mesh.py::use_mesh``) whose "model" axis divides the padded
@@ -31,8 +39,10 @@ axes' ranks) is 4096 or more and the rank's tokens divide by the axis,
 as the reference's rule over its global batch.
 
 Differences from the reference, none of which changes a result:
-  * the ``shard(...)`` calls and the ``cp`` branch are gone (no-ops on
-    one device; ``cp`` is not ported, and the sharded step refuses it);
+  * the ``shard(...)`` calls are gone (no-ops on one device; the
+    reference's ``cp`` placement of k and v is the explicit all-gather in
+    ``attention``'s head block, which takes the masked path only: the
+    banded one would need the neighbour's chunk);
   * the page pools and the dense cache are updated IN PLACE
     (``index_put_``) instead of returning a new cache, which halves the
     cache's peak memory;
@@ -76,6 +86,7 @@ from repro_torch.configs.base import FULL_ATTENTION, ModelConfig
 from repro_torch.core.comm import all_gather, all_to_all, pmean
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import BATCH_AXES, current_mesh
+from repro_torch.models.context_parallel import current_cp
 from repro_torch.models.tensor_parallel import current_tp
 
 NEG_INF = -2.0e38
@@ -195,8 +206,11 @@ def _einsum(eq, a, b):
 def _sdpa(cfg: ModelConfig, q, k, v, mask):
     """Full-sequence attention.  q: (B,Lq,H,Dh), k/v: (B,Lk,KV,Dh), mask:
     (B,1,Lq,Lk).  The KV heads are repeated to H first, as the reference's
-    head-sharded ``tp`` path does; logits and softmax in f32, PV in v's
-    dtype."""
+    head-sharded ``tp`` path does; under ``sharding_mode="cp"`` the
+    grouped einsum of its ``cp`` branch instead (KV not expanded).
+    Logits and softmax in f32, PV in v's dtype."""
+    if cfg.sharding_mode == "cp":
+        return _sdpa_decode(cfg, q, k, v, mask)
     h, dh = q.shape[2], q.shape[3]
     kvh = k.shape[2]
     if kvh != h:
@@ -282,25 +296,43 @@ def attention(p, cfg: ModelConfig, x, positions, window: int, theta: float,
     rank's head block and one all-sum; with ``cfg.tp_degree`` T > 1 the
     blocked form, when T divides the heads and the kv heads."""
     lq = x.shape[1]
+    cp = current_cp()
 
     def head_block(p_):
         """One head block's subgraph: qkv → RoPE → attention over its
-        heads → the out-projection's partial."""
+        heads → the out-projection's partial.  Under a ``cp_context`` x is
+        this rank's chunk at its global ``positions``, and k and v after
+        RoPE are all-gathered over "model" (the whole sequence, positions
+        0..T·c − 1 in rank order) onto the masked path."""
         q, k, v = _qkv(p_, cfg, x)
         q = rope(q, positions, theta)
         k = rope(k, positions, theta)
-        if (static_window and window > 0 and causal and lq % window == 0
-                and lq // window >= 2):
+        if cp is not None:
+            k, v = cp.gather_seq(k), cp.gather_seq(v)
+        if (cp is None and static_window and window > 0 and causal
+                and lq % window == 0 and lq // window >= 2):
             out = _sdpa_banded(cfg, q, k, v, window)
         else:
             i = positions[:, :, None].long()  # (B, L, 1)
-            j = positions[:, None, :].long()  # (B, 1, L)
+            j = (positions[:, None, :].long() if cp is None  # (B, 1, L)
+                 else torch.arange(k.shape[1], device=x.device)[None, None])
             w = INT32_MAX if window == FULL_ATTENTION else window
             mask = (j <= i) if causal else torch.ones_like(j <= i)
             mask = mask & (i - j < w)
             out = _sdpa(cfg, q, k, v, mask[:, None])
         return torch.einsum("blhk,hkd->bld", out, p_["wo"])
 
+    if cp is not None:  # every head on this rank: no combine
+        return head_block(p)
+    return _heads_combined(p, cfg, head_block)
+
+
+def _heads_combined(p, cfg, head_block):
+    """``head_block`` (an attention param dict → its out-projection's
+    partial) under the three TP branches: this rank's heads and one
+    all-sum under a ``tp_context``; the blocked form over ``_attn_slice``
+    blocks with ``cfg.tp_degree`` T > 1 dividing the heads and the kv
+    heads; else the single path."""
     tp = current_tp()
     t = cfg.tp_degree
     if tp is not None:  # this rank's head block, combined over the ranks
@@ -378,28 +410,36 @@ def cross_attention(p, cfg: ModelConfig, x, memory, kernel: bool):
     cross-attention cache, as in the reference).
 
     ``kernel=True`` runs ``kernels.ops.flash_attention(..., causal=False)``
-    on the (B, H, L, Dh) views: one launch a call on CUDA tensors, for any
-    Lq, the plain version on CPU tensors; PV stays in f32 and there is no
-    softcap (a config that sets one raises).  ``kernel=False`` runs
-    ``_sdpa`` with an all-ones mask, the reference's path, which autograd
-    differentiates.  The caller picks: serving the kernel, the loss not."""
-    q, k, v = _qkv(p, cfg, x, memory)
-    if not kernel:
-        mask = torch.ones((1, 1, x.shape[1], memory.shape[1]),
-                          dtype=torch.bool, device=x.device)
-        out = _sdpa(cfg, q, k, v, mask)
-    else:
-        if cfg.attn_logit_softcap:
-            raise ValueError(
-                f"cross attention runs the flash kernel, which has no logit "
-                f"softcap; {cfg.name} sets attn_logit_softcap="
-                f"{cfg.attn_logit_softcap}")
-        # einsum may hand back permuted strides: the kernel reads rows of
-        # the (B, L, H, Dh) layout
-        out = ops.flash_attention(
-            q.contiguous().transpose(1, 2), k.contiguous().transpose(1, 2),
-            v.contiguous().transpose(1, 2), causal=False).transpose(1, 2)
-    return torch.einsum("blhk,hkd->bld", out, p["wo"])
+    on the (B, H, L, Dh) views: one launch a call (a head block) on CUDA
+    tensors, for any Lq, the plain version on CPU tensors; PV stays in
+    f32 and there is no softcap (a config that sets one raises).
+    ``kernel=False`` runs ``_sdpa`` with an all-ones mask, the reference's
+    path, which autograd differentiates.  The caller picks: serving the
+    kernel, the loss not.  Either takes attention's TP branches
+    (``_heads_combined``): this rank's heads and one all-sum under a
+    ``tp_context``, the blocked form at ``cfg.tp_degree`` T > 1."""
+    if kernel and cfg.attn_logit_softcap:
+        raise ValueError(
+            f"cross attention runs the flash kernel, which has no logit "
+            f"softcap; {cfg.name} sets attn_logit_softcap="
+            f"{cfg.attn_logit_softcap}")
+
+    def head_block(p_):
+        q, k, v = _qkv(p_, cfg, x, memory)
+        if not kernel:
+            mask = torch.ones((1, 1, x.shape[1], memory.shape[1]),
+                              dtype=torch.bool, device=x.device)
+            out = _sdpa(cfg, q, k, v, mask)
+        else:
+            # einsum may hand back permuted strides: the kernel reads rows
+            # of the (B, L, H, Dh) layout
+            out = ops.flash_attention(
+                q.contiguous().transpose(1, 2),
+                k.contiguous().transpose(1, 2),
+                v.contiguous().transpose(1, 2), causal=False).transpose(1, 2)
+        return torch.einsum("blhk,hkd->bld", out, p_["wo"])
+
+    return _heads_combined(p, cfg, head_block)
 
 
 def attention_decode(p, cfg: ModelConfig, x, pos, window: int, theta: float,

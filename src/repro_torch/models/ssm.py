@@ -34,6 +34,21 @@ Differences from the reference:
     reference's order, ``delta * u`` in the compute dtype.
   * the decode branches update the layer's cache slice IN PLACE (and
     return it) instead of returning a new cache.
+
+Tensor parallelism (``models/tensor_parallel.py``): the training branch
+of Mamba (the ``d_in`` channels in T blocks, combined twice: the x_proj
+partial before dt, B and C are sliced out, and the out_proj partial) and
+of mLSTM (the heads in T blocks, combined twice: the out-norm's sum of
+squares and the out_proj partial) takes one of three branches, as
+attention and the MLP do: under a ``tp_context`` this rank's block and
+one all-sum a combine; with ``cfg.tp_degree = T > 1`` and no context the
+blocked form, the T blocks' subgraphs stack-summed at each combine (a TP
+forward is bitwise it); otherwise the single path, which
+``cfg.tp_degree == 1`` keeps bit for bit.  The reference has neither
+form (its explicit-TP module covers attention and the MLP; pjit places
+the rest), so the blocked forms are held to its unsharded forward.  The
+sLSTM runs whole on every model rank (its leaves are replicated), and
+prefill and decode keep the single path.
 """
 
 from __future__ import annotations
@@ -44,6 +59,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mamba_scan import MambaScan
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.tensor_parallel import current_tp
 
 NEG_INF = -2.0e38
 
@@ -109,29 +125,93 @@ def _causal_conv(p, u, conv_state=None):
     return F.silu(out + p["conv_b"]), new_state
 
 
+def _split_blocks(cfg, width):
+    """(blocks, combine) of a training branch: under a ``tp_context`` one
+    block (this rank's) and its ``all_sum``; with ``cfg.tp_degree`` T > 1
+    dividing ``width`` T blocks stack-summed; else None (the single
+    path)."""
+    tp = current_tp()
+    if tp is not None:
+        return 1, lambda parts: tp.all_sum(parts[0])
+    t = cfg.tp_degree
+    if t > 1 and width % t == 0:
+        return t, lambda parts: torch.stack(parts).sum(0)
+    return None, lambda parts: parts[0]
+
+
+def _mamba_slice(p, i: int, t: int):
+    """Channel block i of t of a Mamba param dict: what
+    ``tensor_parallel.tp_rank_params`` gives rank i (``in_proj``'s block
+    of each half side by side), each a contiguous copy."""
+    d_in = p["in_proj"].shape[-1] // 2
+    b = d_in // t
+    lo, hi = i * b, (i + 1) * b
+    w = p["in_proj"]
+    return {"in_proj": torch.cat([w[:, lo:hi], w[:, d_in + lo:d_in + hi]],
+                                 dim=1),
+            "conv_w": p["conv_w"][:, lo:hi].contiguous(),
+            "conv_b": p["conv_b"][lo:hi].contiguous(),
+            "x_proj": p["x_proj"][lo:hi].contiguous(),
+            "dt_proj": p["dt_proj"][:, lo:hi].contiguous(),
+            "dt_bias": p["dt_bias"][lo:hi].contiguous(),
+            "A_log": p["A_log"][lo:hi].contiguous(),
+            "D": p["D"][lo:hi].contiguous(),
+            "out_proj": p["out_proj"][lo:hi].contiguous()}
+
+
+def _mamba_blocks(blocks, cfg, x, combine):
+    """The training Mamba over channel blocks: each block's in_proj, conv
+    and x_proj partial, ONE combine of the partials, then each block's
+    dt, scan (``MambaScan``, on the block's channels), gate and out_proj
+    partial, and ONE combine of those.  One block with the identity
+    combine is the single path."""
+    n = cfg.ssm_state_dim
+    pre = []
+    for p in blocks:
+        xz = x @ p["in_proj"]
+        b = xz.shape[-1] // 2
+        u, _ = _causal_conv(p, xz[..., :b])
+        pre.append((u, xz[..., b:]))
+    dbl = combine([u @ p["x_proj"] for (u, _), p in zip(pre, blocks)])
+    dt_rank = dbl.shape[-1] - 2 * n
+    dt, bb, cc = (dbl[..., :dt_rank], dbl[..., dt_rank:dt_rank + n],
+                  dbl[..., dt_rank + n:])
+    parts = []
+    for (u, z), p in zip(pre, blocks):
+        delta = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
+        a_mat = -torch.exp(p["A_log"].float())
+        y, _ = MambaScan.apply(u, delta, a_mat, bb, cc, p["D"])
+        parts.append((y.to(x.dtype) * F.silu(z)) @ p["out_proj"])
+    return combine(parts)
+
+
 def mamba(p, cfg: ModelConfig, x, cache=None, collect_cache=False):
     """x: (B, L, D) → (out, cache).  Without ``cache``: the full-sequence
     pass; the returned cache is {"conv", "ssm"} with ``collect_cache``,
     else None.  With ``cache`` ({"conv": (B, k-1, d_in), "ssm": (B, d_in,
     N) f32}, L = 1): the O(1) decode update, written into ``cache`` in
-    place and returned."""
-    d_in = cfg.ssm_expand * x.shape[-1]
+    place and returned.  The training branch (no cache, none collected)
+    takes the TP or blocked form (the module docstring); ``d_in`` is the
+    params' own (a TP rank's block)."""
+    d_in = p["in_proj"].shape[-1] // 2
+    if cache is None and not collect_cache:
+        t, combine = _split_blocks(cfg, d_in)
+        blocks = [p] if t in (None, 1) else [_mamba_slice(p, i, t)
+                                            for i in range(t)]
+        return _mamba_blocks(blocks, cfg, x, combine), None
     xz = x @ p["in_proj"]  # (B, L, 2 d_in)
     u, z = xz[..., :d_in], xz[..., d_in:]
     a_mat = -torch.exp(p["A_log"].float())  # (d_in, N)
 
-    if cache is None:
+    if cache is None:  # the prefill: the scan's final state kept
         u_pre = u  # pre-conv activations: their tail is the conv state
         u, _ = _causal_conv(p, u)
         delta, bb, cc = _mamba_bcdt(p, cfg, u)
         y, h_last = MambaScan.apply(u, delta, a_mat, bb, cc, p["D"])
-        new_cache = None
-        if collect_cache:
-            kconv = cfg.ssm_conv_dim
-            conv = u_pre[:, -(kconv - 1):] if kconv > 1 else \
-                u_pre[:, :0]
-            # a copy: a view would keep the whole (B, L, 2 d_in) xz alive
-            new_cache = {"conv": conv.clone(), "ssm": h_last}
+        kconv = cfg.ssm_conv_dim
+        conv = u_pre[:, -(kconv - 1):] if kconv > 1 else u_pre[:, :0]
+        # a copy: a view would keep the whole (B, L, 2 d_in) xz alive
+        new_cache = {"conv": conv.clone(), "ssm": h_last}
     else:
         u1, conv_state = _causal_conv(p, u, cache["conv"])
         delta, bb, cc = _mamba_bcdt(p, cfg, u1)
@@ -177,44 +257,102 @@ def init_mlstm(gen, cfg: ModelConfig, dtype, device, lead=()):
     }
 
 
-def mlstm(p, cfg: ModelConfig, x, cache=None, collect_cache=False):
-    """x: (B, L, D) → (out, cache).  Without ``cache``: the parallel
-    (quadratic) form; with ``collect_cache`` the final state {"C", "n",
-    "m"} comes from the parallel form.  With ``cache`` (L = 1): the
-    recurrent form, the state updated in place and returned."""
-    b, l, d = x.shape
-    h = cfg.num_heads
-    dh = (cfg.ssm_expand * d) // h
+def _mlstm_slice(p, i: int, t: int):
+    """Head block i of t of an mLSTM param dict: what
+    ``tensor_parallel.tp_rank_params`` gives rank i, each a contiguous
+    copy (``out_norm.scale`` and ``out_proj``'s rows head-major)."""
+    h = p["wq"].shape[1]
+    hb = h // t
+    w = p["out_proj"].shape[0] // t
+    heads = slice(i * hb, (i + 1) * hb)
+    rows = slice(i * w, (i + 1) * w)
+    return {"wq": p["wq"][:, heads].contiguous(),
+            "wk": p["wk"][:, heads].contiguous(),
+            "wv": p["wv"][:, heads].contiguous(),
+            "w_igate": p["w_igate"][:, heads].contiguous(),
+            "w_fgate": p["w_fgate"][:, heads].contiguous(),
+            "fgate_bias": p["fgate_bias"][heads].contiguous(),
+            "out_norm": {"scale": p["out_norm"]["scale"][rows].contiguous()},
+            "out_proj": p["out_proj"][rows].contiguous()}
+
+
+def _mlstm_gates(p, cfg, x):
+    """(q, k, v (B, h, L, dh), log input gate, log forget gate (B, h, L)
+    f32) over the params' heads (a TP rank's block)."""
+    dh = (cfg.ssm_expand * x.shape[-1]) // cfg.num_heads
     q = torch.einsum("bld,dhk->bhlk", x, p["wq"]) * dh ** -0.5
     k = torch.einsum("bld,dhk->bhlk", x, p["wk"]) * dh ** -0.5
     v = torch.einsum("bld,dhk->bhlk", x, p["wv"])
     logi = (x @ p["w_igate"]).transpose(1, 2).float()  # (B, H, L)
     logf = F.logsigmoid((x @ p["w_fgate"]).transpose(1, 2).float()
                         + p["fgate_bias"].float()[None, :, None])
+    return q, k, v, logi, logf
 
-    new_cache = None
+
+def _mlstm_parallel(q, k, v, logi, logf, collect_cache):
+    """The parallel (quadratic) form: (out (B, h, L, dh) f32, the final
+    state {"C", "n", "m"} with ``collect_cache`` else None)."""
+    l = q.shape[2]
+    # D_ij = sum_{s=j+1..i} logf_s + logi_j  (j <= i)
+    cumf = torch.cumsum(logf, dim=-1)  # (B, H, L)
+    dmat = cumf[..., :, None] - cumf[..., None, :] + logi[..., None, :]
+    causal = torch.ones((l, l), dtype=torch.bool, device=q.device).tril()
+    dmat = torch.where(causal, dmat, NEG_INF)
+    m = dmat.amax(dim=-1, keepdim=True)  # (B, H, L, 1) stabiliser
+    dexp = torch.exp(dmat - m)
+    s = torch.einsum("bhlk,bhsk->bhls", q.float(), k.float()) * dexp
+    norm = torch.maximum(s.sum(dim=-1, keepdim=True).abs(), torch.exp(-m))
+    out = torch.einsum("bhls,bhsk->bhlk", s / norm, v.float())
+    if not collect_cache:
+        return out, None
+    # d_j = sum_{s>j} logf_s + logi_j;  C_L = sum_j e^{d_j - m} v_j k_j^T
+    dj = cumf[..., -1:] - cumf + logi  # (B, H, L)
+    m_fin = dj.amax(dim=-1)  # (B, H)
+    w = torch.exp(dj - m_fin[..., None])
+    kf, vf = k.float(), v.float()
+    return out, {"C": torch.einsum("bhl,bhlv,bhlk->bhvk", w, vf, kf),
+                 "n": torch.einsum("bhl,bhlk->bhk", w, kf), "m": m_fin}
+
+
+def _mlstm_blocks(blocks, cfg, x, combine):
+    """The training mLSTM over head blocks: each block's parallel form,
+    ONE combine of the out-norm's per-block sums of squares (the RMS norm
+    is over all H·dh), each block normalised and projected, and ONE
+    combine of the out_proj partials."""
+    b, l, d = x.shape
+    width = (cfg.ssm_expand * d // cfg.num_heads) * cfg.num_heads
+    outs = []
+    for p in blocks:
+        out, _ = _mlstm_parallel(*_mlstm_gates(p, cfg, x), False)
+        outs.append(out.transpose(1, 2).reshape(b, l, -1).to(x.dtype)
+                    .float())
+    sq = combine([o.square().sum(dim=-1, keepdim=True) for o in outs])
+    inv = torch.rsqrt(sq / width + cfg.norm_eps)
+    return combine([
+        ((o * inv).to(x.dtype) * p["out_norm"]["scale"].to(x.dtype))
+        @ p["out_proj"] for o, p in zip(outs, blocks)])
+
+
+def mlstm(p, cfg: ModelConfig, x, cache=None, collect_cache=False):
+    """x: (B, L, D) → (out, cache).  Without ``cache``: the parallel
+    (quadratic) form; with ``collect_cache`` the final state {"C", "n",
+    "m"} comes from the parallel form.  With ``cache`` (L = 1): the
+    recurrent form, the state updated in place and returned.  The
+    training branch (no cache, none collected) takes the TP or blocked
+    form (the module docstring)."""
+    b, l, d = x.shape
+    h = p["wq"].shape[1]
+    dh = (cfg.ssm_expand * d) // cfg.num_heads
+    if cache is None and not collect_cache:
+        t, combine = _split_blocks(cfg, h)
+        if t is not None:
+            blocks = [p] if t == 1 else [_mlstm_slice(p, i, t)
+                                         for i in range(t)]
+            return _mlstm_blocks(blocks, cfg, x, combine), None
+    q, k, v, logi, logf = _mlstm_gates(p, cfg, x)
+
     if cache is None:
-        # D_ij = sum_{s=j+1..i} logf_s + logi_j  (j <= i)
-        cumf = torch.cumsum(logf, dim=-1)  # (B, H, L)
-        dmat = cumf[..., :, None] - cumf[..., None, :] + logi[..., None, :]
-        causal = torch.ones((l, l), dtype=torch.bool,
-                            device=x.device).tril()
-        dmat = torch.where(causal, dmat, NEG_INF)
-        m = dmat.amax(dim=-1, keepdim=True)  # (B, H, L, 1) stabiliser
-        dexp = torch.exp(dmat - m)
-        s = torch.einsum("bhlk,bhsk->bhls", q.float(), k.float()) * dexp
-        norm = torch.maximum(s.sum(dim=-1, keepdim=True).abs(),
-                             torch.exp(-m))
-        out = torch.einsum("bhls,bhsk->bhlk", s / norm, v.float())
-        if collect_cache:
-            # d_j = sum_{s>j} logf_s + logi_j;  C_L = sum_j e^{d_j - m} v_j k_j^T
-            dj = cumf[..., -1:] - cumf + logi  # (B, H, L)
-            m_fin = dj.amax(dim=-1)  # (B, H)
-            w = torch.exp(dj - m_fin[..., None])
-            kf, vf = k.float(), v.float()
-            new_cache = {"C": torch.einsum("bhl,bhlv,bhlk->bhvk", w, vf, kf),
-                         "n": torch.einsum("bhl,bhlk->bhk", w, kf),
-                         "m": m_fin}
+        out, new_cache = _mlstm_parallel(q, k, v, logi, logf, collect_cache)
     else:
         # C ← f C + i v kᵀ ; n ← f n + i k ; h = (Cᵀ q) / max(|n·q|, e⁻ᵐ)
         c_mat, nvec, m0 = cache["C"], cache["n"], cache["m"]

@@ -1,25 +1,44 @@
 """Explicit tensor parallelism over a mesh's "model" axis.
 
 Port of ``repro/models/tensor_parallel.py``.  A Megatron-style
-column/row split of the transformer block whose activation combines are
-issued by the model code itself:
+column/row split of each mixer and FFN whose activation combines are
+issued by the model code itself.  The split is keyed by the mixer
+subtree a leaf sits in (``SPLIT_AXES``), not by its name alone: mLSTM's
+``wq``/``wk``/``wv`` share attention's names but not its combine.
 
-  column-split (output slicing, no communication):
-      wq/wk/wv  (D, H, Dh)  → (D, H/T, Dh)     heads
-      bq/bk/bv  (H, Dh)     → (H/T, Dh)
-      w_gate/w_up  (D, F)   → (D, F/T)         d_ff
-  row-split (contraction slicing, one all-sum a combine):
-      wo        (H, Dh, D)  → (H/T, Dh, D)
-      w_down    (F, D)      → (F/T, D)
-  everything else (norms, embed, lm_head, router, MoE) replicated.
+  attention, self and cross (``attn``, ``cross_attn``), heads:
+      column  wq/wk/wv (D, H, Dh) → (D, H/T, Dh); bq/bk/bv (H, Dh) → (H/T, Dh)
+      row     wo (H, Dh, D) → (H/T, Dh, D)                     one all-sum
+  dense MLP (``mlp``), d_ff:
+      column  w_gate/w_up (D, F) → (D, F/T);  row w_down (F, D) → (F/T, D)
+  Mamba (``mamba``), the d_in channels (independent through the conv
+  and the scan):
+      column  in_proj (D, 2·d_in): the columns [i·d_in/T, (i+1)·d_in/T) of
+              the u half AND of the z half, side by side (``HALVES``);
+              conv_w (k, d_in) → (k, d_in/T); dt_proj (R, d_in) → (R, d_in/T);
+              conv_b, dt_bias, D (d_in,) and A_log (d_in, N) on axis 0
+      row     x_proj (d_in, R + 2N): the partial u @ x_proj all-summed
+              before dt, B and C are sliced out           one all-sum
+              out_proj (d_in, D)                           one all-sum
+  mLSTM (``mlstm``), heads:
+      column  wq/wk/wv (D, H, dh) → (D, H/T, dh); w_igate/w_fgate (D, H)
+              → (D, H/T); fgate_bias (H,); out_norm.scale (H·dh,), head-major
+      row     out_proj (H·dh, D)                           one all-sum
+              and the out-norm's sum of squares (B, L, 1), all-summed
+              before the rank normalises its heads          one all-sum
+  sLSTM (``slstm``): replicated.  Its recurrence mixes heads (the (B,
+  4D) gate pre-activations are chunked into i, f, z, o after the
+  per-head recurrent product), so a split would need a collective a
+  time step; every model rank runs it whole and ``finalize_grads``
+  completes its gradients, as for the MoE's shared experts.
+  everything else (norms, embed, lm_head, router, the sLSTM) replicated.
 
-Each TP rank computes one block of the attention out-projection's sum
-over heads and of the MLP down-projection's sum over d_ff, and
+Each TP rank computes one block of each combine's sum and
 ``TPContext.all_sum`` combines them.  The unsharded path with
-``cfg.tp_degree = T`` and no active context (``models/layers.py``)
-computes the same T blocks and sums them with ``torch.stack(...).sum(0)``,
-the reduction ``ShardComm.all_sum`` runs over its stacked rank axis: a
-TP forward is bitwise its blocked form.
+``cfg.tp_degree = T`` and no active context (``models/layers.py``,
+``models/ssm.py``) computes the same T blocks and sums them with
+``torch.stack(...).sum(0)``, the reduction ``ShardComm.all_sum`` runs
+over its stacked rank axis: a TP forward is bitwise its blocked form.
 
 The reference runs the ranks under ``jax.vmap(axis_name="model")`` or a
 ``shard_map``; here each rank is a process (``launch/mesh.py``) and the
@@ -39,7 +58,10 @@ plus its own blocks' contribution, whose sum over the ranks is the
 unsharded gradient.  ``TPContext.finalize_grads`` all-sums those (the
 reference's, Megatron's layernorm-grad all-reduce).  Weight 1 with an
 all-sum backward would give T× gradients, weight 1 with an identity
-backward T× on the replicated leaves' residual share.
+backward T× on the replicated leaves' residual share.  The same holds
+for a combine inside a mixer (Mamba's x_proj partial, mLSTM's norm
+statistic): the backward is linear in the cotangents, so the ranks'
+partials of a replicated quantity sum to the unsharded one.
 
 End-to-end gradients are not bitwise the blocked form's (the reference
 says the same of its own): the residual stream's cotangent is summed in
@@ -52,8 +74,11 @@ model rank holds its E/T experts whole and their gradients complete
 they are not replicated leaves.  The reference keeps the whole ``moe``
 subtree replicated in ``tp_split_params`` (its experts are placed by
 pjit); ``tp_split_params``/``tp_unsplit_params`` here are the
-reference's, and ``tp_rank_params``/``tp_unsplit_ranks`` the rank
-processes' per-rank form with or without the expert split.
+reference's for attention and the MLP, and ``tp_rank_params``/
+``tp_unsplit_ranks`` the rank processes' per-rank form with or without
+the expert split.  The reference's by-name split would also cut mLSTM's
+``wq``/``wk``/``wv`` (its explicit-TP module has no mLSTM combine) and
+leaves Mamba whole; the port's split is the table above.
 
 ``tp_collective_contract`` needs ``Fabric.collective_contract`` (the
 analysis tier, ROADMAP.md Queue 1 item 13) and is not ported.
@@ -69,11 +94,21 @@ import torch
 from repro_torch.core.comm import ShardComm, psum
 from repro_torch.core.fabric import DEFAULT_BUCKET_BYTES, Fabric
 
-# leaf name -> axis to slice (attention and the dense MLP)
-_COLUMN_AXES = {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0,
-                "w_gate": 1, "w_up": 1}
-_ROW_AXES = {"wo": 0, "w_down": 0}
-SPLIT_AXES = {**_COLUMN_AXES, **_ROW_AXES}
+# mixer subtree -> {path of a leaf inside it: the axis to slice}
+_ATTN_AXES = {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0, "wo": 0}
+SPLIT_AXES = {
+    "attn": _ATTN_AXES,
+    "cross_attn": _ATTN_AXES,
+    "mlp": {"w_gate": 1, "w_up": 1, "w_down": 0},
+    "mamba": {"in_proj": 1, "conv_w": 1, "conv_b": 0, "x_proj": 0,
+              "dt_proj": 1, "dt_bias": 0, "A_log": 0, "D": 0,
+              "out_proj": 0},
+    "mlstm": {"wq": 1, "wk": 1, "wv": 1, "w_igate": 1, "w_fgate": 1,
+              "fgate_bias": 0, "out_norm/scale": 0, "out_proj": 0},
+    "slstm": {},
+}
+# leaves whose split axis holds two halves ([u | z]), each split alike
+HALVES = {("mamba", "in_proj")}
 # the expert banks directly under a "moe" key: their expert axis
 EXPERT_AXES = {"w_gate": 0, "w_up": 0, "w_down": 0}
 
@@ -135,24 +170,33 @@ def tp_context(degree: int, comm: ShardComm = None,
         _STACK.pop()
 
 
-def _walk(tree, leaf, stacked_marker, in_stack=False, where=None):
+def _walk(tree, leaf, stacked_marker, in_stack=False, where=None, rel=""):
     """``leaf(key, value, axis or None)`` over a dict tree: ``axis`` is the
     split axis of a TP leaf (shifted by one under the stacked marker),
-    ``("expert", axis)`` for an expert bank directly under "moe", None
-    for a replicated one."""
+    ``("halves", axis)`` for a leaf of ``HALVES``, ``("expert", axis)``
+    for an expert bank directly under "moe", None for a replicated one.
+    ``where`` is the mixer subtree the walk is in ("moe" directly under
+    the MoE key, "in_moe" below it) and ``rel`` the path inside it."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            sub = "moe" if k == "moe" else (
-                "in_moe" if where in ("moe", "in_moe") else None)
+            if where in ("moe", "in_moe"):
+                sub, r = "in_moe", ""
+            elif k == "moe" or k in SPLIT_AXES:
+                sub, r = k, ""
+            else:
+                sub, r = where, (rel + k + "/" if where else "")
             out[k] = _walk(v, leaf, stacked_marker,
-                           in_stack or k == stacked_marker, sub)
+                           in_stack or k == stacked_marker, sub, r)
             continue
         shift = 1 if in_stack else 0
+        table = SPLIT_AXES.get(where, {})
         if where == "moe" and k in EXPERT_AXES:
             axis = ("expert", EXPERT_AXES[k] + shift)
-        elif where is None and k in SPLIT_AXES:
-            axis = SPLIT_AXES[k] + shift
+        elif rel + k in table:
+            axis = table[rel + k] + shift
+            if (where, rel + k) in HALVES:
+                axis = ("halves", axis)
         else:
             axis = None
         out[k] = leaf(k, v, axis)
@@ -160,22 +204,47 @@ def _walk(tree, leaf, stacked_marker, in_stack=False, where=None):
 
 
 def _axis(axis, experts):
-    if isinstance(axis, tuple):
+    """The split of a ``_walk`` axis: an int, ``("halves", ax)``, or None
+    (an expert bank without ``experts``)."""
+    if isinstance(axis, tuple) and axis[0] == "expert":
         return axis[1] if experts else None
     return axis
 
 
 def _check(k, v, ax, degree, fn):
-    if v.shape[ax] % degree:
-        raise ValueError(f"{fn}: {k} axis {ax} ({v.shape[ax]}) not "
+    a = ax[1] if isinstance(ax, tuple) else ax
+    n = v.shape[a] // 2 if isinstance(ax, tuple) else v.shape[a]
+    if v.shape[a] % degree or n % degree:
+        raise ValueError(f"{fn}: {k} axis {a} ({v.shape[a]}) not "
                          f"divisible by tp_degree={degree}")
+
+
+def _chunks(v, ax, degree):
+    """The ``degree`` pieces of ``v`` along its split: ``ax`` an int, or
+    ``("halves", axis)``, whose piece i is piece i of each half, side by
+    side."""
+    if not isinstance(ax, tuple):
+        return v.chunk(degree, dim=ax)
+    a = ax[1]
+    first, second = v.chunk(2, dim=a)
+    return [torch.cat([x, y], dim=a) for x, y in
+            zip(first.chunk(degree, dim=a), second.chunk(degree, dim=a))]
+
+
+def _unchunk(pieces, ax):
+    """Inverse of ``_chunks``."""
+    if not isinstance(ax, tuple):
+        return torch.cat(pieces, dim=ax)
+    a = ax[1]
+    halves = [p.chunk(2, dim=a) for p in pieces]
+    return torch.cat([h[0] for h in halves] + [h[1] for h in halves], dim=a)
 
 
 def tp_split_params(params, degree: int, stacked_marker: str = "stack"):
     """Full param tree → per-rank shards STACKED on a new leading axis of
     size ``degree`` (the reference's layout: index ``[r]`` for rank r).
-    Splits follow ``SPLIT_AXES`` by leaf name; leaves under ``moe`` and
-    everything unnamed are replicated."""
+    Splits follow ``SPLIT_AXES`` by mixer subtree; leaves under ``moe``
+    and everything else are replicated."""
     if not isinstance(params, dict):
         raise TypeError("tp_split_params expects the dict param tree")
 
@@ -184,7 +253,7 @@ def tp_split_params(params, degree: int, stacked_marker: str = "stack"):
         if ax is None:
             return torch.stack([v] * degree)
         _check(k, v, ax, degree, "tp_split_params")
-        return torch.stack(v.chunk(degree, dim=ax))
+        return torch.stack(_chunks(v, ax, degree))
 
     return _walk(params, leaf, stacked_marker)
 
@@ -195,7 +264,7 @@ def tp_unsplit_params(shards, stacked_marker: str = "stack"):
         ax = _axis(axis, False)
         if ax is None:
             return v[0]
-        return torch.cat(v.unbind(0), dim=ax)
+        return _unchunk(v.unbind(0), ax)
 
     return _walk(shards, leaf, stacked_marker)
 
@@ -214,7 +283,7 @@ def tp_rank_params(params, degree: int, rank: int,
         if ax is None:
             return v
         _check(k, v, ax, degree, "tp_rank_params")
-        return v.chunk(degree, dim=ax)[rank].contiguous()
+        return _chunks(v, ax, degree)[rank].contiguous()
 
     return _walk(params, leaf, stacked_marker)
 
@@ -230,7 +299,7 @@ def tp_unsplit_ranks(trees, stacked_marker: str = "stack",
         mine = [next(it) for it in leaves]
         if ax is None:
             return mine[0]
-        return torch.cat(mine, dim=ax)
+        return _unchunk(mine, ax)
 
     return _walk(trees[0], leaf, stacked_marker)
 
@@ -251,7 +320,7 @@ def splits_experts(params, degree: int) -> bool:
     found = []
 
     def leaf(k, v, axis):
-        if isinstance(axis, tuple):
+        if isinstance(axis, tuple) and axis[0] == "expert":
             found.append(v.shape[axis[1]] % degree == 0)
         return v
 

@@ -89,6 +89,7 @@ from repro_torch.configs.base import FULL_ATTENTION, LayerSpec, ModelConfig
 from repro_torch.core.precision import torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
+from repro_torch.models.context_parallel import check_cp, current_cp
 
 # the recurrent mixers: parameter init, layer, layer-cache init
 _RECURRENT = {
@@ -291,12 +292,27 @@ def forward(params, cfg: ModelConfig, tokens=None, positions=None,
     twice a step.  Recurrent mixers run their full-sequence branch from
     the zero state.  An encoder-decoder model needs the
     encoder's ``memory`` (B, S, D); its cross attention runs on ``_sdpa``,
-    which autograd differentiates."""
+    which autograd differentiates.
+
+    Under a ``cp_context`` (``models/context_parallel.py``) the tokens or
+    embeds are the data rank's whole rows and the forward runs this model
+    rank's sequence chunk at its global positions: the logits are the
+    chunk's (B, L/T, V)."""
     _check_stack(cfg)
+    cp = current_cp()
+    if cp is not None:
+        check_cp(cfg)
+        if positions is not None:
+            raise ValueError("cp: the forward places the chunk at its own "
+                             "global positions")
+        tokens = None if tokens is None else cp.chunk(tokens)
+        embeds = None if embeds is None else cp.chunk(embeds)
     params = cast_compute(params, cfg)
     h = _embed(params, cfg, tokens, embeds)
     b, l = h.shape[:2]
-    if positions is None:
+    if cp is not None:
+        positions = cp.positions(b, l, h.device)
+    elif positions is None:
         positions = torch.arange(l, dtype=torch.int32,
                                  device=h.device).expand(b, l)
     if cfg.is_encoder_decoder and memory is None:

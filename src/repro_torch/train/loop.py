@@ -83,17 +83,22 @@ sharded step; its replica step ships f32).
 
 On a mesh with a "model" axis (``("data", "model")``, ``("pod", "data",
 "model")``) each rank holds its model shard (``init_sharded_state``):
-the attention and dense-MLP leaves split by
-``tensor_parallel.SPLIT_AXES``, the MoE expert banks on their expert
-axis, the rest replicated.  The loss runs under ``tp_context`` and
-``use_mesh`` (Megatron tensor parallelism, ``layers.py::_moe_ep``),
-``finalize_grads`` completes the replicated leaves' gradients over the
-model group, and the batch group's exchange (sync, the pod compressor,
-accumulation, ZeRO-1/2/3, the bf16 policy) runs over the shard tree in
-TWO parts, the replicated leaves and the split ones, each with its own
-buckets, optimizer state and residual: no bucket or compression block
-mixes them, so the replicated leaves stay bitwise equal on every model
-rank (a 1-bit block straddling both would decode differently on each).
+the leaves of attention (self and cross), the dense MLP, Mamba and
+mLSTM split by ``tensor_parallel.SPLIT_AXES``, the MoE expert banks on
+their expert axis, the rest (the sLSTM among them) replicated.  The loss
+runs under ``tp_context`` and ``use_mesh`` (Megatron tensor parallelism,
+``layers.py::_moe_ep``), ``finalize_grads`` completes the replicated
+leaves' gradients over the model group, and the batch group's exchange
+(sync, the pod compressor, accumulation, ZeRO-1/2/3, the bf16 policy, or
+any strategy of the spectrum) runs over the shard tree in TWO parts, the
+replicated leaves and the split ones, each with its own buckets,
+optimizer state and residual: no bucket or compression block mixes
+them, so the replicated leaves stay bitwise equal on every model rank (a
+1-bit block straddling both would decode differently on each).  Under
+``sharding_mode="cp"`` (``models/context_parallel.py``) the "model" axis
+carries the sequence instead: every leaf is replicated, the state is the
+one part ``{"rep": ...}``, the loss runs under ``cp_context`` and every
+gradient is all-summed over the model group.
 """
 
 from __future__ import annotations
@@ -113,6 +118,8 @@ from repro_torch.core.strategies import Strategy
 from repro_torch.launch.mesh import BATCH_AXES, use_mesh
 from repro_torch.models import tensor_parallel as TP
 from repro_torch.models import transformer as TM
+from repro_torch.models.context_parallel import (check_cp, cp_context,
+                                                 cp_lm_loss, current_cp)
 from repro_torch.optim.optimizers import Optimizer, state_template
 from repro_torch.train.losses import lm_loss
 
@@ -124,7 +131,9 @@ def make_loss_fn(cfg, remat: bool = True):
     turns into the memory first, on the reference's ``_sdpa`` path
     (``kernel=False``) so that autograd differentiates it.  ``remat``
     recomputes each super-block's activations in the backward pass (the
-    reference's default; the trainer CLI passes ``remat=False``)."""
+    reference's default; the trainer CLI passes ``remat=False``).  Under
+    a ``cp_context`` the forward runs this rank's sequence chunk and the
+    loss is ``cp_lm_loss`` (the unsharded loss on every model rank)."""
     def loss_fn(params, batch):
         memory = None
         if cfg.is_encoder_decoder:
@@ -133,6 +142,9 @@ def make_loss_fn(cfg, remat: bool = True):
         logits, aux = TM.forward(params, cfg, tokens=batch.get("tokens"),
                                  embeds=batch.get("embeds"), memory=memory,
                                  remat=remat)
+        cp = current_cp()
+        if cp is not None:
+            return cp_lm_loss(logits, batch["labels"], cp, aux)
         return lm_loss(logits, batch["labels"], aux)
 
     return loss_fn
@@ -449,22 +461,17 @@ def model_comm(mesh) -> Optional[ShardComm]:
 
 def check_model_axis(cfg) -> None:
     """Raise ``NotImplementedError`` for what the port's "model" axis does
-    not cover: recurrent mixers (Mamba, mLSTM, sLSTM), encoder-decoder
-    stacks (the encoder, cross attention) and ``sharding_mode="cp"``.
-    The reference runs those under pjit; here they wait in ROADMAP.md
-    Queue 1."""
-    specs, _ = cfg.superblock()
-    what = sorted({s.mixer for s in specs} - {"attn"})
-    if cfg.is_encoder_decoder:
-        what.append("an encoder and cross attention")
+    not cover.  ``sharding_mode="tp"`` covers every stack the training
+    forward takes: attention (self and cross, so the encoder too), the
+    dense MLP, the MoE experts (expert parallelism), Mamba and mLSTM
+    (split) and sLSTM (replicated).  ``sharding_mode="cp"`` covers
+    attention and dense-MLP stacks; with MoE FFNs, recurrent mixers or
+    an encoder it raises (ROADMAP.md Queue 1 item 11d)."""
     if cfg.sharding_mode == "cp":
-        what.append("sharding_mode='cp'")
-    if what:
-        raise NotImplementedError(
-            f"make_sharded_train_step: a 'model' mesh axis does not cover "
-            f"{', '.join(what)} ({cfg.name}) yet: the tensor-parallel split "
-            "covers attention, the dense MLP and the MoE experts; see "
-            "ROADMAP.md Queue 1")
+        check_cp(cfg)
+    elif cfg.sharding_mode != "tp":
+        raise ValueError(f"sharding_mode must be 'tp' or 'cp', got "
+                         f"{cfg.sharding_mode!r}")
 
 
 def _sync_strategy(zero_stage: int, pod_compressor, bucket_bytes: int,
@@ -530,8 +537,15 @@ def make_sharded_train_step(cfg, optimizer: Optimizer, mesh,
     flag is MIN-reduced over the model group too, so every rank of the
     mesh takes the same decision; the loss is the same on every model
     rank.  ``param_template`` (ZeRO-3) is the FULL model's tensors here
-    too.  A strategy, recurrent mixers, an encoder or ``cp`` raise
-    ``NotImplementedError`` (``check_model_axis``).
+    too.  A ``strategy`` (any of the spectrum, with its ``comm`` over the
+    batch group: ``mesh.comm("data")``, or a ``HierComm`` of the "data"
+    and "pod" groups for ``hierarchical``) runs per part as the sync
+    paths do.  Under ``sharding_mode="cp"`` (the module docstring) the
+    state is one part, ``{"rep": ...}``, the loss runs under
+    ``cp_context`` with the same cotangent 1/T and every gradient is
+    all-summed over the model group.  ``cp`` with MoE FFNs, recurrent
+    mixers or an encoder raises ``NotImplementedError``
+    (``check_model_axis``).
 
     A policy that scales decides the skip before anything is written, as
     the replica step: the finite flag of this rank's gradients (ZeRO-2/3
@@ -565,15 +579,10 @@ def make_sharded_train_step(cfg, optimizer: Optimizer, mesh,
     loss_fn = loss_fn or make_loss_fn(cfg, remat=remat)
     if mesh.sizes.get("model", 1) > 1:
         check_model_axis(cfg)
-        if strategy is not None:
-            raise NotImplementedError(
-                "make_sharded_train_step: a strategy on a 'model' mesh axis "
-                "is not ported (sync, the pod compressor and ZeRO are); see "
-                "ROADMAP.md Queue 1")
     mc = model_comm(mesh)
     tp_n = 1 if mc is None else mc.size
-    # the state's parts: the whole tree, or the replicated and split leaves
-    names = (None,) if mc is None else ("rep", "split")
+    cp = mc is not None and cfg.sharding_mode == "cp"
+    names = _part_names(mc is not None, cfg)
     dp = data_comm(mesh)
     if strategy is None:
         strategy = _sync_strategy(zero_stage, pod_compressor, bucket_bytes,
@@ -588,13 +597,18 @@ def make_sharded_train_step(cfg, optimizer: Optimizer, mesh,
     if zero_stage >= 3:
         z3_plays = [PartitionedLayout.build(
             BucketLayout.build(tree, bucket_bytes, lead_axes=0), dp.size)
-            for tree in _parts(model_shard(param_template, mesh), names)]
+            for tree in _parts(model_shard(param_template, mesh, cfg),
+                               names)]
     host = {"tensor": None, "t": 0}
 
     def gather(src):
         """The full params of the forward, part by part: ZeRO-3
         all-gathers its shard buckets (a temporary of the step, never
         state)."""
+        if names != (None,) and sorted(src) != sorted(names):
+            raise ValueError(f"a state of parts {sorted(src)} for a step "
+                             f"of parts {list(names)}: build it with "
+                             "init_sharded_state(..., cfg=) of this cfg")
         if z3_plays is not None:
             return _join([fab.unpartition(x, play) for x, play in
                           zip(_parts(src, names), z3_plays)], names)
@@ -613,6 +627,12 @@ def make_sharded_train_step(cfg, optimizer: Optimizer, mesh,
             return loss * scale if scaling else loss
         if mc is None:
             return _local_grads(lfn, full, batch)
+        if cp:
+            with use_mesh(mesh), cp_context(tp_n, mc, bucket_bytes) as ctx:
+                loss, grads = _local_grads(lfn, full["rep"], batch,
+                                           weight=1.0 / tp_n)
+                grads = ctx.finalize_grads(grads)
+            return loss, {"rep": grads}
         experts = _has_moe(full["split"])
         with use_mesh(mesh), TP.tp_context(tp_n, mc, bucket_bytes,
                                            experts=experts) as tp:
@@ -745,8 +765,10 @@ def make_sharded_train_step(cfg, optimizer: Optimizer, mesh,
         merged); ZeRO-3 all-gathers it over the batch group, a collective
         every rank of the group calls."""
         full = gather(state["params"])
-        return full if mc is None else TP._merge_trees(full["rep"],
-                                                       full["split"])
+        if mc is None:
+            return full
+        return full["rep"] if cp else TP._merge_trees(full["rep"],
+                                                      full["split"])
 
     def local_grads(state, batch):
         """(loss, this rank's gradients) of one batch (``accum_steps`` 1)
@@ -770,48 +792,71 @@ def make_sharded_train_step(cfg, optimizer: Optimizer, mesh,
 def init_sharded_state(params, optimizer: Optimizer, mesh,
                        zero_stage: int = 0, pod_compressor=None,
                        policy: Optional[PrecisionPolicy] = None,
-                       bucket_bytes: int = DEFAULT_BUCKET_BYTES):
-    """This rank's train state for ``make_sharded_train_step``'s sync,
-    pod-compressor and ZeRO paths from the full (replicated) ``params``:
-    the replica step's ``init_train_state`` over the rank's ``ShardComm``
-    with the matching strategy, so a ZeRO state holds the rank's chunk of
-    every global shard bucket (the optimizer state, the master, ZeRO-3's
-    params), a compressed one the residual.  On a "model" axis it is
-    built over this rank's model shard (``model_shard``) in two parts,
-    each entry ``{"rep": ..., "split": ...}`` (the step counter and the
-    loss scale once).  The strategy path takes ``init_train_state`` with
-    its strategy and comm."""
+                       bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                       strategy: Optional[Strategy] = None, comm=None,
+                       cfg=None):
+    """This rank's train state for ``make_sharded_train_step`` from the
+    full (replicated) ``params``: the replica step's ``init_train_state``
+    over the rank's ``ShardComm`` with the matching strategy (``sync``,
+    the pod compressor, ``sync_zero{1,2,3}``), so a ZeRO state holds the
+    rank's chunk of every global shard bucket (the optimizer state, the
+    master, ZeRO-3's params), a compressed one the residual; or with the
+    given ``strategy`` over its ``comm`` (the batch group's).  On a
+    "model" axis it is built over this rank's model shard of ``cfg``'s
+    placement (``model_shard``), part by part: each entry ``{"rep": ...,
+    "split": ...}``, or ``{"rep": ...}`` under ``sharding_mode="cp"``
+    (the step counter and the loss scale once)."""
     pol = None if policy is None else PR.get_policy(policy)
-    strategy = _sync_strategy(zero_stage, pod_compressor, bucket_bytes, pol)
-    dp = data_comm(mesh)
+    if strategy is None:
+        strategy = _sync_strategy(zero_stage, pod_compressor, bucket_bytes,
+                                  pol)
+        comm = data_comm(mesh)
+    elif comm is None:
+        raise ValueError("a strategy needs its comm (the batch group's)")
     if mesh.sizes.get("model", 1) < 2:
-        return init_train_state(params, optimizer, strategy, dp,
+        return init_train_state(params, optimizer, strategy, comm,
                                 policy=policy)
-    shard = model_shard(params, mesh)
-    states = [init_train_state(shard[n], optimizer, strategy, dp,
-                               policy=policy) for n in ("rep", "split")]
+    if cfg is None:
+        raise ValueError("a state on a \"model\" axis needs its cfg (the "
+                         "placement of its sharding_mode)")
+    shard = model_shard(params, mesh, cfg)
+    names = tuple(shard)
+    states = [init_train_state(shard[n], optimizer, strategy, comm,
+                               policy=policy) for n in names]
     out = {k: v for k, v in states[0].items()
            if k in ("step", "loss_scale")}
     for k in states[0]:
         if k not in out:
-            out[k] = {"rep": states[0][k], "split": states[1][k]}
+            out[k] = {n: st[k] for n, st in zip(names, states)}
     return out
 
 
-def model_shard(params, mesh):
-    """This rank's model shard of the full ``params`` as
-    ``{"rep": replicated leaves, "split": split leaves}`` (``params``
-    itself without a "model" axis): ``tensor_parallel.tp_rank_params`` at
-    the rank's "model" coordinate, the MoE expert banks split on their
-    expert axis where it divides (``splits_experts``)."""
+def model_shard(params, mesh, cfg):
+    """This rank's model shard of the full ``params`` under ``cfg``'s
+    ``sharding_mode``, one entry a part (``_part_names``): ``{"rep":
+    replicated leaves, "split": split leaves}`` (``params`` itself without
+    a "model" axis), ``tensor_parallel.tp_rank_params`` at the rank's
+    "model" coordinate, the MoE expert banks split on their expert axis
+    where it divides (``splits_experts``); under ``sharding_mode="cp"``
+    every leaf is replicated: ``{"rep": params}``."""
     n = mesh.sizes.get("model", 1)
     if n < 2:
         return params
+    if _part_names(True, cfg) == ("rep",):
+        return {"rep": params}
     experts = TP.splits_experts(params, n)
     shard = TP.tp_rank_params(params, n, mesh.coords["model"],
                               experts=experts)
     rep, split = TP._partition_replicated(shard, experts=experts)
     return {"rep": rep, "split": split}
+
+
+def _part_names(model_axis: bool, cfg):
+    """The state's parts: the whole tree (no "model" axis), the replicated
+    and split leaves (``tp``), or the replicated ones alone (``cp``)."""
+    if not model_axis:
+        return (None,)
+    return ("rep",) if cfg.sharding_mode == "cp" else ("rep", "split")
 
 
 def _parts(tree, names):

@@ -208,7 +208,8 @@ def tp_step_cases(mesh, inputs):
             opt = R.optimizer(opt_name)
             state = TL.init_sharded_state(
                 full, opt, mesh, zero_stage=case["zero"],
-                pod_compressor=comp, policy=pol, bucket_bytes=R.BB)
+                pod_compressor=comp, policy=pol, bucket_bytes=R.BB,
+                cfg=cfg)
             template = (T.tree_map(lambda x: x.to("meta"), full)
                         if case["zero"] >= 3 else None)
             step = TL.make_sharded_train_step(

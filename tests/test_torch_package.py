@@ -45,7 +45,8 @@ def test_import_pulls_in_no_jax():
     assert len(MODULES) >= 12
 
 
-RANK_PROGRAMS = ["tests/_torch_ranks.py", "tests/_torch_model_ranks.py"]
+RANK_PROGRAMS = ["tests/_torch_ranks.py", "tests/_torch_model_ranks.py",
+                 "tests/_torch_axis_ranks.py"]
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -68,7 +69,7 @@ def test_rank_programs_pull_in_no_jax():
     """The rank processes' programs (and so every module they reach) load
     no JAX and nothing of the JAX package."""
     code = ("import sys\n"
-            "import _torch_ranks, _torch_model_ranks\n"
+            "import _torch_ranks, _torch_model_ranks, _torch_axis_ranks\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"

@@ -733,26 +733,40 @@ def test_bridge_cuts_and_joins_shard_buckets(runs):
 
 
 def test_model_axis_and_bad_arguments_raise():
-    """A "model" axis meeting what its split does not cover raises before
-    any collective: a Mamba layer (jamba), an encoder-decoder stack, the
-    ``cp`` mode; so do a strategy on it and bad arguments."""
-    class _Mesh:
+    """A "model" axis builds a step for what its split covers: a Mamba
+    layer (jamba), an encoder-decoder stack, ``cp`` on attention and
+    dense-MLP stacks, and a strategy; ``cp`` with a Mamba layer, an MoE
+    FFN or an encoder raises before any collective, naming ROADMAP; so do
+    bad arguments."""
+    import types
+
+    class _Mesh:  # building a step makes comms and reads sizes only
         sizes = {"data": 2, "model": 2}
         axes = ("data", "model")
+        coords = {"data": 0, "model": 0}
+
+        def comm(self, axes):
+            return types.SimpleNamespace(size=2)
+
+        shared_comm = comm
 
     jamba = dataclasses.replace(
         torch_config("jamba-1.5-large-398b").reduced(), num_experts=0)
-    for cfg, what in (
-            (jamba, "mamba"),
-            (torch_config("seamless-m4t-medium").reduced(), "encoder"),
-            (dataclasses.replace(R.torch_cfg(), sharding_mode="cp"), "cp")):
-        with pytest.raises(NotImplementedError, match="model") as err:
-            TL.make_sharded_train_step(cfg, R.optimizer(), _Mesh())
+    seamless = torch_config("seamless-m4t-medium").reduced()
+    for cfg in (jamba, seamless,
+                dataclasses.replace(R.torch_cfg(), sharding_mode="cp")):
+        assert callable(TL.make_sharded_train_step(cfg, R.optimizer(),
+                                                   _Mesh()))
+    assert callable(TL.make_sharded_train_step(
+        R.torch_cfg(), R.optimizer(), _Mesh(),
+        strategy=R.strategy("gossip", {}, None), comm=_Mesh().comm("data")))
+    moe = torch_config("granite-moe-1b-a400m").reduced()
+    for cfg, what in ((jamba, "mamba"), (moe, "MoE"), (seamless, "encoder")):
+        with pytest.raises(NotImplementedError, match="cp") as err:
+            TL.make_sharded_train_step(
+                dataclasses.replace(cfg, sharding_mode="cp"), R.optimizer(),
+                _Mesh())
         assert what in str(err.value) and "ROADMAP" in str(err.value)
-    with pytest.raises(NotImplementedError, match="strategy"):
-        TL.make_sharded_train_step(R.torch_cfg(), R.optimizer(), _Mesh(),
-                                   strategy=R.strategy("gossip", {}, None),
-                                   comm=object())
     cfg = R.torch_cfg()
     with pytest.raises(ValueError, match="zero_stage"):
         TL.make_sharded_train_step(cfg, R.optimizer(), _Mesh(),
