@@ -179,11 +179,20 @@ within a share of its largest value and bitwise across two calls
 (``time_mamba_bwd``: the SASS of its two loops, instructions and
 MUFU.EX2 a state-step; ``--mamba-bwd-before PATH`` builds an earlier
 ``mamba_scan_bwd.cu`` and times both in turns, ``ms_before``).  The CPU
-side of ``train_card_vs_cpu`` and ``strategies_card_vs_cpu`` runs from
-the build on in a spawned worker at
-the lowest priority, beside the card's phases; each line of a phase it
-ran beside carries ``cpu_worker``, since its host-timed numbers shared
-the host's cores.  Each line of output is a JSON object, except the raw
+side of every card-vs-CPU phase (``CPU_HALVES``: each phase's ``*_side``
+function on "cpu", and the train cases of ``train_card_vs_cpu`` and
+``strategies_card_vs_cpu``, which run after the sharded phases) runs
+from the build on in a spawned worker at the lowest priority, beside
+the card's phases, which read each side as they need it; each line of a
+phase it ran beside carries ``cpu_worker``, since its host-timed numbers
+shared the host's cores.
+
+The lint tier (``repro_torch.analysis``) runs its smoke slice on the
+card after the sharded phases (``lint``): 80 cells, the exchange and
+tensor-parallel rigs in one pool of 4 gloo ranks on the card, every
+``sync_dgc`` cell's fused top-k encode launched once a bucket, no kernel
+library built after a loop rig's step 0, and two deliberately broken
+rigs that must fail their rules.  Each line of output is a JSON object, except the raw
 ``nvidia-smi --query-gpu=name,power.limit`` line just before the last;
 every JSON line but the last carries ``phase_s``, the wall seconds since
 the line before it; the last line is ``{"ok": true, "device": {...}}``.  Any failed phase
@@ -554,8 +563,13 @@ def profile_decode(eng, ctx=1024, steps=5):
     }}
 
 
-def card_vs_cpu(T, Engine, Request, get_config):
-    """Phase 5: the same weights and requests on the card and on the CPU."""
+def paged_side(get_config, dev):
+    """``card_vs_cpu``'s runs on ``dev``: qwen2-1.5b cut to 2 layers, the
+    first decode step's logits after one prefill chunk (on the host) and
+    ``PagedDecodeEngine``'s greedy tokens."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import PagedDecodeEngine, Request
+
     cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=2)
     gen = torch.Generator(device="cpu").manual_seed(5)
     params = T.init_model(gen, cfg, device="cpu")
@@ -571,44 +585,47 @@ def card_vs_cpu(T, Engine, Request, get_config):
         poss[i, :n] = np.arange(n)
     bt = (1 + np.arange(b * mb, dtype=np.int32)).reshape(b, mb)
     nxt = rng.integers(0, cfg.vocab_size, size=b).astype(np.int32)
-    logits = {}
-    for dev in ("cuda", "cpu"):
-        def p(t, dev=dev):
-            return t.to(dev)
-        prm = _tree(params, p)
-        cache = T.init_paged_cache(cfg, 1 + b * mb, page, device=dev)
-        with torch.no_grad():
-            T.prefill_chunk_paged(
-                prm, cfg, p(torch.from_numpy(toks)),
-                p(torch.from_numpy(poss)), cache, p(torch.from_numpy(bt)),
-                p(torch.from_numpy((lens - 1).astype(np.int32))))
-            logits[dev] = T.decode_step_paged(
-                prm, cfg, p(torch.from_numpy(nxt)),
-                p(torch.from_numpy(lens.astype(np.int32))), cache,
-                p(torch.from_numpy(bt))).cpu()
-        del prm, cache
-    logit_err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+
+    def p(t):
+        return t.to(dev)
+
+    prm = _tree(params, p)
+    cache = T.init_paged_cache(cfg, 1 + b * mb, page, device=dev)
+    with torch.no_grad():
+        T.prefill_chunk_paged(
+            prm, cfg, p(torch.from_numpy(toks)), p(torch.from_numpy(poss)),
+            cache, p(torch.from_numpy(bt)),
+            p(torch.from_numpy((lens - 1).astype(np.int32))))
+        logits = T.decode_step_paged(
+            prm, cfg, p(torch.from_numpy(nxt)),
+            p(torch.from_numpy(lens.astype(np.int32))), cache,
+            p(torch.from_numpy(bt))).cpu()
+    del prm, cache
+    eng = PagedDecodeEngine(params, cfg, batch_slots=4, max_seq=256,
+                            page_size=16, chunk_size=64, device=dev)
+    for r in requests(Request, np.random.default_rng(6), 4, 16, 96, 8, 16,
+                      cfg.vocab_size):
+        eng.submit(r)
+    gens = {r.rid: r.generated for r in eng.run()}
+    return {"arch": cfg.name, "logits": logits, "gens": gens}
+
+
+def card_vs_cpu(get_config, cpu):
+    """Phase 5: the same weights and requests on the card and on the CPU
+    (``cpu``: ``paged_side``'s CPU run, from the ``cpu_half`` worker)."""
+    card = paged_side(get_config, "cuda")
+    logit_err = (card["logits"] - cpu["logits"]).abs().max().item()
     if not logit_err <= 1e-3:
         raise AssertionError(f"card vs CPU first-step logits differ by "
                              f"{logit_err} > 1e-3")
-
-    gens = {}
-    for dev in ("cuda", "cpu"):
-        eng = Engine(params, cfg, batch_slots=4, max_seq=256, page_size=16,
-                     chunk_size=64, device=dev)
-        for r in requests(Request, np.random.default_rng(6), 4, 16, 96, 8,
-                          16, cfg.vocab_size):
-            eng.submit(r)
-        gens[dev] = {r.rid: r.generated for r in eng.run()}
-        del eng
-    if gens["cuda"] != gens["cpu"]:
+    if card["gens"] != cpu["gens"]:
         raise AssertionError(f"card vs CPU greedy tokens differ: "
-                             f"{gens['cuda']} vs {gens['cpu']}")
+                             f"{card['gens']} vs {cpu['gens']}")
     torch.cuda.empty_cache()
-    return {"phase": "card_vs_cpu", "arch": cfg.name, "layers": 2,
+    return {"phase": "card_vs_cpu", "arch": card["arch"], "layers": 2,
             "dtype": "float32", "first_step_logits_max_abs_err": logit_err,
             "tol": 1e-3, "tokens_identical": True,
-            "tokens": sum(len(g) for g in gens["cuda"].values())}
+            "tokens": sum(len(g) for g in card["gens"].values())}
 
 
 def _tree(tree, fn):
@@ -1139,50 +1156,71 @@ def dense_serve(T, E, cfg, smi, phase="dense_serve", params=None,
     return out
 
 
-def dense_card_vs_cpu(T, E, get_config):
-    """qwen2-1.5b and gemma3-1b at full width cut to 2 layers, f32: the
-    same weights and prompt on the card and on the CPU (prefill logits,
-    greedy tokens), and on the card greedy_generate's flash prefill against
-    DecodeEngine's token-by-token ingestion of the same prompt."""
-    out = {"phase": "dense_card_vs_cpu", "layers": 2, "dtype": "float32",
-           "tol_logits": 1e-3, "archs": {}}
-    for arch, lp, seed in (("qwen2-1.5b", 200, 21), ("gemma3-1b", 600, 22)):
+DENSE_CASES = (("qwen2-1.5b", 200, 21), ("gemma3-1b", 600, 22))
+
+
+def dense_side(get_config, dev):
+    """``dense_card_vs_cpu``'s runs on ``dev``, by arch: the prefill's last
+    logits (on the host) and ``greedy_generate``'s tokens; on the card
+    also ``DecodeEngine``'s tokens for the same prompt."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as E
+
+    out = {}
+    for arch, lp, seed in DENSE_CASES:
         cfg = dataclasses.replace(get_config(arch), num_layers=2)
         params = T.init_model(torch.Generator().manual_seed(seed), cfg,
                               device="cpu")
         prompt = np.random.default_rng(seed).integers(
             0, cfg.vocab_size, lp).astype(np.int32)
-        logits, gens = {}, {}
-        for dev in ("cuda", "cpu"):
-            prm = _tree(params, lambda t, d=dev: t.to(d))
-            with torch.no_grad():
-                lg, _ = T.prefill(prm, cfg, torch.from_numpy(prompt)[None]
-                                  .to(dev), last_only=True)
-            logits[dev] = lg.cpu()
-            gens[dev] = E.greedy_generate(prm, cfg, prompt, 8, device=dev)
-            del prm, lg
-        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        prm = _tree(params, lambda t: t.to(dev))
+        with torch.no_grad():
+            lg, _ = T.prefill(prm, cfg, torch.from_numpy(prompt)[None]
+                              .to(dev), last_only=True)
+        res = {"logits": lg.cpu(),
+               "gens": E.greedy_generate(prm, cfg, prompt, 8, device=dev)}
+        del prm, lg
+        if dev == "cuda":
+            eng = E.DecodeEngine(params, cfg, batch_slots=2,
+                                 max_seq=lp + 16, device="cuda")
+            eng.submit(E.Request(rid=0, prompt=prompt, max_new_tokens=8))
+            res["engine_gens"] = eng.run()[0].generated
+            del eng
+        out[arch] = res
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def dense_card_vs_cpu(get_config, cpu):
+    """qwen2-1.5b and gemma3-1b at full width cut to 2 layers, f32: the
+    same weights and prompt on the card and on the CPU (prefill logits,
+    greedy tokens; ``cpu``: ``dense_side``'s CPU run, from the
+    ``cpu_half`` worker), and on the card greedy_generate's flash prefill
+    against DecodeEngine's token-by-token ingestion of the same prompt."""
+    out = {"phase": "dense_card_vs_cpu", "layers": 2, "dtype": "float32",
+           "tol_logits": 1e-3, "archs": {}}
+    card = dense_side(get_config, "cuda")
+    for arch, lp, _ in DENSE_CASES:
+        a, b = card[arch], cpu[arch]
+        err = (a["logits"] - b["logits"]).abs().max().item()
         if not err <= 1e-3:
             raise AssertionError(f"{arch}: card vs CPU prefill logits differ "
                                  f"by {err} > 1e-3")
-        if gens["cuda"] != gens["cpu"]:
+        if a["gens"] != b["gens"]:
             raise AssertionError(f"{arch}: card vs CPU greedy tokens "
-                                 f"{gens['cuda']} vs {gens['cpu']}")
-        eng = E.DecodeEngine(params, cfg, batch_slots=2, max_seq=lp + 16,
-                             device="cuda")
-        eng.submit(E.Request(rid=0, prompt=prompt, max_new_tokens=8))
-        eng_gen = eng.run()[0].generated
-        if eng_gen != gens["cuda"]:
-            raise AssertionError(f"{arch}: greedy_generate {gens['cuda']} vs "
-                                 f"DecodeEngine {eng_gen} on the card")
+                                 f"{a['gens']} vs {b['gens']}")
+        if a["engine_gens"] != a["gens"]:
+            raise AssertionError(f"{arch}: greedy_generate {a['gens']} vs "
+                                 f"DecodeEngine {a['engine_gens']} on the "
+                                 "card")
+        cfg = dataclasses.replace(get_config(arch), num_layers=2)
         windows = sorted({int(w) for w in cfg.layer_windows()[0].ravel()})
         out["archs"][arch] = {
             "prompt_tokens": lp, "layer_windows": windows,
             "prefill_logits_max_abs_err": err,
             "tokens_card_eq_cpu": True, "tokens_generate_eq_engine": True,
-            "tokens": gens["cuda"]}
-        del eng, params
-        torch.cuda.empty_cache()
+            "tokens": a["gens"]}
     return out
 
 
@@ -1430,71 +1468,98 @@ def input_sensitivity(T, params, cfg, prompt):
     return (base - moved).abs().max().item()
 
 
-def recurrent_card_vs_cpu(T, E, get_config):
-    """f32, TF32 off: jamba at its reduced widths without experts, cut to
-    one super-block (8 layers: one attention, seven Mamba), with a prompt
-    longer than ssm_chunk, and xlstm-125m at full width cut to 4 of its
-    12 layers (whole until PR 28; its sLSTM weights made contractive,
-    ``contractive_slstm``).  The same
-    weights and prompt on the card and on the CPU (prefill logits, greedy
-    tokens); on the card, ``greedy_generate``'s tokens against
-    ``DecodeEngine``'s when the prompt goes into a slot another request
-    has used (the recurrent state must be reset)."""
+def recurrent_cases(get_config):
     jamba = dataclasses.replace(
         get_config("jamba-1.5-large-398b").reduced(), num_experts=0,
         num_layers=8)
-    out = {"phase": "recurrent_card_vs_cpu", "dtype": "float32",
-           "tol_logits": 1e-3, "archs": {}}
     xlstm = dataclasses.replace(get_config("xlstm-125m"), num_layers=4)
-    for cfg, lp, seed in ((jamba, 300, 31), (xlstm, 200, 32)):
+    return ((jamba, 300, 31), (xlstm, 200, 32))
+
+
+def recurrent_side(get_config, dev):
+    """``recurrent_card_vs_cpu``'s runs on ``dev``, by config name: the
+    prefill's last logits (on the host) and ``greedy_generate``'s tokens;
+    on the card also the logits' sensitivity to the embedding (before and
+    after ``contractive_slstm``) and ``DecodeEngine``'s tokens with the
+    prompt in a slot another request has used."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as E
+
+    out = {}
+    for cfg, lp, seed in recurrent_cases(get_config):
         params = T.init_model(torch.Generator().manual_seed(seed), cfg,
                               device="cpu")
         rng = np.random.default_rng(seed)
         prompt = rng.integers(0, cfg.vocab_size, lp).astype(np.int32)
-        sens = {"reference_init": input_sensitivity(
-            T, _tree(params, lambda t: t.to("cuda")), cfg, prompt)}
+        res = {}
+        if dev == "cuda":
+            res["sens"] = {"reference_init": input_sensitivity(
+                T, _tree(params, lambda t: t.to("cuda")), cfg, prompt)}
         params = contractive_slstm(params, cfg)
-        sens["compared"] = input_sensitivity(
-            T, _tree(params, lambda t: t.to("cuda")), cfg, prompt)
-        logits, gens = {}, {}
-        for dev in ("cuda", "cpu"):
-            prm = _tree(params, lambda t, d=dev: t.to(d))
-            with torch.no_grad():
-                lg, _ = T.prefill(prm, cfg, torch.from_numpy(prompt)[None]
-                                  .to(dev), last_only=True)
-            logits[dev] = lg.cpu()
-            gens[dev] = E.greedy_generate(prm, cfg, prompt, 8, device=dev)
-            del prm, lg
-        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        if dev == "cuda":
+            res["sens"]["compared"] = input_sensitivity(
+                T, _tree(params, lambda t: t.to("cuda")), cfg, prompt)
+        prm = _tree(params, lambda t: t.to(dev))
+        with torch.no_grad():
+            lg, _ = T.prefill(prm, cfg, torch.from_numpy(prompt)[None]
+                              .to(dev), last_only=True)
+        res["logits"] = lg.cpu()
+        res["gens"] = E.greedy_generate(prm, cfg, prompt, 8, device=dev)
+        del prm, lg
+        if dev == "cuda":
+            # one slot: the other request runs first and leaves its state
+            # there
+            eng = E.DecodeEngine(params, cfg, batch_slots=1,
+                                 max_seq=lp + 16, device="cuda")
+            other = rng.integers(0, cfg.vocab_size, lp // 2).astype(np.int32)
+            eng.submit(E.Request(rid=0, prompt=other, max_new_tokens=8))
+            eng.submit(E.Request(rid=1, prompt=prompt, max_new_tokens=8))
+            res["engine_gens"] = {r.rid: r.generated for r in eng.run()}[1]
+            del eng
+        out[cfg.name] = res
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_card_vs_cpu(get_config, cpu):
+    """f32, TF32 off: jamba at its reduced widths without experts, cut to
+    one super-block (8 layers: one attention, seven Mamba), with a prompt
+    longer than ssm_chunk, and xlstm-125m at full width cut to 4 of its
+    12 layers (its sLSTM weights made contractive,
+    ``contractive_slstm``).  The same weights and prompt on the card and
+    on the CPU (prefill logits, greedy tokens; ``cpu``:
+    ``recurrent_side``'s CPU run, from the ``cpu_half`` worker); on the
+    card, ``greedy_generate``'s tokens against ``DecodeEngine``'s when the
+    prompt goes into a slot another request has used (the recurrent state
+    must be reset)."""
+    out = {"phase": "recurrent_card_vs_cpu", "dtype": "float32",
+           "tol_logits": 1e-3, "archs": {}}
+    card = recurrent_side(get_config, "cuda")
+    for cfg, lp, _ in recurrent_cases(get_config):
+        a, b = card[cfg.name], cpu[cfg.name]
+        err = (a["logits"] - b["logits"]).abs().max().item()
         if not err <= 1e-3:
             raise AssertionError(f"{cfg.name}: card vs CPU prefill logits "
                                  f"differ by {err} > 1e-3")
-        if gens["cuda"] != gens["cpu"]:
+        if a["gens"] != b["gens"]:
             raise AssertionError(f"{cfg.name}: card vs CPU greedy tokens "
-                                 f"{gens['cuda']} vs {gens['cpu']}")
-        # one slot: the other request runs first and leaves its state there
-        eng = E.DecodeEngine(params, cfg, batch_slots=1, max_seq=lp + 16,
-                             device="cuda")
-        other = rng.integers(0, cfg.vocab_size, lp // 2).astype(np.int32)
-        eng.submit(E.Request(rid=0, prompt=other, max_new_tokens=8))
-        eng.submit(E.Request(rid=1, prompt=prompt, max_new_tokens=8))
-        eng_gen = {r.rid: r.generated for r in eng.run()}[1]
-        if eng_gen != gens["cuda"]:
+                                 f"{a['gens']} vs {b['gens']}")
+        if a["engine_gens"] != a["gens"]:
             raise AssertionError(f"{cfg.name}: greedy_generate "
-                                 f"{gens['cuda']} vs DecodeEngine {eng_gen} "
-                                 "in a reused slot on the card")
+                                 f"{a['gens']} vs DecodeEngine "
+                                 f"{a['engine_gens']} in a reused slot on "
+                                 "the card")
         specs, repeat = cfg.superblock()
         out["archs"][cfg.name] = {
             "layers": cfg.num_layers, "d_model": cfg.d_model,
             "mixers": [s.mixer for s in specs] * repeat,
             "prompt_tokens": lp, "ssm_chunk": cfg.ssm_chunk,
             "prefill_logits_max_abs_err": err,
-            "logit_change_from_1e-7_embed_change": sens,
+            "logit_change_from_1e-7_embed_change": a["sens"],
             "tokens_card_eq_cpu": True,
             "tokens_generate_eq_engine_reused_slot": True,
-            "tokens": gens["cuda"]}
-        del eng, params
-        torch.cuda.empty_cache()
+            "tokens": a["gens"]}
     return out
 
 
@@ -3658,10 +3723,9 @@ def elastic_vs_sync(get_config, smi, boundaries=3):
     return out
 
 
-def elastic_card_vs_cpu(get_config, smi):
-    """``edge_async_sim``'s schedule through ``ElasticFleet`` on a 2-layer
-    cut at ``qwen2-1.5b --reduced``'s widths, on the card and on the CPU,
-    from one init: the logs but the loss equal, the losses within 1e-4."""
+def elastic_side(get_config, dev):
+    """``elastic_card_vs_cpu``'s run on ``dev``: the fleet's log and its
+    seconds."""
     from repro_torch.core import tree as TT
     from repro_torch.core.chaos import FleetClock
     from repro_torch.core.staleness import StragglerPolicy
@@ -3676,29 +3740,34 @@ def elastic_card_vs_cpu(get_config, smi):
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
                       batch_per_worker=2, seed=7)
     base = T.init_model(torch.Generator().manual_seed(7), cfg, device="cpu")
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        fleet = ElasticFleet(TT.tree_map(lambda x, d=dev: x.to(d), base),
-                             elastic_loss(cfg), adam(3e-3, fused=True),
-                             workers=TRAIN_W,
-                             straggler_policy=StragglerPolicy(patience=2,
-                                                              recovery=2),
-                             resync_every=4, chaos=SCHEDULE,
-                             clock=FleetClock(TRAIN_W, jitter=0.0, seed=0),
-                             retries=2, backoff_s=1e-4)
-        t0 = time.perf_counter()
-        runs[dev] = (fleet.run(FLEET_BOUNDARIES, member_batches(dcfg, dev)),
-                     time.perf_counter() - t0)
-        del fleet
-    cuda, cpu = runs["cuda"][0], runs["cpu"][0]
-    rel = max(rel_diff(a["loss"], b["loss"]) for a, b in zip(cuda, cpu))
-    out = {"phase": "elastic_card_vs_cpu", "arch": cfg.name, "layers": 2,
-           "workers": TRAIN_W, "boundaries": FLEET_BOUNDARIES,
-           "tol_rel": 1e-4, "logs_equal": fleet_logs_equal(cuda, cpu),
+    fleet = ElasticFleet(TT.tree_map(lambda x: x.to(dev), base),
+                         elastic_loss(cfg), adam(3e-3, fused=True),
+                         workers=TRAIN_W,
+                         straggler_policy=StragglerPolicy(patience=2,
+                                                          recovery=2),
+                         resync_every=4, chaos=SCHEDULE,
+                         clock=FleetClock(TRAIN_W, jitter=0.0, seed=0),
+                         retries=2, backoff_s=1e-4)
+    t0 = time.perf_counter()
+    log = fleet.run(FLEET_BOUNDARIES, member_batches(dcfg, dev))
+    return {"arch": cfg.name, "log": log, "s": time.perf_counter() - t0}
+
+
+def elastic_card_vs_cpu(get_config, smi, cpu):
+    """``edge_async_sim``'s schedule through ``ElasticFleet`` on a 2-layer
+    cut at ``qwen2-1.5b --reduced``'s widths, on the card and on the CPU
+    (``cpu``: ``elastic_side``'s CPU run, from the ``cpu_half`` worker),
+    from one init: the logs but the loss equal, the losses within 1e-4."""
+    card = elastic_side(get_config, "cuda")
+    cuda, host = card["log"], cpu["log"]
+    rel = max(rel_diff(a["loss"], b["loss"]) for a, b in zip(cuda, host))
+    out = {"phase": "elastic_card_vs_cpu", "arch": card["arch"],
+           "layers": 2, "workers": TRAIN_W, "boundaries": FLEET_BOUNDARIES,
+           "tol_rel": 1e-4, "logs_equal": fleet_logs_equal(cuda, host),
            "loss_max_rel_diff": rel,
            "loss_cuda": [lg["loss"] for lg in cuda],
-           "loss_cpu": [lg["loss"] for lg in cpu],
-           "cuda_s": runs["cuda"][1], "cpu_s": runs["cpu"][1], "card": smi}
+           "loss_cpu": [lg["loss"] for lg in host],
+           "cuda_s": card["s"], "cpu_s": cpu["s"], "card": smi}
     torch.cuda.empty_cache()
     if not out["logs_equal"] or not rel <= 1e-4:
         raise AssertionError(f"elastic_card_vs_cpu: {out}")
@@ -3834,62 +3903,93 @@ CARD_VS_CPU_CASES = {
                             "boom_step": 1})],
     "strategies_card_vs_cpu": [("downpour", "onebit", {}),
                                ("ssp", "none", {})]}
-# threads of the worker that runs those cases' CPU side; the card's phases
-# keep the rest of the host's 8 cores
+# threads of the worker that runs the card-vs-CPU phases' CPU side; the
+# card's phases keep the rest of the host's 8 cores
 CPU_HALF_THREADS = 6
+# the worker's jobs in the order the card's phases read them: each
+# card-vs-CPU phase's CPU side (the ``*_side`` functions on "cpu", and the
+# train cases' CPU runs)
+CPU_HALVES = ("card_vs_cpu", "dense_card_vs_cpu", "recurrent_card_vs_cpu",
+              "moe_card_vs_cpu", "encdec_card_vs_cpu", "elastic_card_vs_cpu",
+              "recurrent_train_card_vs_cpu", "train_card_vs_cpu",
+              "strategies_card_vs_cpu")
+CPU_HALF_DIR = ROOT / "build" / "cpu_half"
 
 
-def cpu_half(results, threads):
+def cpu_side(phase, get_config, cpu_init):
+    """The CPU side of one card-vs-CPU phase."""
+    if phase in CARD_VS_CPU_CASES:
+        return [card_vs_cpu_steps(get_config, cpu_init, strategy, compressor,
+                                  devices=("cpu",), **kw)["cpu"]
+                for strategy, compressor, kw in CARD_VS_CPU_CASES[phase]]
+    side = {"card_vs_cpu": paged_side, "dense_card_vs_cpu": dense_side,
+            "recurrent_card_vs_cpu": recurrent_side,
+            "moe_card_vs_cpu": moe_side, "encdec_card_vs_cpu": encdec_side,
+            "elastic_card_vs_cpu": elastic_side,
+            "recurrent_train_card_vs_cpu": recurrent_train_side}[phase]
+    return side(get_config, "cpu")
+
+
+def cpu_half(results, threads, phases):
     """Run in a spawned worker while the card's phases run: the CPU side
-    of every CARD_VS_CPU_CASES case, put on ``results`` as ("ok", {phase:
-    [CPU run of each case]}) or ("error", traceback).  It runs at the
-    lowest priority, so the card's phases' host threads go first, and
-    reaches no CUDA call (it would make the worker a context on the
-    card)."""
+    of every phase of ``phases`` in order, each saved under CPU_HALF_DIR
+    and announced on ``results`` as ("ok", phase, path) as it is done, or
+    ("error", phase, traceback).  It runs at the lowest priority, so the
+    card's phases' host threads go first, and reaches no CUDA call (it
+    would make the worker a context on the card)."""
+    phase = None
     try:
         os.nice(19)
         sys.path.insert(0, str(ROOT / "src"))
         from repro_torch.configs import get_config
 
         torch.set_num_threads(threads)
+        CPU_HALF_DIR.mkdir(parents=True, exist_ok=True)
         cpu_init = {}
-        results.put(("ok", {
-            phase: [card_vs_cpu_steps(get_config, cpu_init, strategy,
-                                      compressor, devices=("cpu",),
-                                      **kw)["cpu"]
-                    for strategy, compressor, kw in cases]
-            for phase, cases in CARD_VS_CPU_CASES.items()}))
+        for phase in phases:
+            path = CPU_HALF_DIR / f"{phase}.pt"
+            torch.save(cpu_side(phase, get_config, cpu_init), path)
+            results.put(("ok", phase, str(path)))
     except Exception:  # the parent raises it
-        results.put(("error", traceback.format_exc()))
+        results.put(("error", phase, traceback.format_exc()))
 
 
-def start_cpu_half():
-    """The ``cpu_half`` worker (daemonic: it ends with this process) and
-    the queue it answers on; ``emit`` marks each line it runs beside."""
-    ctx = multiprocessing.get_context("spawn")
-    results = ctx.Queue()
-    proc = ctx.Process(target=cpu_half, args=(results, CPU_HALF_THREADS),
-                       daemon=True)
-    proc.start()
-    _CPU_WORKER["proc"] = proc
-    return proc, results
+class CpuHalves:
+    """The ``cpu_half`` worker over ``phases`` (daemonic: it ends with this
+    process) and its answers; ``emit`` marks each line it runs beside."""
 
+    def __init__(self, phases=CPU_HALVES):
+        ctx = multiprocessing.get_context("spawn")
+        self.phases = tuple(phases)
+        self.results = ctx.Queue()
+        self.proc = ctx.Process(target=cpu_half,
+                                args=(self.results, CPU_HALF_THREADS,
+                                      self.phases),
+                                daemon=True)
+        self.proc.start()
+        _CPU_WORKER["proc"] = self.proc
+        self.paths = {}
 
-def cpu_half_result(proc, results):
-    """The worker's runs, waiting for them; raises on its error or if it
-    died without an answer."""
-    while True:
-        try:
-            status, value = results.get(timeout=10)
-            break
-        except queue.Empty:
-            if not proc.is_alive():
-                raise RuntimeError(f"the CPU worker exited with code "
-                                   f"{proc.exitcode} and no result")
-    proc.join(timeout=60)
-    if status != "ok":
-        raise RuntimeError(f"the CPU worker failed:\n{value}")
-    return value
+    def get(self, phase):
+        """``phase``'s CPU side, waiting for it; raises on the worker's
+        error or if it died without it.  The worker is joined once its
+        last job is read."""
+        while phase not in self.paths:
+            try:
+                status, done, value = self.results.get(timeout=10)
+            except queue.Empty:
+                if not self.proc.is_alive():
+                    raise RuntimeError(f"the CPU worker exited with code "
+                                       f"{self.proc.exitcode} before "
+                                       f"{phase}'s CPU side") from None
+                continue
+            if status != "ok":
+                raise RuntimeError(f"the CPU worker failed in {done}:\n"
+                                   f"{value}")
+            self.paths[done] = value
+        if phase == self.phases[-1]:
+            self.proc.join(timeout=60)
+        return torch.load(self.paths[phase], weights_only=False)
 
 
 def train_card_vs_cpu(get_config, phase, cpu_init, cpu_runs):
@@ -4507,91 +4607,119 @@ def train_moe(kernels, L, T, get_config, smi):
     return result, prof
 
 
-def moe_card_vs_cpu(T, E, L, get_config, kernels):
-    """f32, TF32 off: granite-moe-1b-a400m and qwen2-moe-a2.7b cut to 2
-    layers at d_model 256 (every other width the config's) and jamba
-    ``.reduced()`` with its experts cut to one super-block (8 layers, 4
-    experts, top 2; 16 layers until PR 28) with a
-    300-token prompt.  The same weights and prompt on the card and the
-    CPU: prefill logits within 1e-3, each MoE layer's flat_idx, slot and
-    keep of the prefill equal, greedy tokens identical, at the default
-    capacity factor.  On the card, ``DecodeEngine`` with the prompt in a
-    slot another request used against ``greedy_generate``, at capacity
-    factor E_pad / k (nothing dropped: the engine routes one token a step
-    and the prefill the whole prompt, so at the default capacity drops
-    other rows in each, as in the reference).  Returns the phase line and
-    the kernels' launches in the card's runs."""
-    cases = [
+def moe_cases(get_config):
+    return [
         (dataclasses.replace(get_config("granite-moe-1b-a400m"),
                              num_layers=2, d_model=256), 200, 41),
         (dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=2,
                              d_model=256, head_dim=128), 200, 42),
         (dataclasses.replace(get_config("jamba-1.5-large-398b").reduced(),
                              num_layers=8), 300, 43)]
-    out = {"phase": "moe_card_vs_cpu", "dtype": "float32",
-           "tol_logits": 1e-3, "archs": {}}
-    launches = dict.fromkeys(kernels, 0)
+
+
+def moe_side(get_config, dev, kernels=None):
+    """``moe_card_vs_cpu``'s runs on ``dev``, by config name: the prefill's
+    last logits and each MoE layer's (flat_idx, slot, keep), on the host,
+    and ``greedy_generate``'s tokens; on the card also the kernels'
+    launches (``kernels``) and, at capacity factor E_pad / k,
+    ``greedy_generate``'s and ``DecodeEngine``'s tokens (the prompt in a
+    slot another request used)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as E
+
     route = L._route
-    for cfg, lp, seed in cases:
+    out = {}
+    for cfg, lp, seed in moe_cases(get_config):
         params = T.init_model(torch.Generator().manual_seed(seed), cfg,
                               device="cpu")
         rng = np.random.default_rng(seed)
         prompt = rng.integers(0, cfg.vocab_size, lp).astype(np.int32)
-        logits, gens, routes = {}, {}, {}
-        for side, dev in (("card", "cuda"), ("cpu", "cpu")):
-            prm = _tree(params, lambda t, d=dev: t.to(d))
-            calls = routes.setdefault(side, [])
+        prm = _tree(params, lambda t: t.to(dev))
+        calls = []
 
-            def spy(*args, calls=calls):
-                res = route(*args)
-                calls.append([x.cpu() for x in res[:3]])
-                return res
+        def spy(*args):
+            res = route(*args)
+            calls.append([x.cpu() for x in res[:3]])
+            return res
 
-            for fn in kernels.values():
-                fn.launches = 0
-            L._route = spy
-            try:
-                with torch.no_grad():
-                    lg, _ = T.prefill(prm, cfg, torch.from_numpy(prompt)[None]
-                                      .to(dev), last_only=True)
-            finally:
-                L._route = route
-            logits[side] = lg.cpu()
-            gens[side] = E.greedy_generate(prm, cfg, prompt, 8, device=dev)
-            if side == "card":
-                for k, fn in kernels.items():
-                    launches[k] += fn.launches
-            del prm, lg
-        err = (logits["card"] - logits["cpu"]).abs().max().item()
+        for fn in (kernels or {}).values():
+            fn.launches = 0
+        L._route = spy
+        try:
+            with torch.no_grad():
+                lg, _ = T.prefill(prm, cfg, torch.from_numpy(prompt)[None]
+                                  .to(dev), last_only=True)
+        finally:
+            L._route = route
+        res = {"logits": lg.cpu(), "routes": calls,
+               "gens": E.greedy_generate(prm, cfg, prompt, 8, device=dev)}
+        res["launches"] = {k: fn.launches for k, fn in (kernels or {}).items()}
+        del prm, lg
+        if dev == "cuda":
+            nodrop = dataclasses.replace(
+                cfg, capacity_factor=cfg.num_experts_padded / cfg.top_k)
+            res["nodrop_gens"] = E.greedy_generate(params, nodrop, prompt, 8,
+                                                   device="cuda")
+            eng = E.DecodeEngine(params, nodrop, batch_slots=1,
+                                 max_seq=lp + 16, device="cuda")
+            other = rng.integers(0, cfg.vocab_size, lp // 2).astype(np.int32)
+            eng.submit(E.Request(rid=0, prompt=other, max_new_tokens=8))
+            eng.submit(E.Request(rid=1, prompt=prompt, max_new_tokens=8))
+            res["engine_gens"] = {r.rid: r.generated for r in eng.run()}[1]
+            del eng
+        out[cfg.name] = res
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_card_vs_cpu(get_config, kernels, cpu):
+    """f32, TF32 off: granite-moe-1b-a400m and qwen2-moe-a2.7b cut to 2
+    layers at d_model 256 (every other width the config's) and jamba
+    ``.reduced()`` with its experts cut to one super-block (8 layers, 4
+    experts, top 2; 16 layers until PR 28) with a
+    300-token prompt.  The same weights and prompt on the card and the
+    CPU (``cpu``: ``moe_side``'s CPU run, from the ``cpu_half`` worker):
+    prefill logits within 1e-3, each MoE layer's flat_idx, slot and
+    keep of the prefill equal, greedy tokens identical, at the default
+    capacity factor.  On the card, ``DecodeEngine`` with the prompt in a
+    slot another request used against ``greedy_generate``, at capacity
+    factor E_pad / k (nothing dropped: the engine routes one token a step
+    and the prefill the whole prompt, so at the default capacity drops
+    other rows in each, as in the reference).  Returns the phase line and
+    the kernels' launches in the card's runs (the prefill and
+    ``greedy_generate`` at the default capacity factor)."""
+    out = {"phase": "moe_card_vs_cpu", "dtype": "float32",
+           "tol_logits": 1e-3, "archs": {}}
+    launches = dict.fromkeys(kernels, 0)
+    card = moe_side(get_config, "cuda", kernels)
+    for cfg, lp, _ in moe_cases(get_config):
+        a, b = card[cfg.name], cpu[cfg.name]
+        for k, n in a["launches"].items():
+            launches[k] += n
+        err = (a["logits"] - b["logits"]).abs().max().item()
         if not err <= 1e-3:
             raise AssertionError(f"{cfg.name}: card vs CPU prefill logits "
                                  f"differ by {err} > 1e-3")
         n_moe = sum(s.ffn == "moe" for s in cfg.superblock()[0]) \
             * cfg.superblock()[1]
-        if len(routes["card"]) != n_moe or len(routes["cpu"]) != n_moe:
-            raise AssertionError(f"{cfg.name}: {len(routes['card'])} routed "
+        if len(a["routes"]) != n_moe or len(b["routes"]) != n_moe:
+            raise AssertionError(f"{cfg.name}: {len(a['routes'])} routed "
                                  f"layers, expected {n_moe}")
-        for li, (a, b) in enumerate(zip(routes["card"], routes["cpu"])):
-            for name, x, y in zip(("flat_idx", "slot", "keep"), a, b):
+        for li, (x_, y_) in enumerate(zip(a["routes"], b["routes"])):
+            for name, x, y in zip(("flat_idx", "slot", "keep"), x_, y_):
                 if not torch.equal(x, y):
                     raise AssertionError(f"{cfg.name}: MoE layer {li}'s "
                                          f"{name} differs card vs CPU")
-        if gens["card"] != gens["cpu"]:
+        if a["gens"] != b["gens"]:
             raise AssertionError(f"{cfg.name}: card vs CPU greedy tokens "
-                                 f"{gens['card']} vs {gens['cpu']}")
-        nodrop = dataclasses.replace(
-            cfg, capacity_factor=cfg.num_experts_padded / cfg.top_k)
-        want = E.greedy_generate(params, nodrop, prompt, 8, device="cuda")
-        eng = E.DecodeEngine(params, nodrop, batch_slots=1, max_seq=lp + 16,
-                             device="cuda")
-        other = rng.integers(0, cfg.vocab_size, lp // 2).astype(np.int32)
-        eng.submit(E.Request(rid=0, prompt=other, max_new_tokens=8))
-        eng.submit(E.Request(rid=1, prompt=prompt, max_new_tokens=8))
-        eng_gen = {r.rid: r.generated for r in eng.run()}[1]
-        if eng_gen != want:
-            raise AssertionError(f"{cfg.name}: greedy_generate {want} vs "
-                                 f"DecodeEngine {eng_gen} in a reused slot "
-                                 "on the card (no drops)")
+                                 f"{a['gens']} vs {b['gens']}")
+        if a["engine_gens"] != a["nodrop_gens"]:
+            raise AssertionError(f"{cfg.name}: greedy_generate "
+                                 f"{a['nodrop_gens']} vs DecodeEngine "
+                                 f"{a['engine_gens']} in a reused slot on "
+                                 "the card (no drops)")
         specs, repeat = cfg.superblock()
         out["archs"][cfg.name] = {
             "layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -4603,13 +4731,11 @@ def moe_card_vs_cpu(T, E, L, get_config, kernels):
             "prompt_tokens": lp, "prefill_logits_max_abs_err": err,
             "moe_layers_routing_equal": n_moe,
             "prefill_rows_dropped": sum(int((~c[2]).sum())
-                                        for c in routes["card"]),
-            "prefill_rows": sum(c[2].numel() for c in routes["card"]),
+                                        for c in a["routes"]),
+            "prefill_rows": sum(c[2].numel() for c in a["routes"]),
             "tokens_card_eq_cpu": True,
             "tokens_generate_eq_engine_reused_slot_no_drops": True,
-            "tokens": gens["card"]}
-        del eng, params
-        torch.cuda.empty_cache()
+            "tokens": a["gens"]}
     out["launches_on_card"] = launches
     return out, launches
 
@@ -4927,8 +5053,114 @@ def grads_close(name, paths, a, b):
     return ratios
 
 
-def encdec_card_vs_cpu(fl, T, E, get_config):
-    """f32, TF32 off, the same parameters on the card and the CPU.
+def encdec_cases(get_config):
+    seamless = dataclasses.replace(
+        get_config("seamless-m4t-medium"), d_model=256, head_dim=64,
+        num_layers=2, num_encoder_layers=2, encoder_seq_len=300)
+    return seamless, get_config("pixtral-12b").reduced()
+
+
+def encdec_side(get_config, dev):
+    """``encdec_card_vs_cpu``'s runs on ``dev`` (on the host): the
+    seamless cut's memory, prefill logits, ``greedy_generate``'s tokens
+    (``DecodeEngine``'s checked equal to them here), loss and gradients;
+    pixtral ``.reduced()``'s logits and tokens of a prefill from embeds
+    and 8 decode steps, loss and gradients; on the card the flash
+    kernel's launches, checked against the paths' counts."""
+    from repro_torch.core import tree as TR
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as E
+    from repro_torch.train import loop as LOOP
+
+    cfg, pix = encdec_cases(get_config)
+    out = {"launches": 0}
+    params = T.init_model(torch.Generator().manual_seed(26), cfg,
+                          device="cpu")
+    rng = np.random.default_rng(26)
+    s, d, v = cfg.encoder_seq_len, cfg.d_model, cfg.vocab_size
+    src = torch.from_numpy(0.02 * rng.standard_normal((4, s, d),
+                                                      dtype=np.float32))
+    prompts = [rng.integers(0, v, int(n)).astype(np.int32)
+               for n in rng.integers(16, 48, 4)]
+    news = [int(n) for n in rng.integers(4, 12, 4)]
+    labels = torch.from_numpy(rng.integers(0, v, (2, 32)))
+    batch = {"tokens": labels, "labels": labels, "source_embeds": src[:2]}
+    prm = _tree(params, lambda t: t.to(dev))
+    fl.flash_attention.launches = 0
+    with torch.no_grad():
+        mem = T.encode(prm, cfg, embeds=src.to(dev))
+        lg, _ = T.prefill(prm, cfg, torch.from_numpy(prompts[0])[None]
+                          .to(dev), last_only=True, memory=mem[:1])
+    gens = [E.greedy_generate(prm, cfg, p, n, device=dev,
+                              memory=mem[i:i + 1])
+            for i, (p, n) in enumerate(zip(prompts, news))]
+    eng = E.DecodeEngine(prm, cfg, batch_slots=4, max_seq=64, device=dev,
+                         memory=mem)
+    for i, (p, n) in enumerate(zip(prompts, news)):
+        eng.submit(E.Request(rid=i, prompt=p, max_new_tokens=n))
+    eng_gens = {r.rid: r.generated for r in eng.run()}
+    if eng_gens != dict(enumerate(gens)):
+        raise AssertionError(f"seamless cut on {dev}: DecodeEngine "
+                             f"{eng_gens} vs greedy_generate {gens} with "
+                             "memory row i in slot i")
+    if dev == "cuda":
+        want = (cfg.num_encoder_layers + 2 * cfg.num_layers
+                + sum(2 * cfg.num_layers + cfg.num_layers * (n - 1)
+                      for n in news) + cfg.num_layers * eng.steps)
+        if fl.flash_attention.launches != want:
+            raise AssertionError(f"seamless cut: flash launches "
+                                 f"{fl.flash_attention.launches}, "
+                                 f"expected {want}")
+        out["launches"] += want
+    loss, grads = loss_and_grads(LOOP, TR, prm, cfg, _tree(
+        batch, lambda t: t.to(dev)))
+    out[cfg.name] = {"memory": mem.cpu(), "logits": lg.cpu(), "gens": gens,
+                     "loss": loss, "grads": grads, "steps": eng.steps,
+                     "prompt_tokens": [len(p) for p in prompts],
+                     "new_tokens": news,
+                     "paths": [".".join(x) for x in _paths(params)]}
+    del prm, mem, lg, eng, params
+
+    cfg = pix
+    params = T.init_model(torch.Generator().manual_seed(27), cfg,
+                          device="cpu")
+    rng = np.random.default_rng(27)
+    d, v = cfg.d_model, cfg.vocab_size
+    emb = torch.from_numpy(0.02 * rng.standard_normal((1, 48, d),
+                                                      dtype=np.float32))
+    labels = torch.from_numpy(rng.integers(0, v, (2, 32)))
+    batch = {"embeds": torch.from_numpy(0.02 * rng.standard_normal(
+        (2, 32, d), dtype=np.float32)), "labels": labels}
+    prm = _tree(params, lambda t: t.to(dev))
+    fl.flash_attention.launches = 0
+    with torch.no_grad():
+        lg, cache = T.prefill(prm, cfg, embeds=emb.to(dev), last_only=True)
+        cache = T.pad_prefill_cache(cfg, cache, 48 + 8)
+        logits, toks = [lg[:, -1].cpu()], [int(lg[0, -1].argmax())]
+        for i in range(8):
+            tok = torch.tensor(toks[-1:], device=dev)
+            lg = T.decode_step(prm, cfg, tok, 48 + i, cache)
+            logits.append(lg.cpu())
+            toks.append(int(lg[0].argmax()))
+    if dev == "cuda":
+        if fl.flash_attention.launches != cfg.num_layers:
+            raise AssertionError(f"pixtral reduced: flash launches "
+                                 f"{fl.flash_attention.launches}")
+        out["launches"] += cfg.num_layers
+    loss, grads = loss_and_grads(LOOP, TR, prm, cfg, _tree(
+        batch, lambda t: t.to(dev)))
+    out[cfg.name] = {"logits": logits, "toks": toks, "loss": loss,
+                     "grads": grads,
+                     "paths": [".".join(x) for x in _paths(params)]}
+    del prm, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_card_vs_cpu(get_config, cpu):
+    """f32, TF32 off, the same parameters on the card and the CPU
+    (``cpu``: ``encdec_side``'s CPU run, from the ``cpu_half`` worker).
     seamless-m4t-medium cut to d_model 256 (Dh 64 and every other width
     the config's), 2 + 2 layers, 300 source frames (not a multiple of the
     64-row tile): ``encode`` of 4 rows within 1e-4, prefill logits within
@@ -4941,62 +5173,12 @@ def encdec_card_vs_cpu(fl, T, E, get_config):
     encoder and cross leaves included) within 1e-4 of the leaf's largest
     (``grads_close``).
     Returns the phase line and the flash launches of the card's runs."""
-    from repro_torch.core import tree as TR
-    from repro_torch.train import loop as LOOP
-
     out = {"phase": "encdec_card_vs_cpu", "dtype": "float32",
            "tol_encode": 1e-4, "tol_logits": 1e-3, "tol_loss": 1e-4,
            "grad_tol_of_leaf_max": GRAD_RTOL, "archs": {}}
-    launches = 0
-    cfg = dataclasses.replace(get_config("seamless-m4t-medium"), d_model=256,
-                              head_dim=64, num_layers=2, num_encoder_layers=2,
-                              encoder_seq_len=300)
-    params = T.init_model(torch.Generator().manual_seed(26), cfg,
-                          device="cpu")
-    rng = np.random.default_rng(26)
-    s, d, v = cfg.encoder_seq_len, cfg.d_model, cfg.vocab_size
-    src = torch.from_numpy(0.02 * rng.standard_normal((4, s, d),
-                                                      dtype=np.float32))
-    prompts = [rng.integers(0, v, int(n)).astype(np.int32)
-               for n in rng.integers(16, 48, 4)]
-    news = [int(n) for n in rng.integers(4, 12, 4)]
-    labels = torch.from_numpy(rng.integers(0, v, (2, 32)))
-    batch = {"tokens": labels, "labels": labels, "source_embeds": src[:2]}
-    res = {}
-    for dev in ("cuda", "cpu"):
-        prm = _tree(params, lambda t, d=dev: t.to(d))
-        fl.flash_attention.launches = 0
-        with torch.no_grad():
-            mem = T.encode(prm, cfg, embeds=src.to(dev))
-            lg, _ = T.prefill(prm, cfg, torch.from_numpy(prompts[0])[None]
-                              .to(dev), last_only=True, memory=mem[:1])
-        gens = [E.greedy_generate(prm, cfg, p, n, device=dev,
-                                  memory=mem[i:i + 1])
-                for i, (p, n) in enumerate(zip(prompts, news))]
-        eng = E.DecodeEngine(prm, cfg, batch_slots=4, max_seq=64, device=dev,
-                             memory=mem)
-        for i, (p, n) in enumerate(zip(prompts, news)):
-            eng.submit(E.Request(rid=i, prompt=p, max_new_tokens=n))
-        eng_gens = {r.rid: r.generated for r in eng.run()}
-        if eng_gens != dict(enumerate(gens)):
-            raise AssertionError(f"seamless cut on {dev}: DecodeEngine "
-                                 f"{eng_gens} vs greedy_generate {gens} with "
-                                 "memory row i in slot i")
-        if dev == "cuda":
-            want = (cfg.num_encoder_layers + 2 * cfg.num_layers
-                    + sum(2 * cfg.num_layers + cfg.num_layers * (n - 1)
-                          for n in news) + cfg.num_layers * eng.steps)
-            if fl.flash_attention.launches != want:
-                raise AssertionError(f"seamless cut: flash launches "
-                                     f"{fl.flash_attention.launches}, "
-                                     f"expected {want}")
-            launches += want
-        loss, grads = loss_and_grads(LOOP, TR, prm, cfg, _tree(
-            batch, lambda t, d=dev: t.to(d)))
-        res[dev] = {"memory": mem.cpu(), "logits": lg.cpu(), "gens": gens,
-                    "loss": loss, "grads": grads, "steps": eng.steps}
-        del prm, mem, lg, eng
-    a, b = res["cuda"], res["cpu"]
+    card = encdec_side(get_config, "cuda")
+    cfg, pix = encdec_cases(get_config)
+    a, b = card[cfg.name], cpu[cfg.name]
     enc_err = (a["memory"] - b["memory"]).abs().max().item()
     logit_err = (a["logits"] - b["logits"]).abs().max().item()
     loss_err = abs(a["loss"] - b["loss"])
@@ -5007,55 +5189,21 @@ def encdec_card_vs_cpu(fl, T, E, get_config):
         raise AssertionError(f"seamless cut: card vs CPU greedy tokens "
                              f"{a['gens']} vs {b['gens']}")
     out["archs"][cfg.name] = {
-        "d_model": d, "layers": cfg.num_layers,
-        "encoder_layers": cfg.num_encoder_layers, "source_frames": s,
+        "d_model": cfg.d_model, "layers": cfg.num_layers,
+        "encoder_layers": cfg.num_encoder_layers,
+        "source_frames": cfg.encoder_seq_len,
         "heads": cfg.num_heads, "head_dim": cfg.resolved_head_dim,
-        "prompt_tokens": [len(p) for p in prompts], "new_tokens": news,
+        "prompt_tokens": a["prompt_tokens"], "new_tokens": a["new_tokens"],
         "encode_max_abs_err": enc_err, "prefill_logits_max_abs_err":
         logit_err, "loss": a["loss"], "loss_abs_err": loss_err,
         "grad_leaves": len(a["grads"]),
         "grad_max_err_over_leaf_max": grads_close(
-            cfg.name, [".".join(x) for x in _paths(params)], a["grads"],
-            b["grads"]),
+            cfg.name, a["paths"], a["grads"], b["grads"]),
         "tokens_card_eq_cpu": True, "engine_slot_i_eq_generate_row_i": True,
         "engine_steps": a["steps"], "tokens": a["gens"]}
-    del params, res
 
-    cfg = get_config("pixtral-12b").reduced()
-    params = T.init_model(torch.Generator().manual_seed(27), cfg,
-                          device="cpu")
-    rng = np.random.default_rng(27)
-    d, v = cfg.d_model, cfg.vocab_size
-    emb = torch.from_numpy(0.02 * rng.standard_normal((1, 48, d),
-                                                      dtype=np.float32))
-    labels = torch.from_numpy(rng.integers(0, v, (2, 32)))
-    batch = {"embeds": torch.from_numpy(0.02 * rng.standard_normal(
-        (2, 32, d), dtype=np.float32)), "labels": labels}
-    res = {}
-    for dev in ("cuda", "cpu"):
-        prm = _tree(params, lambda t, d=dev: t.to(d))
-        fl.flash_attention.launches = 0
-        with torch.no_grad():
-            lg, cache = T.prefill(prm, cfg, embeds=emb.to(dev),
-                                  last_only=True)
-            cache = T.pad_prefill_cache(cfg, cache, 48 + 8)
-            logits, toks = [lg[:, -1].cpu()], [int(lg[0, -1].argmax())]
-            for i in range(8):
-                tok = torch.tensor(toks[-1:], device=dev)
-                lg = T.decode_step(prm, cfg, tok, 48 + i, cache)
-                logits.append(lg.cpu())
-                toks.append(int(lg[0].argmax()))
-        if dev == "cuda":
-            if fl.flash_attention.launches != cfg.num_layers:
-                raise AssertionError(f"pixtral reduced: flash launches "
-                                     f"{fl.flash_attention.launches}")
-            launches += cfg.num_layers
-        loss, grads = loss_and_grads(LOOP, TR, prm, cfg, _tree(
-            batch, lambda t, d=dev: t.to(d)))
-        res[dev] = {"logits": logits, "toks": toks, "loss": loss,
-                    "grads": grads}
-        del prm, cache
-    a, b = res["cuda"], res["cpu"]
+    cfg = pix
+    a, b = card[cfg.name], cpu[cfg.name]
     logit_err = max((x - y).abs().max().item()
                     for x, y in zip(a["logits"], b["logits"]))
     loss_err = abs(a["loss"] - b["loss"])
@@ -5066,17 +5214,16 @@ def encdec_card_vs_cpu(fl, T, E, get_config):
         raise AssertionError(f"pixtral reduced: card vs CPU tokens "
                              f"{a['toks']} vs {b['toks']}")
     out["archs"][cfg.name] = {
-        "d_model": d, "layers": cfg.num_layers, "heads": cfg.num_heads,
-        "kv_heads": cfg.num_kv_heads, "patch_embeds": 48, "decode_steps": 8,
+        "d_model": cfg.d_model, "layers": cfg.num_layers,
+        "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+        "patch_embeds": 48, "decode_steps": 8,
         "logits_max_abs_err": logit_err, "loss": a["loss"],
         "loss_abs_err": loss_err, "grad_leaves": len(a["grads"]),
         "grad_max_err_over_leaf_max": grads_close(
-            cfg.name, [".".join(x) for x in _paths(params)], a["grads"],
-            b["grads"]),
+            cfg.name, a["paths"], a["grads"], b["grads"]),
         "tokens_card_eq_cpu": True, "tokens": a["toks"]}
-    out["flash_launches_on_card"] = launches
-    torch.cuda.empty_cache()
-    return out, launches
+    out["flash_launches_on_card"] = card["launches"]
+    return out, card["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -5436,21 +5583,21 @@ def train_xlstm(kernels, get_config, smi):
     return result, None
 
 
-def recurrent_train_card_vs_cpu(get_config, smi):
-    """f32, TF32 off, the same parameters and batches on the card and the
-    CPU: jamba ``.reduced()`` with its experts (16 layers) and without
-    (one super-block, 8 layers), xlstm-125m at full width cut to 4 layers
-    (its sLSTM weights made contractive, ``contractive_slstm``).  One
-    ``make_loss_fn`` loss and gradient (2 x 64 tokens): loss within 1e-4,
-    every leaf within GRAD_RTOL of its largest |g|; then 3 steps of
-    ``make_replica_train_step`` (``sync``, W = 2, SGD at lr 1e-2: Adam's
-    first update, lr * sign(g), would turn last-bit differences on
-    elements near 0 into whole steps, tests/test_torch_recurrent_train.py),
-    each step's loss within 1e-4.  On the card each Mamba layer launches
-    the scan and its backward once a gradient; on the jamba cut the
-    gradients with remat (the scan twice) must be ``torch.equal`` to those
-    without, except on a leaf whose two runs without remat differ
-    themselves (an atomic sum), where rtol 1e-5 holds."""
+def recurrent_train_cases(get_config):
+    jamba = get_config("jamba-1.5-large-398b").reduced()
+    return [("jamba_moe", jamba, 41),
+            ("jamba", dataclasses.replace(jamba, num_experts=0,
+                                          num_layers=8), 42),
+            ("xlstm", dataclasses.replace(get_config("xlstm-125m"),
+                                          num_layers=4), 43)]
+
+
+def recurrent_train_side(get_config, dev):
+    """``recurrent_train_card_vs_cpu``'s runs on ``dev``, by case: the
+    loss and every leaf's gradient (on the host), 3 steps' losses and the
+    seconds; on the card the scan kernels' launches, checked against one
+    of each a Mamba layer a gradient, and on the jamba cut the remat
+    check (``remat_equal``)."""
     from repro_torch.core import tree as TR
     from repro_torch.core.comm import LocalComm
     from repro_torch.core.strategies import get_strategy
@@ -5460,18 +5607,8 @@ def recurrent_train_card_vs_cpu(get_config, smi):
     from repro_torch.optim import sgd
     from repro_torch.train import loop as LOOP
 
-    jamba = get_config("jamba-1.5-large-398b").reduced()
-    cases = [("jamba_moe", jamba, 41),
-             ("jamba", dataclasses.replace(jamba, num_experts=0,
-                                           num_layers=8), 42),
-             ("xlstm", dataclasses.replace(get_config("xlstm-125m"),
-                                           num_layers=4), 43)]
-    out = {"phase": "recurrent_train_card_vs_cpu", "dtype": "float32",
-           "tol_loss_rel": 1e-4, "grad_tol_of_leaf_max": GRAD_RTOL,
-           "steps": 3, "workers": 2, "optimizer": "sgd lr 1e-2",
-           "archs": {}}
-    launches = {"mamba_scan": 0, "mamba_scan_bwd": 0}
-    for name, cfg, seed in cases:
+    out = {}
+    for name, cfg, seed in recurrent_train_cases(get_config):
         params = T.init_model(torch.Generator().manual_seed(seed), cfg,
                               device="cpu")
         params = contractive_slstm(params, cfg)
@@ -5480,40 +5617,72 @@ def recurrent_train_card_vs_cpu(get_config, smi):
         dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
                           batch_per_worker=2, seed=seed)
         lf = LOOP.make_loss_fn(cfg, remat=False)
-        res = {}
-        for dev in ("cuda", "cpu"):
-            prm = _tree(params, lambda t, d=dev: t.to(d))
-            batch = {"tokens": toks.to(dev), "labels": toks.to(dev)}
-            ms.mamba_scan.launches = ms.mamba_scan_bwd.launches = 0
-            t0 = time.perf_counter()
-            loss, grads = loss_and_grads(LOOP, TR, prm, cfg, batch)
-            got = (ms.mamba_scan.launches, ms.mamba_scan_bwd.launches)
-            want = (mamba_layers(cfg), mamba_layers(cfg)) \
-                if dev == "cuda" else (0, 0)
-            if got != want:
-                raise AssertionError(f"{name} on {dev}: scan launches "
-                                     f"(forward, backward) {got}, expected "
-                                     f"{want}")
-            comm = LocalComm(2)
-            opt = sgd(1e-2)
-            strat = get_strategy("sync")
-            state = LOOP.init_train_state(comm.replicate(prm), opt, strat,
-                                          comm)
-            step = LOOP.make_replica_train_step(
-                lambda p, x: lf(p, {"tokens": x, "labels": x}), opt, strat,
-                comm)
-            losses = []
-            for t in range(3):
-                state, m = step(state, microbatch_stack(dcfg, 2, t, 1,
-                                                        device=dev)[0])
-                losses.append(float(m["loss"]))
-            res[dev] = {"loss": loss, "grads": grads, "losses": losses,
-                        "s": time.perf_counter() - t0}
-            if dev == "cuda":
-                launches["mamba_scan"] += ms.mamba_scan.launches
-                launches["mamba_scan_bwd"] += ms.mamba_scan_bwd.launches
-            del prm, state, step
-        a, b = res["cuda"], res["cpu"]
+        prm = _tree(params, lambda t: t.to(dev))
+        batch = {"tokens": toks.to(dev), "labels": toks.to(dev)}
+        ms.mamba_scan.launches = ms.mamba_scan_bwd.launches = 0
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(LOOP, TR, prm, cfg, batch)
+        got = (ms.mamba_scan.launches, ms.mamba_scan_bwd.launches)
+        want = (mamba_layers(cfg), mamba_layers(cfg)) \
+            if dev == "cuda" else (0, 0)
+        if got != want:
+            raise AssertionError(f"{name} on {dev}: scan launches "
+                                 f"(forward, backward) {got}, expected "
+                                 f"{want}")
+        comm = LocalComm(2)
+        opt = sgd(1e-2)
+        strat = get_strategy("sync")
+        state = LOOP.init_train_state(comm.replicate(prm), opt, strat, comm)
+        step = LOOP.make_replica_train_step(
+            lambda p, x: lf(p, {"tokens": x, "labels": x}), opt, strat,
+            comm)
+        losses = []
+        for t in range(3):
+            state, m = step(state, microbatch_stack(dcfg, 2, t, 1,
+                                                    device=dev)[0])
+            losses.append(float(m["loss"]))
+        res = {"loss": loss, "grads": grads, "losses": losses,
+               "s": time.perf_counter() - t0,
+               "launches": {"mamba_scan": ms.mamba_scan.launches,
+                            "mamba_scan_bwd": ms.mamba_scan_bwd.launches},
+               "paths": [".".join(x) for x in _paths(params)]}
+        del prm, state, step
+        if name == "jamba" and dev == "cuda":
+            res["remat"] = remat_equal(LOOP, TR, ms, params, cfg, toks)
+        out[name] = res
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_train_card_vs_cpu(get_config, smi, cpu):
+    """f32, TF32 off, the same parameters and batches on the card and the
+    CPU (``cpu``: ``recurrent_train_side``'s CPU run, from the
+    ``cpu_half`` worker): jamba ``.reduced()`` with its experts (16
+    layers) and without (one super-block, 8 layers), xlstm-125m at full
+    width cut to 4 layers (its sLSTM weights made contractive,
+    ``contractive_slstm``).  One ``make_loss_fn`` loss and gradient (2 x
+    64 tokens): loss within 1e-4, every leaf within GRAD_RTOL of its
+    largest |g|; then 3 steps of ``make_replica_train_step`` (``sync``,
+    W = 2, SGD at lr 1e-2: Adam's first update, lr * sign(g), would turn
+    last-bit differences on elements near 0 into whole steps,
+    tests/test_torch_recurrent_train.py), each step's loss within 1e-4.
+    On the card each Mamba layer launches the scan and its backward once
+    a gradient; on the jamba cut the gradients with remat (the scan
+    twice) must be ``torch.equal`` to those without, except on a leaf
+    whose two runs without remat differ themselves (an atomic sum), where
+    rtol 1e-5 holds."""
+    out = {"phase": "recurrent_train_card_vs_cpu", "dtype": "float32",
+           "tol_loss_rel": 1e-4, "grad_tol_of_leaf_max": GRAD_RTOL,
+           "steps": 3, "workers": 2, "optimizer": "sgd lr 1e-2",
+           "archs": {}}
+    launches = {"mamba_scan": 0, "mamba_scan_bwd": 0}
+    card = recurrent_train_side(get_config, "cuda")
+    for name, cfg, _ in recurrent_train_cases(get_config):
+        a, b = card[name], cpu[name]
+        for k in launches:
+            launches[k] += a["launches"][k]
         loss_rel = rel_diff(a["loss"], b["loss"])
         step_rel = max(rel_diff(x, y) for x, y in zip(a["losses"],
                                                       b["losses"]))
@@ -5521,8 +5690,7 @@ def recurrent_train_card_vs_cpu(get_config, smi):
             raise AssertionError(f"{name} card vs CPU: loss {a['loss']} vs "
                                  f"{b['loss']}, steps {a['losses']} vs "
                                  f"{b['losses']}")
-        paths = [".".join(x) for x in _paths(params)]
-        ratios = grads_close(name, paths, a["grads"], b["grads"])
+        ratios = grads_close(name, a["paths"], a["grads"], b["grads"])
         entry = {"layers": cfg.num_layers, "d_model": cfg.d_model,
                  "experts": cfg.num_experts,
                  "mamba_layers": mamba_layers(cfg), "tokens": [2, 64],
@@ -5530,19 +5698,16 @@ def recurrent_train_card_vs_cpu(get_config, smi):
                  "loss_rel_diff": loss_rel, "step_losses_card": a["losses"],
                  "step_losses_cpu": b["losses"],
                  "step_loss_max_rel_diff": step_rel,
-                 "grad_leaves": len(paths),
+                 "grad_leaves": len(a["paths"]),
                  "grad_max_err_over_leaf_max": max(ratios.values()),
                  "worst_leaves": dict(sorted(ratios.items(),
                                              key=lambda kv: -kv[1])[:4]),
                  "cuda_s": a["s"], "cpu_s": b["s"]}
-        if name == "jamba":
-            entry["remat"] = remat_equal(LOOP, TR, ms, params, cfg, toks)
-            launches["mamba_scan"] += entry["remat"]["scan_launches"]
-            launches["mamba_scan_bwd"] += entry["remat"]["bwd_launches"]
+        if "remat" in a:
+            entry["remat"] = a["remat"]
+            launches["mamba_scan"] += a["remat"]["scan_launches"]
+            launches["mamba_scan_bwd"] += a["remat"]["bwd_launches"]
         out["archs"][name] = entry
-        del params, res
-        gc.collect()
-        torch.cuda.empty_cache()
     out["launches_on_card"] = launches
     out["card"] = smi
     return out, launches
@@ -7486,6 +7651,118 @@ def axis_lines(get_config, ranks, refs, launches, smi):
     return lines
 
 
+# ---------------------------------------------------------------------------
+# the lint tier (repro_torch.analysis) on the card
+# ---------------------------------------------------------------------------
+LINT_K = 256  # the lint rigs' top-k: ratio 0.25 of a 1024-element block
+
+
+def lint_gated_every_step(policy, bucket_bytes):
+    """The lint phase's negative: a strategy that declares ``gated`` with
+    ``sync_every`` 4 and averages every step, keeping the mean at a
+    firing step only (a where-style gate); ``cond-gating`` must fail it.
+    The pool's ranks import it by name."""
+    from repro_torch.core import strategies as ST
+    from repro_torch.core import tree as TT
+    from repro_torch.core.fabric import Fabric
+
+    base = ST.local_sgd(sync_every=4, bucket_bytes=bucket_bytes,
+                        policy=policy)
+
+    def update(params, grads, opt_state, cstate, t, opt, comm):
+        fab = Fabric(comm, bucket_bytes,
+                     wire_dtype=policy.wire_dt if policy else None)
+        params, opt_state = opt.update(grads, opt_state, params, t)
+        mean = fab.all_mean(params)
+        if (t + 1) % 4 == 0:
+            params = TT.tree_map(lambda x: x.contiguous(), mean)
+        return params, opt_state, cstate, {}
+
+    return dataclasses.replace(base, update=update)
+
+
+def lint_phase(smi):
+    """``python -m repro_torch.launch.lint --smoke`` on the card: the 80
+    cells of the smoke slice (gemma3-1b and qwen2-1.5b × 10 strategies ×
+    f32/bf16 × accum 1/4), the exchange and TP rigs in ONE pool of 4 gloo
+    ranks on cuda:0, the rest in this process on CUDA tensors.  Gates:
+    zero ``fail`` and ``validate``; in every ``sync_dgc`` cell the fused
+    encode entered once a bucket and ``topk_encode_ef`` launched once a
+    bucket; every loop rig's count of kernel libraries flat after step
+    0; two negatives fail: ``Fabric(fused=False)``'s dgc exchange
+    (``fused-dispatch``, 0 launches) and ``lint_gated_every_step``
+    (``cond-gating``).  The kernel at the rigs' k 256 is held bitwise
+    against its plain version (``encode_equal``).  Returns (the line, the
+    parent's ``topk_encode_ef`` launches)."""
+    from repro_torch.analysis import report as R
+    from repro_torch.analysis import rigs, rules
+    from repro_torch.analysis import sweep as SW
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import topk_sparsify as tk
+
+    arch = SW.SMOKE_CONFIGS[0]
+    stub = rigs.exchange_spec(arch, lint_gated_every_step, "f32")
+    t0 = time.perf_counter()
+    cache = SW.prepare(SW.SMOKE_CONFIGS, SW.LINT_STRATEGIES,
+                       SW.LINT_PRECISIONS, "cuda", extra_specs=[stub])
+    pool_s = time.perf_counter() - t0
+    tk.topk_encode_ef.launches = 0
+    rep = SW.run(smoke=True, device="cuda", cache=cache)
+    launches = tk.topk_encode_ef.launches
+    R.validate(rep)
+    rules_of = [(c, {r["rule"]: r for r in c["rules"]}) for c in rep["cells"]]
+    fused = [rr["fused-dispatch"]["details"] for c, rr in rules_of
+             if c["strategy"] == "sync_dgc"]
+    bad = [d for d in fused if not (d["launches"] == d["fused_calls"]
+                                    == d["n_buckets"] > 0
+                                    and d["codec_calls"] == 0)]
+    if len(fused) != 2 * 2 * len(SW.SMOKE_CONFIGS) or bad:
+        raise AssertionError(f"lint: sync_dgc's fused dispatch {bad or fused}")
+    sizes = [rr["retrace-detector"]["details"]["cache_sizes"]
+             for _, rr in rules_of]
+    if any(len(set(s_)) != 1 for s_ in sizes):
+        raise AssertionError(f"lint: a library built after step 0: {sizes}")
+
+    # the negatives: an unfused dgc wire, a where-gated strategy
+    unfused = rigs.fused_artifacts(rigs.init_params(arch, None), "f32",
+                                   fused=False, device="cuda")
+    neg_fused = rules.fused_dispatch(unfused["fused_calls"],
+                                     unfused["codec_calls"],
+                                     unfused["n_buckets"], unfused["launches"])
+    gate = rigs.exchange_artifacts(cache[stub["key"]], lint_gated_every_step,
+                                   "f32")
+    neg_gate = rules.cond_gating(gate["logs"], gate["strategy"].gated,
+                                 gate["strategy"].sync_every)
+    if neg_fused.status != "fail" or unfused["launches"] != 0:
+        raise AssertionError(f"lint: the unfused dgc rig passed "
+                             f"fused-dispatch: {neg_fused}, {unfused}")
+    if neg_gate.status != "fail":
+        raise AssertionError(f"lint: the where-gated stub passed cond-gating:"
+                             f" {neg_gate}")
+    # the kernel at the rigs' row shape, against its plain version
+    g, r = code_rows(31, 64, 1024)
+    encode_equal(tk, g, r, LINT_K, f"at the lint rigs' k {LINT_K}")
+    del g, r
+    torch.cuda.empty_cache()
+    s = rep["summary"]
+    return {"phase": "lint", "cells": s["cells"], "pass": s["pass"],
+            "skip": s["skip"], "fail": s["fail"],
+            "rigs_built": rep["meta"]["rigs_built"], "pool_s": pool_s,
+            "launches": {"topk_encode_ef": launches},
+            "sync_dgc_fused": [{k: d[k] for k in ("n_buckets", "fused_calls",
+                                                   "launches")}
+                               for d in fused],
+            "libraries_built": sorted({n for s_ in sizes for n in s_}),
+            "process_libraries": _build.libraries_built(),
+            "negatives": {"unfused_dgc": {"status": neg_fused.status,
+                                          "launches": unfused["launches"],
+                                          "findings": neg_fused.findings},
+                          "gated_every_step": {
+                              "status": neg_gate.status,
+                              "findings": neg_gate.findings[:2]}},
+            "kernel_check_k": LINT_K, "card": smi}, launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--mamba-before", type=Path, default=None,
@@ -7543,7 +7820,7 @@ def main(argv=None) -> int:
                          "tensor_core_instructions": tc[name]}
     # the CPU side of the two largest card-vs-CPU phases runs from here on
     # in a worker of its own, beside the card's phases
-    cpu_proc, cpu_results = start_cpu_half()
+    cpu = CpuHalves()
     emit({"phase": "build", "libs": sorted(libs),
           "s": time.perf_counter() - t,
           "kernels_compiled": sum(v["kernels"] for v in per_lib.values()),
@@ -7600,7 +7877,7 @@ def main(argv=None) -> int:
                       gemma.vocab_size), seed=1)
     emit({**serve_gemma, "layer_windows": windows})
 
-    emit(card_vs_cpu(T, PagedDecodeEngine, Request, get_config))
+    emit(card_vs_cpu(get_config, cpu.get("card_vs_cpu")))
 
     # dense serving: greedy_generate (flash prefill) and DecodeEngine
     prefill_kernels = {"flash_attention": fl.flash_attention,
@@ -7618,7 +7895,7 @@ def main(argv=None) -> int:
         emit(result)
         flash_launches += result["flash_launches_per_prefill"]
     emit(dense_serve(T, E, qwen, smi))
-    emit(dense_card_vs_cpu(T, E, get_config))
+    emit(dense_card_vs_cpu(get_config, cpu.get("dense_card_vs_cpu")))
 
     # the recurrent families on the dense serving path: jamba without
     # experts cut to two super-blocks (2 attention, 14 Mamba layers) at full
@@ -7639,7 +7916,8 @@ def main(argv=None) -> int:
                     profile=False)
     emit(result)
     emit(dense_serve(T, E, jamba, smi, phase="dense_serve_jamba"))
-    emit(recurrent_card_vs_cpu(T, E, get_config))
+    emit(recurrent_card_vs_cpu(get_config,
+                               cpu.get("recurrent_card_vs_cpu")))
 
     # the MoE families at full width in bf16 (granite at full depth,
     # qwen2-moe-a2.7b cut to QWEN2_MOE_LAYERS, also through the paged
@@ -7659,8 +7937,8 @@ def main(argv=None) -> int:
     emit(serve_moe)
     flash_launches += greedy_moe["flash_launches_per_prefill"]
     paged_launches = main_path_launches + serve_moe["paged_attention_launches"]
-    moe_cmp, moe_launches = moe_card_vs_cpu(T, E, L, get_config,
-                                            prefill_kernels)
+    moe_cmp, moe_launches = moe_card_vs_cpu(get_config, prefill_kernels,
+                                            cpu.get("moe_card_vs_cpu"))
     emit(moe_cmp)
     flash_launches += moe_launches["flash_attention"]
     mamba_launches += moe_launches["mamba_scan"]
@@ -7676,7 +7954,8 @@ def main(argv=None) -> int:
     result = greedy_pixtral(fl, T, L, bf16("pixtral-12b"), smi)
     emit(result)
     flash_launches += result["flash_launches"]
-    encdec_cmp, encdec_launches = encdec_card_vs_cpu(fl, T, E, get_config)
+    encdec_cmp, encdec_launches = encdec_card_vs_cpu(
+        get_config, cpu.get("encdec_card_vs_cpu"))
     emit(encdec_cmp)
     flash_launches += encdec_launches
 
@@ -7778,17 +8057,13 @@ def main(argv=None) -> int:
         st["steps_w2"]["fused_adam_launches"]
         for st in resize["stages"].values())
     emit(elastic_vs_sync(get_config, smi))
-    emit(elastic_card_vs_cpu(get_config, smi))
+    emit(elastic_card_vs_cpu(get_config, smi,
+                             cpu.get("elastic_card_vs_cpu")))
     emit(finite_read_cost(get_config, smi, steps=5))
     emit(prefetch(train_kernels, get_config, smi))
     emit(train_remat(get_config, smi))
-    cpu_runs = cpu_half_result(cpu_proc, cpu_results)
-    cpu_init = {}
-    for phase in CARD_VS_CPU_CASES:
-        emit(train_card_vs_cpu(get_config, phase, cpu_init,
-                               cpu_runs[phase]))
-    del cpu_init
-    result, rec_launches = recurrent_train_card_vs_cpu(get_config, smi)
+    result, rec_launches = recurrent_train_card_vs_cpu(
+        get_config, smi, cpu.get("recurrent_train_card_vs_cpu"))
     emit(result)
     mamba_launches += rec_launches["mamba_scan"]
     bwd_launches += rec_launches["mamba_scan_bwd"]
@@ -7806,6 +8081,20 @@ def main(argv=None) -> int:
         train_launches[k] += n
     split_scan = next(line for line in lines
                       if line["phase"] == "train_tp_jamba")["split_scan"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the card-vs-CPU train cases: their CPU side has run in the worker
+    # beside the phases above
+    cpu_init = {}
+    for phase in CARD_VS_CPU_CASES:
+        emit(train_card_vs_cpu(get_config, phase, cpu_init, cpu.get(phase)))
+    del cpu_init
+
+    # the lint tier's smoke slice on the card (its counts zeroed inside)
+    lint, lint_launches = lint_phase(smi)
+    emit(lint)
+    train_launches["topk_encode_ef"] += lint_launches
 
     timing = time_kernel(pa, main_path_launches / serve_qwen["decode_steps"],
                          smi)

@@ -37,7 +37,13 @@ What ``ShardComm`` ships and how it reduces:
     so for a CUDA tensor the comm ALWAYS stages through pinned host
     memory (a copy to the host, the collective, a copy back;
     ``transport`` says "gloo+host").  ``stats`` counts each op's calls and the bytes this
-    rank handed to the backend.
+    rank handed to the backend;
+  * ``with comm.record() as calls:`` logs every backend call made inside
+    the block, one ``{"op", "dtype", "bytes"}`` record each: the op's name
+    in ``stats``, the payload's dtype before the uint8 view (a bf16
+    bucket logs ``bfloat16``, the Fabric's 16-bit image ``int16``) and
+    the bytes handed to the backend.  ``repro_torch.analysis`` lints
+    these logs where the reference reads collectives out of HLO.
 
 Beside ``ShardComm``, the collectives that autograd goes through, for the
 model code on a mesh's "model" axis (``models/tensor_parallel.py``,
@@ -54,6 +60,7 @@ counts that).
 from __future__ import annotations
 
 from collections import defaultdict
+from contextlib import contextmanager
 
 import torch
 
@@ -198,6 +205,18 @@ class ShardComm:
         self.stats = defaultdict(lambda: [0, 0])  # op -> [calls, bytes]
         # the autograd collectives: op -> [calls, payload bytes]
         self.ops = defaultdict(lambda: [0, 0])
+        self._logs = []  # the open ``record`` blocks' lists
+
+    @contextmanager
+    def record(self):
+        """A list that collects one ``{"op", "dtype", "bytes"}`` record a
+        backend call made inside the block (blocks may nest)."""
+        calls = []
+        self._logs.append(calls)
+        try:
+            yield calls
+        finally:
+            self._logs.remove(calls)
 
     # -- transport ------------------------------------------------------------
     def transport(self, device) -> str:
@@ -232,10 +251,13 @@ class ShardComm:
         return torch.empty(shape, dtype=like.dtype, device=like.device,
                            pin_memory=like.is_pinned())
 
-    def _count(self, op, nbytes):
+    def _count(self, op, nbytes, dtype):
         st = self.stats[op]
         st[0] += 1
         st[1] += int(nbytes)
+        for calls in self._logs:
+            calls.append({"op": op, "dtype": str(dtype).removeprefix("torch."),
+                          "bytes": int(nbytes)})
 
     @staticmethod
     def _bytes(x):
@@ -247,7 +269,7 @@ class ShardComm:
         """(W,) + x.shape: every rank's ``x`` in rank order."""
         src, dev = self._wire(self._bytes(x))
         out = self._out((self.size * src.numel(),), src)
-        self._count(op, src.numel())
+        self._count(op, src.numel(), x.dtype)
         self._dist.all_gather_into_tensor(out, src, group=self.group)
         out = out.to(dev).reshape(self.size, -1)
         if x.dtype != torch.uint8:
@@ -260,7 +282,7 @@ class ShardComm:
         w = self.size
         src, dev = self._wire(self._bytes(y).reshape(w, -1))
         out = self._out(src.shape, src)
-        self._count("all_to_all", src.numel())
+        self._count("all_to_all", src.numel(), y.dtype)
         self._dist.all_to_all_single(out, src, group=self.group)
         out = out.to(dev)
         if y.dtype != torch.uint8:
@@ -334,7 +356,7 @@ class ShardComm:
         precision policy's finite flag, so that every rank takes the same
         skip decision."""
         src, dev = self._wire(x.float().contiguous())
-        self._count("all_min", src.numel() * 4)
+        self._count("all_min", src.numel() * 4, src.dtype)
         self._dist.all_reduce(src, op=self._dist.ReduceOp.MIN,
                               group=self.group)
         return src.to(dev)
@@ -349,7 +371,7 @@ class ShardComm:
                 return x.clone()
             src, dev = self._wire(self._bytes(x))
             out = self._out(src.shape, src)
-            self._count("ppermute", src.numel())
+            self._count("ppermute", src.numel(), x.dtype)
             P2P = self._dist.P2POp
             ops = [P2P(self._dist.isend, src, self._peer[(r + shift) % w],
                        group=self.group),

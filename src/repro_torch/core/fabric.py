@@ -348,6 +348,45 @@ class Fabric:
         return {"wire_bytes": torch.tensor(nbytes, dtype=torch.float32) * ev,
                 "comm_events": ev}
 
+    def collective_contract(self, tree_or_layout, profile: str,
+                            events: int = 1) -> dict:
+        """The backend calls ONE exchange of the tree may make over a
+        ``ShardComm``, op name (``ShardComm.record``'s) -> the most calls,
+        for the wire shape a strategy declares (``Strategy.wire_profile``);
+        an op absent from the mapping must not be called at all (scalar
+        control traffic is budgeted apart, by ``repro_torch.analysis``).
+        The reference's profiles and signature, with the port's own
+        realization, the same at every wire width:
+
+          dense        all-reduce of the tree: one all-to-all of the
+                       chunks and one tiled all-gather a bucket
+                       (``ShardComm._reduce``, ``_reduce_narrow_sharded``)
+          partitioned  ZeRO's reduce-scatter (an all-to-all) and the
+                       shards' all-gather, one each a bucket
+          compressed   one all-gather of the packed bytes a bucket
+          ring         ``events`` ring shifts a bucket
+          tp           ``events`` all-sums of the layer activation (the
+                       row-parallel combines, forward and backward)
+          none         no wire traffic at all
+
+        ``nb`` is the ``BucketLayout``'s bucket count, built as the
+        reference builds it."""
+        lay = (tree_or_layout if isinstance(tree_or_layout, BucketLayout)
+               else self.layout(tree_or_layout))
+        nb = lay.n_buckets
+        if profile == "none":
+            return {}
+        if profile == "compressed":
+            return {"all_gather": nb}
+        if profile in ("dense", "partitioned"):
+            return {"all_to_all": nb, "all_gather": nb}
+        if profile == "ring":
+            return {"ppermute": int(events) * nb}
+        if profile == "tp":
+            return {"all_to_all": int(events) * nb,
+                    "all_gather": int(events) * nb}
+        raise ValueError(f"unknown wire profile {profile!r}")
+
     # -- compression plumbing ----------------------------------------------
     def _vmap_replicas(self, fn):
         """``fn`` of ONE replica's tensors (a tensor or a list of them),

@@ -447,24 +447,29 @@ def downpour(push_every: int = 4,
         else:
             nbytes = fab.flat_bytes(grads)
         n, w = t, comm.size
+        lay = fab.layout(grads)
         flat_g, tdef = T.flatten(grads)
         del grads
         acc = T.leaves(cstate["acc"])
         # per-replica push mask, on the leaves' device, trailing axes 1
         push = (n + comm.worker_index(like=acc[0])) % push_every == 0
-        g_eff, new_acc = [], []
-        for i in range(len(flat_g)):  # leaf by leaf: one leaf's temporaries
-            g, flat_g[i] = flat_g[i], None
-            a_plus = acc[i] + g.float()
-            mask = push.reshape(tuple(push.shape)
-                                + (1,) * (a_plus.dim() - push.dim()))
-            deliver = torch.where(mask, a_plus, 0.0)
-            recv = fab.all_sum(deliver) - deliver
-            del deliver
-            g_eff.append((g.float() + recv) / w)
-            del recv, g
-            new_acc.append(torch.where(mask, 0.0, a_plus))
-            del a_plus
+        g_eff, new_acc = [None] * len(flat_g), [None] * len(flat_g)
+        # bucket by bucket: one all-sum a bucket (the leaves of one bucket
+        # form one bucket again), one bucket's temporaries alive at a time
+        for b in range(lay.n_buckets):
+            idx = [i for i in range(len(flat_g)) if lay.bucket_of[i] == b]
+            a_plus = [acc[i] + flat_g[i].float() for i in idx]
+            masks = [push.reshape(tuple(push.shape)
+                                  + (1,) * (a.dim() - push.dim()))
+                     for a in a_plus]
+            deliver = [torch.where(m_, a, 0.0)
+                       for m_, a in zip(masks, a_plus)]
+            summed = fab.all_sum(deliver)
+            for j, i in enumerate(idx):
+                g, flat_g[i] = flat_g[i], None
+                g_eff[i] = (g.float() + (summed[j] - deliver[j])) / w
+                new_acc[i] = torch.where(masks[j], 0.0, a_plus[j])
+            del a_plus, deliver, summed, g
         params, opt_state = opt.update(T.unflatten(tdef, g_eff), opt_state,
                                        params, t)
         new_c["acc"] = T.unflatten(tdef, new_acc)

@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}
+_nvcc_runs = [0]  # nvcc processes this process has started
 
 
 def _nvcc() -> str:
@@ -69,6 +70,7 @@ def build_all() -> dict:
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
+            _nvcc_runs[0] += 1
             procs.append((name, proc, tmp, lib))
         failed = []
         for name, proc, tmp, lib in procs:
@@ -82,6 +84,13 @@ def build_all() -> dict:
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return {n: t[1] for n, t in libs.items()}
+
+
+def libraries_built() -> int:
+    """Kernel libraries this process has loaded plus the ``nvcc`` runs it
+    has started: a count that grows only when a kernel is built or loaded
+    for the first time (the port's counterpart of a jit cache's size)."""
+    return len(_loaded) + _nvcc_runs[0]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -47,7 +47,10 @@ Differences from the reference, none of which changes a result:
     update has rows of their own storage.
 
 Scope: plain ``LocalComm`` (lead axis 0).  A state whose leaves have no
-leading worker axis fails loudly in ``resize_dense_tree``.
+leading worker axis fails loudly in ``resize_dense_tree``.  The masked
+exchange and the demoted resync also run over a ``ShardComm``, a rank's
+own leaves against its entry of the mask, as the reference's run under
+``shard_map`` (``repro_torch.analysis`` lints the resync's calls there).
 """
 
 from __future__ import annotations
@@ -230,8 +233,18 @@ def resize_state(state, old_view: FleetView, new_view: FleetView, *,
 # ---------------------------------------------------------------------------
 # masked boundary step (straggler tiers)
 # ---------------------------------------------------------------------------
+def _member(fab: Fabric, mask):
+    """This worker's mask entry: the (W,) mask itself on the stacked
+    simulator (it aligns with the replica axis), the rank's 0-d entry
+    over a ``ShardComm`` (the reference's ``_member_scalar``)."""
+    return mask[fab.comm.rank] if fab._sharded else mask
+
+
 def _bcast(m, x):
-    """The (W,) mask against a stacked (W, …) leaf."""
+    """A (W,) mask against a stacked (W, …) leaf; a rank's 0-d entry as
+    it is."""
+    if m.dim() == 0:
+        return m
     return m.reshape(m.shape + (1,) * (x.dim() - 1))
 
 
@@ -243,12 +256,15 @@ def _nsync(mask):
 
 def _masked_sums(fab: Fabric, tree, mask):
     """Σ_w mask_w · x_w of every leaf of the stacked ``tree``, a (1, …) f32
-    view a leaf: one ``Fabric.all_sum`` a bucket, each bucket's weighted
-    copy alive only while it is summed."""
+    view a leaf (over a ``ShardComm``: of this rank's leaves, the sum
+    itself): one ``Fabric.all_sum`` a bucket, each bucket's weighted copy
+    alive only while it is summed."""
     lay = fab.layout(tree)
-    sums = [fab.all_sum([b * _bcast(mask, b)])[0]
+    m = _member(fab, mask)
+    sums = [fab.all_sum([b * _bcast(m, b)])[0]
             for b in lay.bucketize(tree)]
-    return [s[:1] for s in T.leaves(lay.debucketize(sums, cast=False))]
+    out = T.leaves(lay.debucketize(sums, cast=False))
+    return out if fab._sharded else [s[:1] for s in out]
 
 
 def masked_exchange(fab: Fabric, grads, mask):
@@ -261,9 +277,10 @@ def masked_exchange(fab: Fabric, grads, mask):
     nsync = _nsync(mask)
     sums = _masked_sums(fab, grads, mask)
     flat, tdef = T.flatten(grads)
+    m = _member(fab, mask)
 
     def blend(g, s):
-        gb = _bcast(mask, g)
+        gb = _bcast(m, g)
         # (1 - m)·g + m·(s / n): the reference's two terms, added in the
         # other order (an exact swap), the second in place
         return ((1.0 - gb) * g.float()).add_(gb * (s / nsync))
@@ -285,9 +302,10 @@ def demoted_resync(fab: Fabric, params, mask, t: int, resync_every: int):
     nsync = _nsync(mask)
     sums = _masked_sums(fab, params, mask)
     flat, tdef = T.flatten(params)
+    m = _member(fab, mask)
 
     def pull(x, s):
-        gb = _bcast(mask, x)
+        gb = _bcast(m, x)
         return (gb * x.float() + (1.0 - gb) * (s / nsync)).to(x.dtype)
 
     return T.unflatten(tdef, [pull(x, s) for x, s in zip(flat, sums)]), True

@@ -80,8 +80,9 @@ the expert split.  The reference's by-name split would also cut mLSTM's
 ``wq``/``wk``/``wv`` (its explicit-TP module has no mLSTM combine) and
 leaves Mamba whole; the port's split is the table above.
 
-``tp_collective_contract`` needs ``Fabric.collective_contract`` (the
-analysis tier, ROADMAP.md Queue 1 item 13) and is not ported.
+``tp_collective_contract`` is the collective budget of one TP rank step,
+which ``repro_torch.analysis`` lints a rank's ``ShardComm.record`` log
+against.
 """
 
 from __future__ import annotations
@@ -92,7 +93,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core.comm import ShardComm, psum
-from repro_torch.core.fabric import DEFAULT_BUCKET_BYTES, Fabric
+from repro_torch.core.fabric import DEFAULT_BUCKET_BYTES, BucketLayout, Fabric
 
 # mixer subtree -> {path of a leaf inside it: the axis to slice}
 _ATTN_AXES = {"wq": 1, "wk": 1, "wv": 1, "bq": 0, "bk": 0, "bv": 0, "wo": 0}
@@ -357,3 +358,20 @@ def _merge_trees(a, b):
         out[k] = _merge_trees(out[k], v) if isinstance(v, dict) and \
             isinstance(out.get(k), dict) else v
     return out
+
+
+def tp_collective_contract(cfg, activation,
+                           bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                           wire_dtype=None) -> dict:
+    """The backend calls of ONE training step of a ``tp_degree``-split
+    model, as ``Fabric.collective_contract(..., "tp")`` counts them: two
+    row-parallel combines a layer (the out-projection and the
+    down-projection), each an all-sum of the layer ``activation`` (a
+    tensor, meta or real, of its shape and dtype), forward AND backward
+    (``psum``'s backward all-sums the cotangents).  The reference's
+    count; ``finalize_grads``' buckets come on top."""
+    combines = 2 * cfg.num_layers * 2  # (wo + w_down) x (fwd + bwd)
+    lay = BucketLayout.build(activation, bucket_bytes, lead_axes=0)
+    # the contract reads the layout only: no comm (nor process group)
+    fab = Fabric(None, bucket_bytes, wire_dtype=wire_dtype)
+    return fab.collective_contract(lay, "tp", events=combines)

@@ -46,7 +46,7 @@ def test_import_pulls_in_no_jax():
 
 
 RANK_PROGRAMS = ["tests/_torch_ranks.py", "tests/_torch_model_ranks.py",
-                 "tests/_torch_axis_ranks.py"]
+                 "tests/_torch_axis_ranks.py", "tests/_torch_lint_ranks.py"]
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -70,6 +70,7 @@ def test_rank_programs_pull_in_no_jax():
     no JAX and nothing of the JAX package."""
     code = ("import sys\n"
             "import _torch_ranks, _torch_model_ranks, _torch_axis_ranks\n"
+            "import _torch_lint_ranks\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
             "m.startswith('repro.'))\n"
@@ -360,3 +361,24 @@ def test_edge_async_sim_and_sample_batch_default_to_cuda():
     with pytest.raises(RuntimeError, match="cuda.is_available"):
         sample_batch(DataConfig(vocab_size=8, seq_len=4,
                                 batch_per_worker=1), 0, 0)
+
+
+@pytest.mark.parametrize("path", ["analysis/__init__.py", "analysis/report.py",
+                                  "analysis/rules.py", "analysis/rigs.py",
+                                  "analysis/sweep.py", "launch/lint.py"])
+def test_lint_tier_imports_no_jax_repro_or_benchmarks(path):
+    """The lint tier keeps its own copies of the reference's validator
+    helpers (``benchmarks/common.py``): it imports the standard library,
+    numpy, torch and the port only."""
+    assert ".".join(("repro_torch",) + Path(path).with_suffix("").parts) \
+        .removesuffix(".__init__") in MODULES
+    tree = ast.parse((PORT / path).read_text())
+    tops = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            tops |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            tops.add(node.module.split(".")[0])
+    assert tops <= {"__future__", "argparse", "collections", "dataclasses",
+                    "json", "math", "os", "sys", "time", "typing", "weakref",
+                    "numpy", "torch", "repro_torch"}, tops
