@@ -116,7 +116,7 @@ then drives the main paths through their entry points:
     two ranks on one card; ``ShardComm`` stages CUDA tensors through
     host memory): every comm primitive at 4 and 2 ranks bitwise
     ``LocalComm``'s on the card, and a 4 MiB bucket's ms and GB/s
-    (``shard_comm``); on ranks 0 and 1, qwen2-1.5b at full width, 4
+    (``shard_comm``); on ranks 0 and 1, qwen2-1.5b at full width, 2
     layers, 2 steps of sync, accumulation, 1-bit, top-k, ZeRO-1, ZeRO-2,
     ZeRO-3 and ZeRO-1 under bf16, each rank's final state bitwise its
     stacked replica's, the kernels' launches in the ranks, the wire a
@@ -146,12 +146,21 @@ then drives the main paths through their entry points:
     ``AXIS_GRAD_RTOL`` of each leaf's largest or ``AXIS_FLOOR_MULT`` times
     its blocked-vs-single distance, then a step (SGD; Adam on xlstm), the
     replicated leaves equal on both model ranks; ``local_sgd`` and
-    ``downpour`` 1-bit on data 2 x model 2 (``train_tp_strategies``, 3
+    ``downpour`` 1-bit on data 2 x model 2 (``train_tp_strategies``, 2
     steps against the replica step at tp_degree 2 with the same
     strategy); ``sharding_mode="cp"`` on qwen2-1.5b, 4 layers, 1 x 2048
     tokens a data rank, 1024 a model rank: step 0's loss and all-summed
     gradients against the unsharded ones, then a fused-Adam step with
-    the k/v all-gather's bytes (``train_cp``).  Every one of these lines
+    the k/v all-gather's bytes (``train_cp``); the same under ``cp`` for
+    granite-moe-1b-a400m at full width, 4 layers, 1 x 2048 tokens a data
+    rank (4096 global: ``_moe_ep`` on every rank, step 0 at capacity
+    factor 8 without the aux term, then the step at the config's, with
+    each rank's drop share; ``train_cp_moe``) and for seamless-m4t-medium
+    at ``train_tp_seamless``'s cut, its encoder on the source's chunk and
+    the memory all-gathered once a step (``train_cp_seamless``, the
+    cancelling leaves held to 10 times a second ordering of the
+    unsharded step), each with its all-gathers a step against the closed
+    form.  Every one of these lines
     carries a rank's peak GB, host step ms and last step's device ms,
     the model group's bytes to gloo a step and the kernels' launches.
 
@@ -5775,11 +5784,11 @@ SHARD_CASES = {
     "zero3": (3, 1, None, "f32"),
     "zero1_bf16_accum2": (1, 2, None, "bf16"),
 }
-# sharded_strategies on a 2-layer cut: (strategy kwargs, compressor)
+# sharded_strategies: (strategy kwargs, compressor)
 SHARD_STRATEGIES = {"local_sgd": ({"sync_every": 2}, None),
                     "gossip": ({}, None),
                     "downpour": ({"push_every": 2}, "onebit")}
-SHARD_STRATEGY_LAYERS = 2
+SHARD_LAYERS = 2  # train_sharded's and sharded_strategies' qwen2 cut
 COMM_ROWS = (3, 40)  # the primitives' rows: 40 divides by 2 and 4
 
 
@@ -6023,7 +6032,7 @@ def shard_rank(rank, world):
     for case, (zero, accum, comp_name, prec) in SHARD_CASES.items():
         if shard_half(case, SHARD_CASES) != half:
             continue
-        cfg = shard_cfg(get_config, TRAIN_LAYERS, prec)
+        cfg = shard_cfg(get_config, SHARD_LAYERS, prec)
         pol = None if prec == "f32" else get_policy(prec)
         comp = shard_compressor(comp_name)
         params = shard_init(cfg)
@@ -6051,7 +6060,7 @@ def shard_rank(rank, world):
     out["seconds"]["train_sharded"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["strategies"] = {}
-    cfg = shard_cfg(get_config, SHARD_STRATEGY_LAYERS)
+    cfg = shard_cfg(get_config, SHARD_LAYERS)
     for name, (_, comp_name) in SHARD_STRATEGIES.items():
         if shard_half(name, SHARD_STRATEGIES) != half:
             continue
@@ -6447,9 +6456,9 @@ def sharded_references(get_config):
         pol = None if prec == "f32" else get_policy(prec)
         strat = (ST.get_strategy(f"sync_zero{zero}", policy=pol) if zero
                  else ST.sync(shard_compressor(comp), policy=pol))
-        refs["train"][case] = run(shard_cfg(get_config, TRAIN_LAYERS, prec),
+        refs["train"][case] = run(shard_cfg(get_config, SHARD_LAYERS, prec),
                                   strat, pol, accum)
-    cfg = shard_cfg(get_config, SHARD_STRATEGY_LAYERS)
+    cfg = shard_cfg(get_config, SHARD_LAYERS)
     for name, (_, comp) in SHARD_STRATEGIES.items():
         refs["strategies"][name] = run(cfg, shard_strategy(name, comp),
                                        None, 1)
@@ -6568,7 +6577,7 @@ def sharded_phases(get_config, smi):
     launches = {"fused_adam": 0, "onebit_quant_packed": 0,
                 "topk_encode_ef": 0}
     train_line = {"phase": "train_sharded", "ranks": SHARD_W,
-                  "transport": "gloo+host", "layers": TRAIN_LAYERS,
+                  "transport": "gloo+host", "layers": SHARD_LAYERS,
                   "batch_per_worker": TRAIN_B, "seq_len": TRAIN_L,
                   "steps": SHARD_STEPS, "fused_adam": True, "cases": {},
                   "reference_s": ref_s, "pool_s": pool_s,
@@ -6579,7 +6588,7 @@ def sharded_phases(get_config, smi):
                           "card, two cases at once on two meshes of W "
                           "ranks: no claim about NCCL over NVLink"}
     for case, (zero, accum, comp_name, prec) in SHARD_CASES.items():
-        cfg = shard_cfg(get_config, TRAIN_LAYERS, prec)
+        cfg = shard_cfg(get_config, SHARD_LAYERS, prec)
         lay = BucketLayout.build(T.init_model(torch.Generator(), cfg,
                                               "meta"))
         play = PartitionedLayout.build(lay, SHARD_W)
@@ -6640,12 +6649,12 @@ def sharded_phases(get_config, smi):
 
     # sharded_strategies
     strat_line = {"phase": "sharded_strategies", "ranks": SHARD_W,
-                  "layers": SHARD_STRATEGY_LAYERS, "steps": SHARD_STEPS,
+                  "layers": SHARD_LAYERS, "steps": SHARD_STEPS,
                   "strategies": {}, "card": smi,
                   "rank_seconds": max(
                       ranks[r]["seconds"]["sharded_strategies"]
                       for r in range(SHARD_POOL))}
-    cfg = shard_cfg(get_config, SHARD_STRATEGY_LAYERS)
+    cfg = shard_cfg(get_config, SHARD_LAYERS)
     lay = BucketLayout.build(T.init_model(torch.Generator(), cfg, "meta"))
     for name, (kw, comp_name) in SHARD_STRATEGIES.items():
         ref = refs["strategies"][name]
@@ -6888,14 +6897,22 @@ AXIS_PARAM_ULPS = 8
 # TP_TOL's Adam bounds, 1-bit's for downpour
 TP_STRATEGIES = {"local_sgd": ({"sync_every": 2}, None),
                  "downpour": ({"push_every": 2}, "onebit")}
-TP_STRATEGY_STEPS = 3
+TP_STRATEGY_STEPS = 2
 TP_STRATEGY_TOL = {"local_sgd": (2e-3, 2e-3), "downpour": (2e-2, 2e-2)}
-# train_cp (qwen2-1.5b, 4 layers, data 2 x model 2): rows a data rank and
-# tokens (CP_L / 2 a model rank); step 0's loss (relative) and each leaf
-# of the all-summed gradients (of its largest |g|) against the unsharded
-# step of the same rows on the card
+# the cp phases on data 2 x model 2, CP_STEPS fused-Adam steps each: step
+# 0's loss (relative) and each leaf of the all-summed gradients (of its
+# largest |g|) within CP_TOL of the unsharded step of the same rows on
+# the card.  train_cp: qwen2-1.5b, 4 layers, CP_B x CP_L tokens a data
+# rank (CP_L / 2 a model rank); train_cp_moe: granite-moe, EP_LAYERS
+# layers, the same tokens (4096 global, so _moe_ep on every rank), step
+# 0's gradients at capacity factor EP_DENSE_CF without the aux term
+# (nothing dropped, as train_ep) and the step at the config's;
+# train_cp_seamless: train_tp_seamless's cut, rows and frames, its
+# cancelling wk leaves held to AXIS_FLOOR_MULT times a second ordering of
+# the unsharded step (the blocked form at tp_degree 2)
 CP_B, CP_L, CP_STEPS = 1, 2048, 1
 CP_TOL = {"loss": 1e-5, "grad_rel": 1e-4}
+CP_PHASES = ("train_cp", "train_cp_moe", "train_cp_seamless")
 
 
 def axis_cfg(get_config, phase):
@@ -6928,17 +6945,48 @@ def axis_batch(cfg, phase, d, t):
     return out
 
 
-def cp_cfg(get_config):
-    return dataclasses.replace(shard_cfg(get_config, TRAIN_LAYERS),
-                               sharding_mode="cp")
-
-
 def cp_batch(cfg, d, t):
     from repro_torch.data.pipeline import DataConfig, rank_batch
 
     x = rank_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=CP_L,
                               batch_per_worker=CP_B), d, t, 1, "cuda")
     return {"tokens": x, "labels": x}
+
+
+def cp_phase_cfg(get_config, phase, grad_gate=False):
+    """A ``CP_PHASES`` phase's config under ``cp``; with ``grad_gate``
+    its step-0 gradient gate's (train_cp_moe: capacity factor
+    EP_DENSE_CF, no aux term)."""
+    if phase == "train_cp":
+        cfg = shard_cfg(get_config, TRAIN_LAYERS)
+    elif phase == "train_cp_moe":
+        cfg = ep_cfg(get_config, EP_DENSE_CF if grad_gate else None)
+    else:
+        arch, over, *_ = AXIS_FAMILIES["train_tp_seamless"]
+        cfg = dataclasses.replace(get_config(arch), **over)
+    return dataclasses.replace(cfg, sharding_mode="cp")
+
+
+def cp_init(cfg, phase):
+    return {"train_cp": shard_init, "train_cp_moe": ep_init,
+            "train_cp_seamless": axis_init}[phase](cfg)
+
+
+def cp_phase_batch(cfg, phase, d, t):
+    return (axis_batch(cfg, "train_tp_seamless", d, t)
+            if phase == "train_cp_seamless" else cp_batch(cfg, d, t))
+
+
+def cp_gathers(cfg):
+    """The model group's all-gathers of one cp step (no remat): k and v a
+    self-attention layer (the encoder's too), x a MoE layer and
+    ``_moe_ep``'s combine (every MoE layer of these phases takes it), the
+    memory once."""
+    specs, repeat = cfg.superblock()
+    moe = sum(sp.ffn == "moe" for sp in specs) * repeat
+    attn = sum(sp.mixer == "attn" for sp in specs) * repeat
+    return 2 * (attn + cfg.num_encoder_layers) + 2 * moe \
+        + (1 if cfg.is_encoder_decoder else 0)
 
 
 def axis_optimizer(phase):
@@ -7055,33 +7103,40 @@ def axis_family_reference(get_config, phase):
             "s": time.perf_counter() - t0}
 
 
-def cp_reference(get_config):
-    """``train_cp``'s one-process reference: the unsharded loss and
-    gradients of each data rank's rows (step 0) on the card, the same
-    config (``sharding_mode="cp"``: the grouped attention einsum); the
-    gradients saved for the ranks."""
+def cp_reference(get_config, phase):
+    """A ``CP_PHASES`` phase's one-process reference on the card: the
+    unsharded loss and gradients of each data rank's rows of step 0 (the
+    gate's config), saved for the ranks; train_cp_seamless also each
+    leaf's distance to the blocked form's (tp_degree 2) gradients, the
+    floor of its cancelling leaves."""
     from repro_torch.core import tree as TT
     from repro_torch.train import loop as LOOP
 
     t0 = time.perf_counter()
-    cfg = cp_cfg(get_config)
-    params = shard_init(cfg)
-    lf = LOOP.make_loss_fn(cfg, remat=False)
+    cfg = cp_phase_cfg(get_config, phase, grad_gate=True)
+    params = cp_init(cfg, phase)
     MODEL_REF_DIR.mkdir(parents=True, exist_ok=True)
-    losses = []
+    losses, floors = [], []
     for d in range(MODEL_MESH[0]):
-        leaves, tdef = TT.flatten(params)
-        pw = [v.detach().requires_grad_() for v in leaves]
-        loss = lf(TT.unflatten(tdef, pw), cp_batch(cfg, d, 0))
-        grads = TT.unflatten(tdef, list(torch.autograd.grad(loss, pw)))
-        losses.append(float(loss.detach()))
+        batch = cp_phase_batch(cfg, phase, d, 0)
+        loss, grads = LOOP._local_grads(LOOP.make_loss_fn(cfg, remat=False),
+                                        params, batch)
+        losses.append(float(loss))
+        if cfg.is_encoder_decoder:
+            blocked = dataclasses.replace(cfg, tp_degree=TP_N)
+            _, grads2 = LOOP._local_grads(
+                LOOP.make_loss_fn(blocked, remat=False), params, batch)
+            floors.append({k: e for k, (e, _) in
+                           leaf_errors(grads2, grads).items()})
+            del grads2
         torch.save(TT.tree_map(lambda v: v.cpu(), grads),
-                   MODEL_REF_DIR / f"cp_grads_{d}.pt")
-        del pw, loss, grads
+                   MODEL_REF_DIR / f"{phase}_grads_{d}.pt")
+        del grads, batch
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return {"losses": losses, "s": time.perf_counter() - t0}
+    return {"losses": losses, "floors": floors,
+            "s": time.perf_counter() - t0}
 
 
 def axis_references(get_config):
@@ -7095,7 +7150,8 @@ def axis_references(get_config):
             "losses": tp_reference(get_config, name, strategy=name,
                                    steps=TP_STRATEGY_STEPS),
             "s": time.perf_counter() - t0}
-    refs["cp"] = cp_reference(get_config)
+    for phase in CP_PHASES:
+        refs[phase] = cp_reference(get_config, phase)
     return refs
 
 
@@ -7344,36 +7400,65 @@ def shard_strategy_of(name):
                                           if comp is not None else {}))
 
 
-def axis_cp_rank(rank, kernels):
-    """``train_cp`` on this rank of data 2 x model 2: step 0's loss and
-    all-summed gradients (``step.local_grads``) held against the unsharded
-    ones of the data rank's rows, then CP_STEPS fused-Adam steps."""
+def axis_cp_rank(phase, kernels):
+    """A ``CP_PHASES`` phase on this rank of data 2 x model 2: step 0's
+    loss and all-summed gradients (``step.local_grads``, the gate's
+    config) against the unsharded ones of the data rank's rows, leaf by
+    leaf; then CP_STEPS fused-Adam steps at the phase's config; the MoE
+    branches taken and each routing's kept rows (spies on
+    ``layers._moe_ep`` and ``layers._route``)."""
     from repro_torch.configs import get_config
     from repro_torch.core import tree as TT
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
     from repro_torch.optim import optimizers as TO
     from repro_torch.train import loop as LOOP
 
     t0 = time.perf_counter()
     mesh = make_mesh(MODEL_MESH, ("data", "model"), backend="gloo")
     d, m = mesh.coords["data"], mesh.coords["model"]
-    cfg = cp_cfg(get_config)
+    cfg = cp_phase_cfg(get_config, phase)
+    gate = cp_phase_cfg(get_config, phase, grad_gate=True)
     opt = TO.adam(SHARD_LR, fused=True)
-    state = LOOP.init_sharded_state(shard_init(cfg), opt, mesh, cfg=cfg)
-    step = LOOP.make_sharded_train_step(cfg, opt, mesh, remat=False)
+    state = LOOP.init_sharded_state(cp_init(cfg, phase), opt, mesh, cfg=cfg)
     mc = mesh.shared_comm("model")
-    loss0, grads = step.local_grads(state, cp_batch(cfg, d, 0))
-    ref = torch.load(MODEL_REF_DIR / f"cp_grads_{d}.pt", mmap=True,
-                     weights_only=True)
-    held = _held(grads["rep"], ref)
-    del grads, ref
-    gc.collect()
-    torch.cuda.empty_cache()
-    state, res = axis_run(step, state, lambda t: cp_batch(cfg, d, t), mc,
-                          kernels, CP_STEPS)
-    res.update(coords=(d, m), loss0=float(loss0), grads_held=held,
+    ep_calls, kept = [], []
+    route, moe_ep = L._route, L._moe_ep
+
+    def route_spy(*args):
+        res = route(*args)
+        kept.append((int(res[2].sum()), res[2].numel()))
+        return res
+
+    def ep_spy(*args):
+        ep_calls.append(1)
+        return moe_ep(*args)
+
+    L._route, L._moe_ep = route_spy, ep_spy
+    try:
+        step0 = LOOP.make_sharded_train_step(gate, opt, mesh, remat=False)
+        loss0, grads = step0.local_grads(
+            state, cp_phase_batch(cfg, phase, d, 0))
+        ref = torch.load(MODEL_REF_DIR / f"{phase}_grads_{d}.pt", mmap=True,
+                         weights_only=True)
+        errors = leaf_errors(grads["rep"], ref)
+        gate_calls, gate_kept = len(ep_calls), kept[:]
+        del grads, ref, step0
+        gc.collect()
+        torch.cuda.empty_cache()
+        ep_calls.clear()
+        kept.clear()
+        step = LOOP.make_sharded_train_step(cfg, opt, mesh, remat=False)
+        state, res = axis_run(step, state,
+                              lambda t: cp_phase_batch(cfg, phase, d, t),
+                              mc, kernels, CP_STEPS)
+    finally:
+        L._route, L._moe_ep = route, moe_ep
+    res.update(coords=(d, m), loss0=float(loss0), grad_errors=errors,
                parts=sorted(state["params"]),
-               leaves=len(TT.leaves(state["params"]["rep"])))
+               leaves=len(TT.leaves(state["params"]["rep"])),
+               ep_calls_gate=gate_calls, kept_gate=gate_kept,
+               ep_calls=len(ep_calls), kept=kept[:])
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -7407,7 +7492,8 @@ def axis_rank(rank, kernels):
             dist.barrier()
     out["strategies"] = {name: axis_strategy_rank(name, rank, kernels)
                          for name in TP_STRATEGIES}
-    out["train_cp"] = axis_cp_rank(rank, kernels)
+    for phase in CP_PHASES:
+        out[phase] = axis_cp_rank(phase, kernels)
     return out
 
 
@@ -7600,55 +7686,113 @@ def axis_lines(get_config, ranks, refs, launches, smi):
     line["phase_cost_s"] = cost
     lines.append(line)
 
-    cfg = cp_cfg(get_config)
-    ref = refs["axis"]["cp"]
+    for phase in CP_PHASES:
+        lines.append(cp_line(get_config, phase, axis, refs["axis"][phase],
+                             add, per_rank, smi))
+    return lines
+
+
+def cp_line(get_config, phase, axis, ref, add, per_rank, smi):
+    """A ``CP_PHASES`` phase's line from the pool's ranks: step 0's loss
+    within CP_TOL of the unsharded one and every leaf's gradient within
+    CP_TOL of its largest (or, on train_cp_seamless, AXIS_FLOOR_MULT
+    times its second-ordering floor), the losses and the one part the
+    same on every rank, ``fused_adam`` leaves x steps and no other
+    kernel, the all-gathers a step the closed form; on train_cp_moe
+    ``_moe_ep`` taken at every MoE layer of every pass, nothing dropped
+    in the gate's pass, and each rank's drop share at the config's
+    capacity factor."""
+    from repro_torch.core.fabric import BucketLayout
+    from repro_torch.models import transformer as T
+
+    cfg = cp_phase_cfg(get_config, phase)
     leaves = BucketLayout.build(T.init_model(torch.Generator(), cfg,
                                              "meta")).n_leaves
-    got = {r["train_cp"]["coords"]: r["train_cp"] for r in axis}
+    got = {r[phase]["coords"]: r[phase] for r in axis}
     expect = {"fused_adam": leaves * CP_STEPS, "onebit_quant_packed": 0,
               "topk_encode_ef": 0, "mamba_scan": 0, "mamba_scan_bwd": 0}
-    gathers = 2 * cfg.num_layers * CP_STEPS  # k and v a layer a step
-    line = {"phase": "train_cp", "arch": "qwen2-1.5b",
+    gathers = cp_gathers(cfg) * CP_STEPS
+    specs, repeat = cfg.superblock()
+    moe_layers = sum(sp.ffn == "moe" for sp in specs) * repeat
+    arch = {"train_cp": "qwen2-1.5b", "train_cp_moe": "granite-moe-1b-a400m",
+            "train_cp_seamless": "seamless-m4t-medium"}[phase]
+    b, l, s = (AXIS_FAMILIES["train_tp_seamless"][3:6]
+               if phase == "train_cp_seamless" else (CP_B, CP_L, 0))
+    line = {"phase": phase, "arch": arch,
             "mesh": {"data": MODEL_MESH[0], "model": MODEL_MESH[1]},
-            "layers": TRAIN_LAYERS, "rows_per_data_rank": CP_B,
-            "seq_len": CP_L, "seq_per_model_rank": CP_L // TP_N,
-            "steps": CP_STEPS, "fused_adam": True, "tol": CP_TOL,
+            "layers": cfg.num_layers,
+            "encoder_layers": cfg.num_encoder_layers or None,
+            "rows_per_data_rank": b, "seq_len": l,
+            "seq_per_model_rank": l // TP_N, "source_frames": s or None,
+            "steps": CP_STEPS, "fused_adam": True, "precision": "f32",
+            "params_b": cfg.param_count() / 1e9,
+            "tol": {**CP_TOL, "floor_mult": AXIS_FLOOR_MULT
+                    if cfg.is_encoder_decoder else None},
             "reference": "the unsharded loss and gradients of the data "
-                         "rank's rows, one process, the same config",
+                         "rank's rows, one process, the same config"
+                         + (" at capacity factor %g without the aux term"
+                            % EP_DENSE_CF if moe_layers else ""),
             "losses_reference_step0": ref["losses"], "ranks": {},
             "card": smi, "transport": "gloo+host"}
     for key, res in sorted(got.items()):
         ref_loss = ref["losses"][key[0]]
-        _, _, _, rel = res["grads_held"]
+        errs = res["grad_errors"]
+        floors = ref["floors"][key[0]] if ref["floors"] else {}
+        allow = {k: max(CP_TOL["grad_rel"] * big,
+                        AXIS_FLOOR_MULT * floors.get(k, 0.0))
+                 for k, (_, big) in errs.items()}
+        bad = {k: e for k, (e, _) in errs.items() if e > allow[k]}
         if abs(res["loss0"] - ref_loss) > CP_TOL["loss"] * abs(ref_loss) \
-                or rel > CP_TOL["grad_rel"]:
-            raise AssertionError(f"train_cp rank {key}: loss {res['loss0']} "
-                                 f"vs {ref_loss}, gradients {rel} of their "
-                                 "largest")
+                or bad or len(errs) != leaves:
+            raise AssertionError(f"{phase} rank {key}: loss {res['loss0']} "
+                                 f"vs {ref_loss}, gradients beyond their "
+                                 f"bound: {bad}")
         if res["parts"] != ["rep"] or res["losses"] != \
-                got[(0, 0)]["losses"]:
-            raise AssertionError(f"train_cp rank {key}: parts "
+                got[(0, 0)]["losses"] or not all(
+                    math.isfinite(x) for x in res["losses"]):
+            raise AssertionError(f"{phase} rank {key}: parts "
                                  f"{res['parts']}, losses {res['losses']}")
         if res["launches"] != expect:
-            raise AssertionError(f"train_cp rank {key}: launches "
+            raise AssertionError(f"{phase} rank {key}: launches "
                                  f"{res['launches']} != {expect}")
         ag = res["model_ops"].get("all_gather", [0, 0])
         if ag[0] != gathers:
-            raise AssertionError(f"train_cp rank {key}: {ag[0]} all-gathers,"
+            raise AssertionError(f"{phase} rank {key}: {ag[0]} all-gathers,"
                                  f" {gathers} expected")
+        if res["ep_calls_gate"] != moe_layers \
+                or res["ep_calls"] != moe_layers * CP_STEPS:
+            raise AssertionError(f"{phase} rank {key}: _moe_ep taken "
+                                 f"{res['ep_calls_gate']} + "
+                                 f"{res['ep_calls']} times, "
+                                 f"{moe_layers} a pass expected")
+        if any(k != n for k, n in res["kept_gate"]):
+            raise AssertionError(f"{phase} rank {key}: rows dropped at "
+                                 f"capacity factor {EP_DENSE_CF}: "
+                                 f"{res['kept_gate']}")
         add(res["launches"])
+        rel = {k: e / big if big else e for k, (e, big) in errs.items()}
+        worst = sorted(rel, key=rel.get)[-3:]
+        rows = sum(n for _, n in res["kept"])
         line["ranks"]["%d,%d" % key] = dict(
-            per_rank(res), loss0=res["loss0"], grads_rel=rel,
-            grads_max_abs_diff=res["grads_held"][0],
-            kv_all_gather_bytes_per_step=ag[1] / CP_STEPS,
+            per_rank(res), loss0=res["loss0"],
+            grads_rel_worst={k: rel[k] for k in worst},
+            grads_over_allowed_max=max(e / allow[k]
+                                       for k, (e, _) in errs.items()),
+            leaves_held_by_floor=sorted(
+                k for k, (e, big) in errs.items()
+                if e > CP_TOL["grad_rel"] * big),
+            all_gather_bytes_per_step=ag[1] / CP_STEPS,
+            moe_ep_calls=res["ep_calls"],
+            drop_share=(1 - sum(k for k, _ in res["kept"]) / rows
+                        if rows else None),
             rank_s=res["rank_s"])
     line.update(launches_expected_per_rank=expect,
-                kv_all_gathers_per_step=gathers // CP_STEPS,
+                all_gathers_per_step=gathers // CP_STEPS,
+                moe_ep_every_layer=True if moe_layers else None,
                 reference_s=ref["s"],
                 phase_cost_s=ref["s"] + max(r["rank_s"]
                                             for r in got.values()))
-    lines.append(line)
-    return lines
+    return line
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,34 @@ heads and all-gathered over "model" on the sequence axis
 (``core/comm.py::all_gather``, whose backward reduce-scatters the
 cotangents in rank order), then the grouped einsum of the reference's
 ``cp`` branch runs over the whole sequence on the masked path.  The MLP,
-the norms, the embedding and the head stay local.  Attention and dense
-MLP stacks only: MoE, recurrent mixers and encoders raise (ROADMAP.md
-Queue 1 item 11d).
+the norms, the embedding and the head stay local.  Recurrent mixers
+raise (ROADMAP.md Queue 1 item 11d part 3).
+
+**MoE on the gathered rows.**  An MoE layer (``layers.py::moe``)
+all-gathers its input over "model" (``gather_seq``) and routes the data
+rank's WHOLE rows, as the reference's ``shard_map`` ``in_specs``
+``P(dp, None, None)`` make its cp program do: the branch rule
+(``_moe_ep`` or ``_moe_dense``) reads the gathered token count, so both
+programs take the same branch, route the same token slices at the same
+capacity and drop the same rows.  The output is narrowed back to the
+rank's chunk (``chunk``); the shared experts' MLP is per token and runs
+on the chunk.  The experts stay whole on every rank: ``_moe_ep`` takes
+its E/T rows of each bank, whose other rows get no gradient there.
+
+**The aux loss.**  On ``_moe_ep`` each model rank's slice has its aux
+and the layer's is their ``pmean`` over "model"; on ``_moe_dense``
+every model rank computes the one aux over the same gathered rows.
+Either way every model rank holds the same value and ``cp_lm_loss``
+adds it once.  The reference also pmeans it over the batch axes; here
+each data rank keeps its own (its rows' mean), as the replica step's.
+
+**One memory gather a step.**  An encoder runs on this rank's chunk of
+the source at its global positions, its self-attention on the same
+k/v all-gather (non-causal), and gives the memory's chunk (B, S/T, D).
+``train/loop.py::make_loss_fn`` all-gathers it once a step; cross
+attention then sees the whole memory on every rank and needs no
+collective of its own, and the gather's backward reduce-scatters every
+rank's cotangent onto the chunk's owner.
 
 **The loss.** ``lm_loss`` shifts by one: position p predicts token p + 1,
 so the last position of chunk m predicts the FIRST token of chunk m + 1
@@ -26,14 +51,20 @@ model rank holds the unsharded loss.
 **Which gradients a rank gets.** As for tensor parallelism
 (``tensor_parallel.py``): each rank back-propagates that loss with the
 cotangent 1/T; ``psum``'s backward all-sums, so each rank's token sum
-gets the cotangent 1/(B·(L − 1)), the unsharded loss's.  The k/v
+gets the cotangent 1/(B·(L − 1)), the unsharded loss's.  Every
 all-gather's backward sums every rank's cotangent of this rank's chunk
-(a reduce-scatter), so a rank's gradient of a weight is its share: the
-path through its own chunk's activations, with the cotangents that the
-other ranks' queries sent back through its k and v.  The shares sum to
+(a reduce-scatter): the k/v gathers', the MoE input's and the memory's.
+So a rank's gradient of a weight is its share: the path through its own
+chunk's activations, with the cotangents that the other ranks sent back
+through its k and v, its MoE rows and its memory.  The shares sum to
 the unsharded gradient, and ``CPContext.finalize_grads`` all-sums them
-(every leaf is replicated over "model").  Under ``remat`` the
-all-gather runs again in the recomputation, on every rank alike.
+(every leaf is replicated over "model"; a bank row that ``_moe_ep``
+left to another rank adds zeros).  The aux's cotangent is 1/T on every
+rank: ``pmean``'s backward keeps it 1/T on each slice's aux, and on
+``_moe_dense`` each of the T identical auxes gets 1/T, so the all-sum
+gives the router the aux's gradient once.  Under ``remat`` the
+all-gathers inside a super-block run again in the recomputation, on
+every rank alike.
 """
 
 from __future__ import annotations
@@ -89,19 +120,14 @@ class CPContext:
 
 def check_cp(cfg) -> None:
     """Raise ``NotImplementedError`` for a stack that ``cp`` does not
-    cover: MoE FFNs, recurrent mixers and encoders (ROADMAP.md Queue 1
-    item 11d)."""
+    cover: recurrent mixers (ROADMAP.md Queue 1 item 11d part 3)."""
     specs, _ = cfg.superblock()
     what = sorted({s.mixer for s in specs} - {"attn"})
-    if any(s.ffn == "moe" for s in specs):
-        what.append("an MoE FFN")
-    if cfg.is_encoder_decoder:
-        what.append("an encoder")
     if what:
         raise NotImplementedError(
-            f"sharding_mode='cp' covers attention and dense-MLP stacks; "
-            f"{cfg.name} has {', '.join(what)}: see ROADMAP.md Queue 1 item "
-            "11d")
+            f"sharding_mode='cp' covers attention stacks with dense-MLP or "
+            f"MoE FFNs and encoders; {cfg.name} has {', '.join(what)} "
+            "mixers: see ROADMAP.md Queue 1 item 11d part 3")
 
 
 _STACK: list = []

@@ -28,8 +28,9 @@ reference; cross attention takes the three branches in both its forms
 
 Context parallelism (``models/context_parallel.py``, the reference's
 ``cp`` mode): under a ``cp_context`` the training attention takes q from
-this rank's sequence chunk and all-gathers k and v over "model"; with
-``cfg.sharding_mode == "cp"`` ``_sdpa`` is the reference's grouped
+this rank's sequence chunk and all-gathers k and v over "model", and
+``moe`` routes the all-gathered rows and keeps its chunk of the output;
+with ``cfg.sharding_mode == "cp"`` ``_sdpa`` is the reference's grouped
 einsum (KV heads not expanded), on one device too.
 
 Expert parallelism: ``moe`` takes ``_moe_ep`` under a current mesh
@@ -794,20 +795,29 @@ def moe(p, cfg: ModelConfig, x):
     tokens or more (and this rank's tokens divisible by the axis), else
     the one-device capacity dispatch ``_moe_dense`` (the banks
     all-gathered over "model" first where they are split); plus the
-    shared experts' MLP, replicated, where the layer has one."""
+    shared experts' MLP, replicated, where the layer has one.
+
+    Under a ``cp_context`` x is this rank's chunk: the routed experts run
+    on the data rank's whole rows (x all-gathered over "model", the rule
+    read on them) and the output is narrowed back to the chunk; the
+    shared experts run on the chunk (``context_parallel.py``)."""
     mesh = current_mesh()
+    cp = current_cp()
+    xr = x if cp is None else cp.gather_seq(x)
     e_pad = cfg.num_experts_padded
     ep = _axsize(mesh, "model")
-    b, l = x.shape[:2]
+    b, l = xr.shape[:2]
     if (ep > 1 and e_pad % ep == 0 and (b * l) % ep == 0
-            and _global_tokens(mesh, x) >= 4096):
-        out, aux = _moe_ep(p, cfg, x, mesh)
+            and _global_tokens(mesh, xr) >= 4096):
+        out, aux = _moe_ep(p, cfg, xr, mesh)
     else:
         if p["w_gate"].shape[0] != e_pad:  # banks split over "model"
             comm = mesh.shared_comm("model")
             p = dict(p, **{n: all_gather(p[n], comm, 0)
                            for n in ("w_gate", "w_up", "w_down")})
-        out, aux = _moe_dense(p, cfg, x)
+        out, aux = _moe_dense(p, cfg, xr)
+    if cp is not None:
+        out = cp.chunk(out)
     if "shared" in p:
         out = out + mlp(p["shared"], cfg, x, replicated=True)
     return out, aux

@@ -297,7 +297,8 @@ def forward(params, cfg: ModelConfig, tokens=None, positions=None,
     Under a ``cp_context`` (``models/context_parallel.py``) the tokens or
     embeds are the data rank's whole rows and the forward runs this model
     rank's sequence chunk at its global positions: the logits are the
-    chunk's (B, L/T, V)."""
+    chunk's (B, L/T, V).  The ``memory`` is the whole (B, S, D) there
+    too: cross attention reads every position of it."""
     _check_stack(cfg)
     cp = current_cp()
     if cp is not None:
@@ -340,13 +341,26 @@ def encode(params, cfg: ModelConfig, embeds=None, tokens=None,
     the memory (B, S, D) in the compute dtype.  ``kernel=True`` runs each
     layer's attention as one flash launch (``causal=False``) on CUDA
     tensors, its plain version on CPU tensors; ``kernel=False`` the
-    reference's masked ``_sdpa``, for the loss."""
+    reference's masked ``_sdpa``, for the loss.
+
+    Under a ``cp_context`` (``kernel=False`` only) the source is chunked
+    on its sequence axis: the layers run this rank's chunk at its global
+    positions, each attention on the k/v all-gather, and the memory's
+    chunk (B, S/T, D) comes back (``make_loss_fn`` gathers it)."""
+    cp = current_cp()
+    if cp is not None:
+        if kernel:
+            raise ValueError("cp: encode runs the loss's path "
+                             "(kernel=False) on a rank's chunk")
+        tokens = None if tokens is None else cp.chunk(tokens)
+        embeds = None if embeds is None else cp.chunk(embeds)
     params = cast_compute(params, cfg)
     enc = params["encoder"]
     h = _embed(params, cfg, tokens, embeds)
     b, l = h.shape[:2]
-    positions = torch.arange(l, dtype=torch.int32,
-                             device=h.device).expand(b, l)
+    positions = (torch.arange(l, dtype=torch.int32,
+                              device=h.device).expand(b, l) if cp is None
+                 else cp.positions(b, l, h.device))
     for r in range(cfg.num_encoder_layers):
         p = _index(enc["stack"], r)
         x = L.rms_norm(h, p["pre_norm"], cfg.norm_eps)

@@ -133,16 +133,20 @@ def make_loss_fn(cfg, remat: bool = True):
     recomputes each super-block's activations in the backward pass (the
     reference's default; the trainer CLI passes ``remat=False``).  Under
     a ``cp_context`` the forward runs this rank's sequence chunk and the
-    loss is ``cp_lm_loss`` (the unsharded loss on every model rank)."""
+    loss is ``cp_lm_loss`` (the unsharded loss on every model rank); the
+    encoder runs the source's chunk and its memory is all-gathered once
+    a step, for every cross-attention layer."""
     def loss_fn(params, batch):
+        cp = current_cp()
         memory = None
         if cfg.is_encoder_decoder:
             memory = TM.encode(params, cfg, embeds=batch["source_embeds"],
                                kernel=False)
+            if cp is not None:
+                memory = cp.gather_seq(memory)
         logits, aux = TM.forward(params, cfg, tokens=batch.get("tokens"),
                                  embeds=batch.get("embeds"), memory=memory,
                                  remat=remat)
-        cp = current_cp()
         if cp is not None:
             return cp_lm_loss(logits, batch["labels"], cp, aux)
         return lm_loss(logits, batch["labels"], aux)
@@ -465,8 +469,10 @@ def check_model_axis(cfg) -> None:
     forward takes: attention (self and cross, so the encoder too), the
     dense MLP, the MoE experts (expert parallelism), Mamba and mLSTM
     (split) and sLSTM (replicated).  ``sharding_mode="cp"`` covers
-    attention and dense-MLP stacks; with MoE FFNs, recurrent mixers or
-    an encoder it raises (ROADMAP.md Queue 1 item 11d)."""
+    attention stacks with dense-MLP or MoE FFNs (the MoE on the data
+    rank's gathered rows) and encoders (one memory all-gather a step);
+    with recurrent mixers it raises (ROADMAP.md Queue 1 item 11d part
+    3)."""
     if cfg.sharding_mode == "cp":
         check_cp(cfg)
     elif cfg.sharding_mode != "tp":
@@ -543,9 +549,8 @@ def make_sharded_train_step(cfg, optimizer: Optimizer, mesh,
     paths do.  Under ``sharding_mode="cp"`` (the module docstring) the
     state is one part, ``{"rep": ...}``, the loss runs under
     ``cp_context`` with the same cotangent 1/T and every gradient is
-    all-summed over the model group.  ``cp`` with MoE FFNs, recurrent
-    mixers or an encoder raises ``NotImplementedError``
-    (``check_model_axis``).
+    all-summed over the model group.  ``cp`` with recurrent mixers
+    raises ``NotImplementedError`` (``check_model_axis``).
 
     A policy that scales decides the skip before anything is written, as
     the replica step: the finite flag of this rank's gradients (ZeRO-2/3

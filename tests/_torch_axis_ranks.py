@@ -5,7 +5,8 @@ data x model mesh, and context parallelism.
 One pool of 4 gloo ranks on the CPU (``launch/mesh.py::run_ranks``) runs
 ``axis_pool``: the families' TP forward and gradients on the model ranks
 of data rank 0, the strategies on data 2 x model 2, the hierarchy on pod
-2 x data 1 x model 2 and ``cp`` on data 2 x model 2.  Torch only: a rank
+2 x data 1 x model 2 and ``cp`` on data 2 x model 2 (a dense stack, then
+the MoE families and the encoder-decoder).  Torch only: a rank
 process imports neither JAX nor the JAX package.  The parent-side
 references that need only torch live here too.
 """
@@ -22,9 +23,12 @@ from repro_torch.configs import get_config
 from repro_torch.core import strategies as ST
 from repro_torch.core import tree as T
 from repro_torch.core.comm import HierComm, LocalComm, LocalHierComm
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.core.fabric import Fabric
+from repro_torch.launch.mesh import make_mesh, use_mesh
+from repro_torch.models import layers as L
 from repro_torch.models import tensor_parallel as TP
 from repro_torch.models import transformer as TT
+from repro_torch.models.context_parallel import cp_context
 from repro_torch.train import loop as TL
 
 TP_N = 2
@@ -42,6 +46,16 @@ STRATEGIES = sorted(c for c, (_, _, _, w) in R.STRATEGY_CASES.items()
                     if w == 2)
 HIER = "hier_sync_gossip"
 CP_L = 16  # tokens a data rank's row: 8 a model rank
+GRANITE, QWEN2_MOE = "granite-moe-1b-a400m", "qwen2-moe-a2.7b"
+# cp for the MoE families and the encoder at their .reduced() widths on
+# data 2 x model 2, one row a data rank: (arch, tokens, source frames).
+# At 256 tokens a row (512 global) the MoE takes _moe_dense, at 2048
+# (4096 global) _moe_ep, both at the configs' capacity factor 1.25
+CP_FAMILIES = {"granite_dense": (GRANITE, 256, 0),
+               "qwen2_moe_dense": (QWEN2_MOE, 256, 0),
+               "granite_ep": (GRANITE, 2048, 0),
+               "seamless": (SEAMLESS, 128, 256)}
+CP_BB = 1 << 22  # finalize_grads' buckets: a few a tree
 
 
 def family_cfg(case, tp_degree=TP_N):
@@ -60,6 +74,28 @@ def strategy_cfg():
 def cp_cfg():
     return dataclasses.replace(R.torch_cfg(), num_heads=4, num_kv_heads=2,
                                sharding_mode="cp")
+
+
+def cp_family_cfg(case):
+    return dataclasses.replace(get_config(CP_FAMILIES[case][0]).reduced(),
+                               sharding_mode="cp")
+
+
+def cp_closed_form(cfg, ep: bool):
+    """The model group's autograd collectives of one cp forward and
+    backward without remat: k and v gathered a self-attention layer (the
+    encoder's too), x a MoE layer and ``_moe_ep``'s combine, the memory
+    once; each gather's reduce-scatter backward; the loss's all-sum and
+    ``_moe_ep``'s aux pmean each way; its dispatch and combine
+    all-to-alls and their reverses."""
+    specs, repeat = cfg.superblock()
+    moe = sum(s.ffn == "moe" for s in specs) * repeat
+    attn = sum(s.mixer == "attn" for s in specs) * repeat
+    gathers = 2 * (attn + cfg.num_encoder_layers) + moe * (2 if ep else 1) \
+        + (1 if cfg.is_encoder_decoder else 0)
+    return {"all_gather": gathers, "reduce_scatter": gathers, "psum": 2,
+            "pmean": 2 * moe if ep else 0,
+            "all_to_all": 4 * moe if ep else 0}
 
 
 def family_batch(inputs, case):
@@ -198,6 +234,94 @@ def cp_cases(mesh, inputs):
     return out
 
 
+def _delta(ops, before):
+    return {k: v[0] - before.get(k, (0, 0))[0] for k, v in ops.items()
+            if v[0] - before.get(k, (0, 0))[0]}
+
+
+def cp_family_cases(mesh, inputs):
+    """Each of ``CP_FAMILIES`` on this rank of data 2 x model 2 under
+    ``cp``: the data rank's loss and all-summed gradients through
+    ``make_sharded_train_step`` (``step.local_grads``), the model group's
+    autograd collectives and its backend calls in ``ShardComm.record``
+    meanwhile; then a forward under ``cp_context``: the logits chunk,
+    the aux, each routing's kept rows and the MoE branch taken.  On
+    ``granite_ep`` each MoE layer's output chunk is held bitwise against
+    the chunk of the port's tp-mode ``moe`` (``_moe_ep`` on the whole
+    rows, no context) on the layer's gathered input."""
+    d, m = mesh.coords["data"], mesh.coords["model"]
+    mc = mesh.shared_comm("model")
+    out = {}
+    for case in CP_FAMILIES:
+        cfg = cp_family_cfg(case)
+        params = params_from_numpy(inputs["params"][case], "cpu")
+        batch = {k: torch.from_numpy(v[d:d + 1])
+                 for k, v in inputs["cp_batch"][case].items()}
+        opt = R.optimizer("momentum")
+        state = TL.init_sharded_state(params, opt, mesh, bucket_bytes=CP_BB,
+                                      cfg=cfg)
+        step = TL.make_sharded_train_step(cfg, opt, mesh, remat=False,
+                                          bucket_bytes=CP_BB)
+        before = {k: tuple(v) for k, v in mc.ops.items()}
+        with mc.record() as calls:
+            loss, grads = step.local_grads(state, batch)
+        res = {"loss": loss, "grads": _cpu(grads["rep"]),
+               "ops": _delta(mc.ops, before),
+               "backend_gathers": sum(c["op"] == "all_gather"
+                                      for c in calls),
+               "buckets": Fabric(mc, CP_BB).layout(params).n_buckets,
+               "parts": sorted(state["params"])}
+        kept, branch, io = [], [], []
+        route, moe_ep, moe_dense, moe = L._route, L._moe_ep, L._moe_dense, \
+            L.moe
+
+        def route_spy(*a):
+            r = route(*a)
+            kept.append(int(r[2].sum()))
+            return r
+
+        def moe_spy(p, c, x):
+            o = moe(p, c, x)
+            io.append((p, x, o[0]))
+            return o
+
+        L._route, L.moe = route_spy, moe_spy
+        L._moe_ep = lambda *a: branch.append("ep") or moe_ep(*a)
+        L._moe_dense = lambda *a: branch.append("dense") or moe_dense(*a)
+        try:
+            with torch.no_grad(), use_mesh(mesh), \
+                    cp_context(TP_N, mc) as cp:
+                memory = None
+                if cfg.is_encoder_decoder:
+                    memory = TT.encode(params, cfg,
+                                       embeds=batch["source_embeds"],
+                                       kernel=False)
+                    res["memory_chunk"] = memory
+                    memory = cp.gather_seq(memory)
+                logits, aux = TT.forward(params, cfg, tokens=batch["tokens"],
+                                         memory=memory)
+                whole = [cp.gather_seq(x) for _, x, _ in io]
+            res.update(logits=logits, aux=float(aux), kept=kept,
+                       branch=list(branch))
+            if case == "granite_ep":
+                kept.clear()
+                branch.clear()
+                bitwise = []
+                with torch.no_grad(), use_mesh(mesh):
+                    for (p, _, o), xw in zip(io, whole):
+                        c = o.shape[1]
+                        ref, _ = moe(p, cfg, xw)
+                        bitwise.append(torch.equal(
+                            o, ref[:, m * c:(m + 1) * c]))
+                res["tp_mode"] = {"bitwise": bitwise, "branch": branch[:],
+                                  "kept": kept[:]}
+        finally:
+            L._route, L._moe_ep, L._moe_dense, L.moe = route, moe_ep, \
+                moe_dense, moe
+        out[case] = res
+    return out
+
+
 def axis_pool(rank, world, inputs):
     """The one pool of 4 ranks: every case on this rank."""
     torch.set_num_threads(1)
@@ -208,6 +332,7 @@ def axis_pool(rank, world, inputs):
     out["strategies"] = strategy_cases(mesh, inputs)
     out["hier"] = hier_case(inputs)
     out["cp"] = cp_cases(mesh, inputs)
+    out["cp_families"] = cp_family_cases(mesh, inputs)
     return out
 
 

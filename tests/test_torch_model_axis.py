@@ -25,10 +25,26 @@ runs every rank case while this process runs the references:
     replica step at ``tp_degree`` 2 run per (model rank, part);
   * ``cp`` on data 2 x model 2 against the unsharded loss and gradients
     (the port's and JAX's) and the port's one-rank step, the boundary
-    targets included.
+    targets included;
+  * ``cp`` for the MoE families and the encoder-decoder on data 2 x
+    model 2: the MoE's dense branch (granite and qwen2-moe ``.reduced()``
+    with its shared expert) and seamless ``.reduced()`` against JAX's
+    unsharded forward and ``jax.grad`` of each data rank's rows; the
+    ``_moe_ep`` branch (granite at 4096 global tokens) against the JAX
+    package's own ``cp`` program (``T.forward`` and ``jax.grad`` jitted
+    under a (2, 2) ("data", "model") mesh of host devices, in a
+    subprocess), whose drops and aux are ``_moe_ep``'s slice-local ones
+    and not its unsharded forward's; each rank's MoE output against the
+    port's tp-mode ``_moe_ep`` on the same whole rows; the collectives
+    against their closed form.
 """
 
 import dataclasses
+import os
+import pickle
+import subprocess
+import sys
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
 
 import _torch_axis_ranks as AR
@@ -86,6 +102,15 @@ STRATEGY_BOUNDS = {
 # the steps' params within CP_STEP_ATOL (readings: loss 1.3e-7 relative,
 # gradients 3.3e-7 of the port's, 5.9e-7 of JAX's, params 3.0e-8)
 CP_RTOL, CP_STEP_ATOL = 4e-6, 3e-7
+# cp's _moe_ep branch against the JAX package's cp program (the same
+# routing and drops, f32 sums in other orders and across devices): the
+# logits chunk within CP_EP_LOGITS_ATOL, the loss and the aux (the mean
+# over the data ranks) at rtol 1e-6, each leaf's gradient (the mean over
+# the data ranks) within CP_RTOL of its largest (readings on the CPU:
+# logits 8.1e-6, loss 1.4e-7 and aux 4.0e-8 relative, gradients 1.9e-6
+# of the leaf's largest)
+CP_EP_LOGITS_ATOL = 2e-5
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -119,6 +144,110 @@ def _strategy_tokens(world=2):
                      batch_per_worker=R.BPW)
     return [P.worker_batches(d, world, t, "cpu").numpy()
             for t in range(R.STEPS)]
+
+
+def _cp_family_jcfg(case):
+    return dataclasses.replace(jax_config(AR.CP_FAMILIES[case][0]).reduced(),
+                               sharding_mode="cp")
+
+
+def _cp_family_batch(case, seed):
+    """Two rows (one a data rank) of tokens and, for the encoder-decoder,
+    source frames (normal x 0.02)."""
+    _, l, s = AR.CP_FAMILIES[case]
+    cfg = _cp_family_jcfg(case)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (2, l)).astype(np.int32)
+    out = {"tokens": toks, "labels": toks}
+    if s:
+        out["source_embeds"] = (0.02 * rng.standard_normal(
+            (2, s, cfg.d_model))).astype(np.float32)
+    return out
+
+
+JAX_CP_SCRIPT = r'''
+import dataclasses, pickle, sys
+import numpy as np, jax, jax.numpy as jnp
+from repro.configs import get_config
+from repro.core.jax_compat import make_mesh, set_mesh
+from repro.models import layers as L
+from repro.models import transformer as T
+from repro.train import loop as LOOP
+
+inp = pickle.load(open(sys.argv[1], "rb"))
+cfg = dataclasses.replace(get_config(inp["arch"]).reduced(),
+                          sharding_mode="cp")
+p = jax.tree.map(jnp.asarray, inp["params"])
+toks = jnp.asarray(inp["tokens"])
+mesh = make_mesh((2, 2), ("data", "model"))
+xs, moe = [], L.moe
+
+
+def spy(pm, c, x):  # each MoE layer's input, gathered to the host
+    jax.debug.callback(lambda v: xs.append(np.asarray(v)), x)
+    return moe(pm, c, x)
+
+
+L.moe = spy
+with set_mesh(mesh):
+    logits, aux = jax.jit(lambda p, t: T.forward(p, cfg, tokens=t))(p, toks)
+    logits = np.asarray(logits)
+L.moe = moe
+with set_mesh(mesh):
+    loss, g = jax.jit(jax.value_and_grad(LOOP.make_loss_fn(cfg, remat=False)))(
+        p, {"tokens": toks, "labels": toks})
+# the rows each (data, model) slice keeps, as _moe_ep routes them: the
+# data rank's row, the model rank's half of its tokens
+b, l, d = xs[0].shape
+t_slice = (b // 2) * l // 2
+k, e_pad = cfg.top_k, cfg.num_experts_padded
+cap = int(max(k, round(t_slice * k / e_pad * cfg.capacity_factor)))
+cap = -(-cap // 8) * 8
+kept = []
+for i, x in enumerate(xs):
+    pm = jax.tree.map(lambda a: a[i], p["stack"]["0"]["moe"])
+    per = {}
+    for di in range(2):
+        xt = jnp.asarray(x[di * (b // 2):(di + 1) * (b // 2)]).reshape(-1, d)
+        for mi in range(2):
+            sl = xt[mi * t_slice:(mi + 1) * t_slice]
+            per[(di, mi)] = int(jnp.sum(L._route(pm, cfg, sl, e_pad, cap)[2]))
+    kept.append(per)
+pickle.dump({"logits": logits, "aux": float(aux), "loss": float(loss),
+             "grads": jax.tree.map(np.asarray, g), "kept": kept,
+             "slice_rows": t_slice * k}, open(sys.argv[2], "wb"))
+print("JAX_CP_OK")
+'''
+
+
+def _start_jax_cp(params_np, batch):
+    """The JAX package's cp program on ``granite_ep`` in a subprocess on 4
+    forced host devices: (the process, its output pickle)."""
+    tmp = tempfile.mkdtemp(prefix="cp-")
+    src, dst = os.path.join(tmp, "in.pkl"), os.path.join(tmp, "out.pkl")
+    with open(src, "wb") as f:
+        pickle.dump({"arch": AR.CP_FAMILIES["granite_ep"][0],
+                     "params": params_np, "tokens": batch["tokens"]}, f)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               JAX_PLATFORMS="cpu",
+               XLA_FLAGS=os.environ.get("XLA_FLAGS", "")
+               + " --xla_force_host_platform_device_count=4")
+    proc = subprocess.Popen([sys.executable, "-c", JAX_CP_SCRIPT, src, dst],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, dst
+
+
+def _finish_jax_cp(proc, dst):
+    try:
+        out, err = proc.communicate(timeout=500)
+        assert proc.returncode == 0 and "JAX_CP_OK" in out, err[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    with open(dst, "rb") as f:
+        return pickle.load(f)
 
 
 def _cp_tokens():
@@ -175,9 +304,15 @@ def runs():
     params["strategy"] = np_params(jstrat, seed=60)
     params["cp"] = np_params(dataclasses.replace(jstrat, sharding_mode="cp"),
                              seed=61)
+    for i, case in enumerate(AR.CP_FAMILIES):
+        params[case] = np_params(_cp_family_jcfg(case), seed=70 + i)
+    cp_batch = {case: _cp_family_batch(case, 80 + i)
+                for i, case in enumerate(AR.CP_FAMILIES)}
     s_tokens, cp_tokens = _strategy_tokens(), _cp_tokens()
     inputs = {"params": params, "batch": batches,
-              "strategy_tokens": s_tokens, "cp_tokens": cp_tokens}
+              "strategy_tokens": s_tokens, "cp_tokens": cp_tokens,
+              "cp_batch": cp_batch}
+    jax_cp = _start_jax_cp(params["granite_ep"], cp_batch["granite_ep"])
     with ThreadPoolExecutor(1) as pool:
         fut = pool.submit(run_ranks, AR.axis_pool, 4, args=(inputs,),
                           device="cpu", timeout=600)
@@ -219,7 +354,14 @@ def runs():
             jl, jg = _jax_grads(jccfg, params["cp"], b)
             cp_ref["jax"].append((jl, _jnamed(jg)))
         cp_ref["steps"] = AR.cp_replica_run(params["cp"], cp_tokens)
+        cp_family_ref = {
+            case: [_jax_grads(_cp_family_jcfg(case), params[case],
+                              {k: v[d:d + 1]
+                               for k, v in cp_batch[case].items()})
+                   for d in range(2)]
+            for case in AR.CP_FAMILIES if case != "granite_ep"}
         ranks = fut.result()
+    jax_cp = _finish_jax_cp(*jax_cp)
     by = {r["coords"]: r for r in ranks}
     exchange = {}
     for case in AR.STRATEGIES:
@@ -231,7 +373,8 @@ def runs():
                                               hgrads)
     return {"params": params, "batches": batches, "blocked": blocked,
             "jax": jaxs, "by": by, "s_replica": s_replica,
-            "exchange": exchange, "cp_ref": cp_ref}
+            "exchange": exchange, "cp_ref": cp_ref,
+            "cp_family_ref": cp_family_ref, "jax_cp": jax_cp}
 
 
 FAMILY_CASES = sorted(AR.FAMILIES)
@@ -519,6 +662,107 @@ def test_cp_steps_match_the_one_rank_step(runs):
         np.testing.assert_allclose([float(x) for x in got["losses"]],
                                    [float(x) for x in ref["losses"]],
                                    rtol=1e-6)
+
+
+CP_JAX_UNSHARDED = ["granite_dense", "qwen2_moe_dense", "seamless"]
+
+
+def _moe_layers(case):
+    specs, repeat = AR.cp_family_cfg(case).superblock()
+    return sum(s.ffn == "moe" for s in specs) * repeat
+
+
+@pytest.mark.parametrize("case", CP_JAX_UNSHARDED)
+def test_cp_family_matches_jax_unsharded(runs, case):
+    """The MoE's dense branch (512 global tokens) and the encoder under
+    ``cp``: each rank's loss and all-summed gradients against JAX's
+    unsharded forward and ``jax.grad`` of its data rank's row (loss rtol
+    1e-6, each leaf within CP_RTOL of its largest; CPU readings: loss
+    ≤ 7.3e-8 relative, gradients ≤ 2.6e-6 of the leaf's largest).
+    Every MoE layer takes ``_moe_dense`` on the data rank's gathered
+    rows, at the config's capacity factor, and drops rows there."""
+    cfg = AR.cp_family_cfg(case)
+    tokens = AR.CP_FAMILIES[case][1]
+    for (d, m), r in runs["by"].items():
+        got = r["cp_families"][case]
+        jl, jg = runs["cp_family_ref"][case][d]
+        np.testing.assert_allclose(float(got["loss"]), jl, rtol=1e-6)
+        names = _named(got["grads"])
+        assert set(names) == set(_jnamed(jg))
+        want = _jnamed(jg)
+        bad = {k: x for k, g in names.items()
+               if (x := _ratio(g.numpy(), want[k])) > CP_RTOL}
+        assert not bad, (d, m, bad)
+        assert got["parts"] == ["rep"]
+        assert got["branch"] == ["dense"] * _moe_layers(case)
+        if _moe_layers(case):  # rows dropped
+            rows = tokens * cfg.top_k
+            assert len(got["kept"]) == _moe_layers(case)
+            assert all(k <= rows for k in got["kept"])
+            assert sum(got["kept"]) < rows * len(got["kept"]), got["kept"]
+
+
+def test_cp_moe_ep_matches_the_jax_cp_program(runs):
+    """granite ``.reduced()`` at 2048 tokens a data rank (4096 global):
+    every rank takes ``_moe_ep`` on its data rank's gathered rows, as the
+    JAX package's cp program does; its logits chunk, its kept rows at
+    each (data, model) slice (drops > 0), and over the data ranks the
+    mean loss, aux and gradients against that program's."""
+    want = runs["jax_cp"]
+    cfg = AR.cp_family_cfg("granite_ep")
+    n = _moe_layers("granite_ep")
+    by = {key: r["cp_families"]["granite_ep"] for key, r in runs["by"].items()}
+    dropped = 0
+    for (d, m), got in by.items():
+        assert got["branch"] == ["ep"] * n
+        c = got["logits"].shape[1]
+        np.testing.assert_allclose(
+            got["logits"].numpy(), want["logits"][d:d + 1, m * c:(m + 1) * c],
+            rtol=0, atol=CP_EP_LOGITS_ATOL)
+        assert got["kept"] == [want["kept"][i][(d, m)] for i in range(n)]
+        dropped += sum(want["slice_rows"] - k for k in got["kept"])
+        assert got["loss"] == by[(d, 0)]["loss"]
+    assert dropped > 0
+    mean = [by[(d, 0)] for d in range(2)]
+    np.testing.assert_allclose(np.mean([float(g["loss"]) for g in mean]),
+                               want["loss"], rtol=1e-6)
+    np.testing.assert_allclose(np.mean([g["aux"] for g in mean]),
+                               want["aux"], rtol=1e-6)
+    assert cfg.router_aux_coef > 0 and want["aux"] > 0
+    grads = {k: (a + b) / 2 for (k, a), b in zip(
+        _named(mean[0]["grads"]).items(), _named(mean[1]["grads"]).values())}
+    jg = _jnamed(want["grads"])
+    assert set(grads) == set(jg)
+    bad = {k: x for k, g in grads.items()
+           if (x := _ratio(g.numpy(), jg[k])) > CP_RTOL}
+    assert not bad, bad
+
+
+def test_cp_moe_equals_the_tp_mode_moe_ep_chunk(runs):
+    """On each rank of the ``_moe_ep`` case every MoE layer's output
+    under ``cp`` is bitwise the rank's chunk of the port's tp-mode
+    ``moe`` (``_moe_ep``, no context) on the layer's whole rows."""
+    n = _moe_layers("granite_ep")
+    for key, r in runs["by"].items():
+        tp = r["cp_families"]["granite_ep"]["tp_mode"]
+        assert tp["branch"] == ["ep"] * n, key
+        assert tp["bitwise"] == [True] * n, key
+        assert tp["kept"] == r["cp_families"]["granite_ep"]["kept"], key
+
+
+@pytest.mark.parametrize("case", sorted(AR.CP_FAMILIES))
+def test_cp_family_collectives_closed_form(runs, case):
+    """The model group's collectives of one step's local gradients: the
+    autograd ones (``ShardComm.ops``) equal ``cp_closed_form``, and the
+    backend's all-gathers that ``ShardComm.record`` saw are those
+    gathers, one for each all-sum and all-mean (a reduce-scatter and an
+    all-gather), and one a bucket of ``finalize_grads``."""
+    want = AR.cp_closed_form(AR.cp_family_cfg(case), case == "granite_ep")
+    for key, r in runs["by"].items():
+        got = r["cp_families"][case]
+        assert got["ops"] == {k: v for k, v in want.items() if v}, key
+        assert got["backend_gathers"] == (want["all_gather"] + want["psum"]
+                                          + want["pmean"] + got["buckets"])
 
 
 def test_state_parts_follow_the_cfg():
